@@ -2,17 +2,35 @@
 
     python3 chip_smoke.py
 
-1. Kernel phase: builds kernel K1a from prisim_tpu_torch/csrc with nvcc
-   (sm_90a), then runs it and its plain PyTorch version on the card at
-   the slice's snapshot shape (HERA-37 non-redundant: 666 baselines x
-   1024 channels x 49,152 nside-64 sources, the inputs of snapshot 0),
-   and the float64 golden on 16 baselines from the shortest to the
-   longest. Prints both error normalizations (max|V| and the coherent
-   flux scale max_c sum_s |A|) and the times (CUDA events, warmed up,
-   mean of 3 runs).
-2. Slice phase: run_simulation(parms, device="cuda", save=True) on that
-   configuration with 4 accumulations; checks the output and that the
-   kernel ran once per accumulation.
+Builds kernels K1a (csrc/nudft.cu) and K2 (csrc/banded.cu) with nvcc
+(sm_90a), the two builds started together, then:
+
+1. K1a phase: K1a and its plain PyTorch version on the card at the slice's
+   snapshot shape (HERA-37 non-redundant: 666 baselines x 1024 channels x
+   49,152 nside-64 sources, the inputs of snapshot 0), and the float64
+   golden on 16 baselines from the shortest to the longest. Prints both
+   error normalizations (max|V| and the coherent flux scale
+   max_c sum_s |A|) and the times (CUDA events, warmed up, mean of 3 runs,
+   plain and kernel alternated).
+2. Direct slice phase: run_simulation(parms, device="cuda", save=True)
+   with processing.engine: direct and 4 accumulations; checks the output
+   and that K1a ran once per accumulation.
+3. K2 phase at the slice shape, with the banded engine as the driver
+   builds it (truth amps, rank 32): K2 against its plain version on the
+   same prep outputs of snapshot 0, the banded snapshot against K1a
+   through the engine's gate (both normalizations and the amps-space
+   residual), and the times of K2 and its plain version.
+4. Banded slice phase: run_simulation with processing.engine: auto, which
+   is the banded engine on a card; checks that the gate passed with no
+   demotion, the K2 and K1a launch counts, the output, and that snapshot 0
+   equals the gate's banded snapshot.
+5. North-star snapshot phase: HERA-331 redundant (630 baselines), 1024
+   channels, nside-256 uniform sky (786,432 sources, 3 source chunks), the
+   telescope and band of prisim_tpu/examples/simparms/hera331_northstar.yaml,
+   cut to one accumulation and no products: the gate against K1a over
+   630 x 1024 x 786,432; K2 against its plain version on the first source
+   chunk, and both times; the K2 time per snapshot; K1a against the f64
+   golden on 16 baselines over all 786,432 sources.
 
 Exits non-zero on any failure, and without a CUDA card. The last line is
 {"ok": true, "device": {...}}; the line before it lists the kernels.
@@ -23,20 +41,26 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 BAR = 2e-6            # max|dV| / max|V|, the f32 engines' bar
+GATE_TOL = 2e-6       # banded gate: max|dV| / max_c sum_s |A|
+# K2 vs its plain version, max|d rows| / max|rows|: both sum in float64
+# (readings 2.2e-15 to 2.8e-15 at the slice and the north star), where an
+# f32 sum would read ~1e-7
+ROWS_BAR = 1e-12
 N_GOLDEN_BL = 16
 N_TIMED = 3
 
 
-def slice_parms(rootdir, have_h5py):
+def slice_parms(rootdir, have_h5py, engine, simid):
     from prisim_tpu_torch.config import load_parms
     return load_parms({
         "dirstruct": {"rootdir": rootdir, "project": "chip_smoke",
-                      "simid": "hera37_usm64_drift"},
+                      "simid": simid},
         "telescope": {"id": "hera", "latitude": -30.7224, "Trx": 100.0},
         "array": {"layout": "HERA-37", "redundant": False},
         "antenna": {"shape": "dish", "size": 14.0},
@@ -44,14 +68,37 @@ def slice_parms(rootdir, have_h5py):
                      "nchan": 1024},
         "obsparm": {"obs_mode": "drift", "n_acc": 4, "t_acc": 60.0},
         "skyparm": {"model": "usm", "nside": 64},
+        "processing": {"engine": engine},
         "save_formats": {"fmt": "HDF5" if have_h5py else "none",
                          "npz": True},
     })
 
 
-def cuda_time_ms(fn, n=N_TIMED):
-    """Mean ms of fn() over n runs after one warm-up, by CUDA events."""
-    fn()
+def northstar_parms():
+    """hera331_northstar.yaml's telescope, array and band, cut to one
+    accumulation and no products."""
+    from prisim_tpu_torch.config import load_parms
+    return load_parms({
+        "telescope": {"id": "hera", "latitude": -30.7224,
+                      "longitude": 21.4278, "A_eff": 154.0, "eff_Q": 0.96,
+                      "Trx": 100.0},
+        "array": {"layout": "HERA-331", "redundant": True},
+        "antenna": {"shape": "dish", "size": 14.0},
+        "bandpass": {"freq": 150e6, "freq_resolution": 97656.25,
+                     "nchan": 1024},
+        "obsparm": {"obs_mode": "drift", "n_acc": 1, "t_acc": 60.0},
+        "pointing": {"lst_init": 0.0},
+        "skyparm": {"model": "usm", "nside": 256},
+        "processing": {"engine": "nufft"},
+        "save_formats": {"fmt": "none", "npz": False},
+    })
+
+
+def cuda_time_ms(fn, n=N_TIMED, warm=True):
+    """Mean ms of fn() over n runs, after one warm-up unless fn() has just
+    run, by CUDA events."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
@@ -71,11 +118,39 @@ def importable(name):
         return False
 
 
-def kernel_phase(sim, cuda):
+def golden_pick(inst):
+    """N_GOLDEN_BL baselines from the shortest to the longest, and the
+    lengths of all."""
     from prisim_tpu_torch import twofloat as tf
+    lens = np.linalg.norm(tf.join_f64(inst.bl_hi, inst.bl_lo), axis=1)
+    order = np.argsort(lens)
+    return (order[np.linspace(0, len(lens) - 1, N_GOLDEN_BL).round()
+                  .astype(int)], lens)
+
+
+def k1a_vs_golden(label, inst, seh, sel, amps, v_k, pick, lens, coherent):
+    """K1a's visibilities v_k of baselines `pick` against the float64
+    golden on the same inputs; prints both normalizations and returns
+    (golden, max|dV| / max|V|)."""
+    from prisim_tpu_torch import twofloat as tf
+    from prisim_tpu_torch.engine.nudft import nudft_reference_f64
+    dev = seh.device
+    bl64 = torch.as_tensor(tf.join_f64(inst.bl_hi, inst.bl_lo)[pick],
+                           device=dev)
+    s64 = torch.as_tensor(tf.join_f64(seh, sel), device=dev)
+    gold = nudft_reference_f64(s64, bl64, amps, inst.freqs)
+    g_abs = float((v_k.to(torch.complex128) - gold).abs().max())
+    g_rel_v = g_abs / float(gold.abs().max())
+    print("%s vs f64 golden (%d bl, %.1f-%.1f m): max|dV|=%.4e  "
+          "/max|V|=%.4e  /max_c sum_s|A|=%.4e"
+          % (label, len(pick), lens[pick[0]], lens[pick[-1]], g_abs,
+             g_rel_v, g_abs / coherent))
+    return gold, g_rel_v
+
+
+def kernel_phase(sim, cuda):
     from prisim_tpu_torch.engine import cuda_nudft, observe
-    from prisim_tpu_torch.engine.nudft import (nudft_reference_f64,
-                                               nudft_visibilities)
+    from prisim_tpu_torch.engine.nudft import nudft_visibilities
     inst, sky = sim.inst, sim.sky
     Mh, Ml, pch, pcl = observe.schedule_tensors(sim.obs, inst.latitude,
                                                  cuda)
@@ -99,24 +174,11 @@ def kernel_phase(sim, cuda):
     print("K1a vs plain (all %d bl): max|dV|=%.4e  /max|V|=%.4e  "
           "/max_c sum_s|A|=%.4e" % (B, max_abs, rel_v, rel_c))
 
-    # golden: 16 baselines from the shortest to the longest
-    lens = np.linalg.norm(tf.join_f64(inst.bl_hi, inst.bl_lo), axis=1)
-    order = np.argsort(lens)
-    pick = order[np.linspace(0, B - 1, N_GOLDEN_BL).round().astype(int)]
-    bl64 = torch.as_tensor(tf.join_f64(inst.bl_hi, inst.bl_lo)[pick],
-                           device=cuda)
-    s64 = torch.as_tensor(tf.join_f64(seh, sel), device=cuda)
-    gold = nudft_reference_f64(s64, bl64, amps, inst.freqs)
-    torch.cuda.synchronize()
+    pick, lens = golden_pick(inst)
     pk = torch.as_tensor(pick, device=cuda)
-    g_abs = float((v_k[pk].to(torch.complex128) - gold).abs().max())
-    g_rel_v = g_abs / float(gold.abs().max())
-    g_rel_c = g_abs / coherent
+    gold, g_rel_v = k1a_vs_golden("K1a", inst, seh, sel, amps, v_k[pk],
+                                  pick, lens, coherent)
     p_abs = float((v_p[pk].to(torch.complex128) - gold).abs().max())
-    print("K1a vs f64 golden (%d bl, %.1f-%.1f m): max|dV|=%.4e  "
-          "/max|V|=%.4e  /max_c sum_s|A|=%.4e"
-          % (N_GOLDEN_BL, lens[pick[0]], lens[pick[-1]], g_abs, g_rel_v,
-             g_rel_c))
     print("plain vs f64 golden: /max|V|=%.4e  /max_c sum_s|A|=%.4e"
           % (p_abs / float(gold.abs().max()), p_abs / coherent))
     if not (rel_v < BAR and g_rel_v < BAR):
@@ -139,6 +201,193 @@ def kernel_phase(sim, cuda):
                 plain_ms=ms_p)
 
 
+def phased_snapshot0(vs, parms, v0):
+    """Snapshot 0 `v0` (B, C), phased as run_simulation phases its run."""
+    from prisim_tpu_torch.vis import VisibilitySet, phase_centering
+    ph = parms["phasing"]
+    one = VisibilitySet(baselines=vs.baselines, labels=vs.labels,
+                        freqs=vs.freqs, lst=vs.lst[:1],
+                        skyvis=np.asarray(v0)[:, :, None],
+                        latitude=vs.latitude,
+                        phase_center=vs.pointing_center[:1],
+                        phase_center_coords="altaz")
+    return phase_centering(one, np.atleast_2d(ph["center"]),
+                           ph["coords"]).skyvis[:, :, 0]
+
+
+def check_products(vs, outdir, have_h5py):
+    with np.load(os.path.join(outdir, "simdata", "simvis.npz")) as f:
+        assert np.array_equal(f["skyvis_freq"], vs.skyvis)
+    if have_h5py:
+        from prisim_tpu_torch.io import load_hdf5
+        back = load_hdf5(os.path.join(outdir, "simdata", "simvis.hdf5"))
+        assert np.array_equal(back.skyvis, vs.skyvis)
+
+
+def gate_report(label, gate):
+    """Print the gate's numbers in both normalizations; fail past GATE_TOL
+    of the coherent scale, on ok=False or on a model residual > 1e-4."""
+    direct0, banded0, ok, resid, coherent = gate
+    dmax = float(np.abs(banded0 - direct0).max())
+    vmax = float(np.abs(direct0).max())
+    print("%s gate (banded vs K1a): max|dV|=%.4e  /max|V|=%.4e  "
+          "/max_c sum_s|A|=%.4e  (max|V|=%.4e, max_c sum_s|A|=%.4e), "
+          "ok=%s, amps-space model residual=%.4e"
+          % (label, dmax, dmax / vmax, dmax / coherent, vmax, coherent, ok,
+             resid))
+    if not (ok and dmax / max(vmax, coherent) <= GATE_TOL and resid <= 1e-4):
+        raise SystemExit("%s gate failed" % label)
+    return dmax
+
+
+def k2_phase(parms, cuda):
+    """K2 against its plain version on snapshot 0's prep outputs, the
+    gate, and the times, at the slice shape."""
+    from prisim_tpu_torch.driver import banded_engine, prepare_simulation
+    from prisim_tpu_torch.engine.cuda_banded import banded_spread_cuda
+    from prisim_tpu_torch.engine.nufft_banded import banded_spread_plain
+    from prisim_tpu_torch.engine.observe import schedule_tensors
+    sim = prepare_simulation(parms, cuda)
+    plan, run = banded_engine(parms, sim)
+    print("K2 phase: %d bl -> %d swept rows, D=%d directions, rank %d, "
+          "R_max=%d, n_blk max %d mean %.2f, S=%d in %d chunk(s), truth=%s"
+          % (plan.nbl_full, plan.nbl, plan.ndir, plan.rank, plan.R_max,
+             plan.n_blk_max, plan.consts["n_blk_mean"],
+             sim.sky.flux.shape[0], run.n_chunks, run.truth))
+    Mh, Ml, pch, pcl = (x[0] for x in schedule_tensors(
+        sim.obs, sim.inst.latitude, cuda))
+    u_h, u_l, P_r, ok = run.prep_chunk(0, Mh, Ml, pch, pcl)
+    rows_k = banded_spread_cuda(plan, u_h, u_l, P_r)
+    torch.cuda.synchronize()
+    rows_p = banded_spread_plain(plan, u_h, u_l, P_r)
+    torch.cuda.synchronize()
+    assert bool(ok) and bool(torch.isfinite(rows_k).all())
+    max_abs = float((rows_k - rows_p).abs().max())
+    rel = max_abs / float(rows_p.abs().max())
+    print("K2 vs plain: max|d rows|=%.4e  /max|rows|=%.4e" % (max_abs, rel))
+    if not rel <= ROWS_BAR:
+        raise SystemExit("K2 disagrees with its plain version: %.3e" % rel)
+    gate_report("slice", run.gate_fn(Mh, Ml, pch, pcl))
+    t_plain = cuda_time_ms(lambda: banded_spread_plain(plan, u_h, u_l, P_r))
+    t_k = cuda_time_ms(lambda: banded_spread_cuda(plan, u_h, u_l, P_r))
+    t_k2 = cuda_time_ms(lambda: banded_spread_cuda(plan, u_h, u_l, P_r))
+    t_plain2 = cuda_time_ms(lambda: banded_spread_plain(plan, u_h, u_l, P_r))
+    t_snap = cuda_time_ms(lambda: run(Mh, Ml, pch, pcl))
+    ms_k, ms_p = 0.5 * (t_k + t_k2), 0.5 * (t_plain + t_plain2)
+    print("K2    time: %.4f ms (runs %.4f, %.4f) per snapshot"
+          % (ms_k, t_k, t_k2))
+    print("plain time: %.4f ms (runs %.4f, %.4f) per snapshot"
+          % (ms_p, t_plain, t_plain2))
+    print("banded snapshot (prep + K2 + post): %.4f ms" % t_snap)
+    return dict(max_abs_err=max_abs, ms=ms_k, plain_ms=ms_p)
+
+
+def northstar_phase(cuda):
+    """One north-star snapshot through the banded engine and its gate; K2
+    against its plain version on the first source chunk, and K1a against
+    the f64 golden on N_GOLDEN_BL baselines, at this shape."""
+    from prisim_tpu_torch.driver import banded_engine, prepare_simulation
+    from prisim_tpu_torch.engine import cuda_banded, cuda_nudft
+    from prisim_tpu_torch.engine.nufft_banded import banded_spread_plain
+    from prisim_tpu_torch.engine.observe import (schedule_tensors,
+                                                 snapshot_nudft_inputs)
+    parms = northstar_parms()
+    t0 = time.time()
+    sim = prepare_simulation(parms, cuda)
+    plan, run = banded_engine(parms, sim)
+    torch.cuda.synchronize()
+    print("north-star phase: %d bl -> %d swept rows, D=%d directions, rank "
+          "%d, R_max=%d, n_blk max %d mean %.2f, S=%d in %d chunks of %d, "
+          "truth=%s (set-up %.2f s)"
+          % (plan.nbl_full, plan.nbl, plan.ndir, plan.rank, plan.R_max,
+             plan.n_blk_max, plan.consts["n_blk_mean"],
+             sim.sky.flux.shape[0], run.n_chunks, run.src_chunk, run.truth,
+             time.time() - t0))
+    Mh, Ml, pch, pcl = (x[0] for x in schedule_tensors(
+        sim.obs, sim.inst.latitude, cuda))
+    n1 = cuda_nudft.nudft_cuda.launches
+    n2 = cuda_banded.banded_spread_cuda.launches
+    t0 = time.time()
+    gate = run.gate_fn(Mh, Ml, pch, pcl)
+    print("north-star gate: %.2f s, K1a launches %d, K2 launches %d"
+          % (time.time() - t0, cuda_nudft.nudft_cuda.launches - n1,
+             cuda_banded.banded_spread_cuda.launches - n2))
+    gate_report("north-star", gate)
+    v, ok = run(Mh, Ml, pch, pcl)
+    assert bool(ok) and v.shape == (plan.nbl_full, 1024)
+    assert bool(torch.isfinite(v).all())
+    d0 = float(np.abs(v.cpu().numpy() - gate[1]).max()
+               / np.abs(gate[1]).max())
+    print("north-star snapshot vs the gate's banded snapshot: "
+          "max|dV|/max|V| = %.3e" % d0)
+    assert d0 <= 1e-6, d0
+    del v, gate
+
+    # K2 against its plain version on chunk 0: rows past shared memory
+    # (R_max x 2r doubles per baseline) and the tile skip at nside 256
+    preps = [run.prep_chunk(c, Mh, Ml, pch, pcl) for c in range(run.n_chunks)]
+    u_h, u_l, P_r, ok0 = preps[0]
+    rows_k = cuda_banded.banded_spread_cuda(plan, u_h, u_l, P_r)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    rows_p = banded_spread_plain(plan, u_h, u_l, P_r)
+    torch.cuda.synchronize()
+    print("north-star plain K2 on chunk 0: %.2f s" % (time.time() - t0))
+    assert bool(ok0) and bool(torch.isfinite(rows_k).all())
+    k2_abs = float((rows_k - rows_p).abs().max())
+    k2_rel = k2_abs / float(rows_p.abs().max())
+    print("north-star K2 vs plain (chunk 0 of %d, %d sources, %d rows x "
+          "R_max %d): max|d rows|=%.4e  /max|rows|=%.4e"
+          % (run.n_chunks, run.src_chunk, plan.nbl, plan.R_max, k2_abs,
+             k2_rel))
+    if not k2_rel <= ROWS_BAR:
+        raise SystemExit("north-star K2 disagrees with its plain version: "
+                         "%.3e" % k2_rel)
+    del rows_k, rows_p
+
+    def spreads():
+        for u_h, u_l, P_r, _ in preps:
+            cuda_banded.banded_spread_cuda(plan, u_h, u_l, P_r)
+
+    # times: plain, kernel, plain on chunk 0 (the plain version ran just
+    # above, so it is warm); then K2 and the banded snapshot per snapshot
+    t_p = cuda_time_ms(lambda: banded_spread_plain(plan, *preps[0][:3]),
+                       n=1, warm=False)
+    t_k0 = cuda_time_ms(lambda: cuda_banded.banded_spread_cuda(
+        plan, *preps[0][:3]))
+    t_p2 = cuda_time_ms(lambda: banded_spread_plain(plan, *preps[0][:3]),
+                        n=1, warm=False)
+    t_k = cuda_time_ms(spreads)
+    t_snap = cuda_time_ms(lambda: run(Mh, Ml, pch, pcl))
+    print("north-star chunk 0: K2 %.4f ms, plain %.4f ms (runs %.4f, %.4f)"
+          % (t_k0, 0.5 * (t_p + t_p2), t_p, t_p2))
+    print("north-star K2 time: %.4f ms per snapshot (%d chunks); banded "
+          "snapshot (prep + K2 + post): %.4f ms" % (t_k, run.n_chunks, t_snap))
+    del preps
+    torch.cuda.empty_cache()
+
+    # K1a against the f64 golden on the direct engine's inputs
+    inst = sim.inst
+    seh, sel, amps = snapshot_nudft_inputs(inst, sim.sky, Mh, Ml, pch, pcl,
+                                           sim.beam_fn)
+    pick, lens = golden_pick(inst)
+    pk = torch.as_tensor(pick, device=cuda)
+    t0 = time.time()
+    v_k = cuda_nudft.nudft_cuda(seh, sel, inst.bl_hi[pk].contiguous(),
+                                inst.bl_lo[pk].contiguous(), amps,
+                                inst.grid_scalars(), inst.nchan)
+    torch.cuda.synchronize()
+    print("north-star K1a on %d bl x %d ch x %d sources: %.2f s"
+          % (len(pick), inst.nchan, seh.shape[0], time.time() - t0))
+    assert bool(torch.isfinite(v_k).all())
+    coherent = float(amps.abs().sum(dim=0).max())
+    _, g_rel_v = k1a_vs_golden("north-star K1a", inst, seh, sel, amps, v_k,
+                               pick, lens, coherent)
+    if not g_rel_v < BAR:
+        raise SystemExit("north-star K1a disagrees with the golden: %.3e "
+                         "(bar %.0e)" % (g_rel_v, BAR))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -146,8 +395,7 @@ def main():
         return 1
     from prisim_tpu_torch._build import build_info, load_kernel_library
     from prisim_tpu_torch.driver import prepare_simulation, run_simulation
-    from prisim_tpu_torch.engine import cuda_nudft
-    from prisim_tpu_torch.vis import VisibilitySet, phase_centering
+    from prisim_tpu_torch.engine import cuda_banded, cuda_nudft
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -162,61 +410,109 @@ def main():
              torch.cuda.device_count()))
     print("h5py importable: %s; yaml importable: %s" % (have_h5py, have_yaml))
 
-    load_kernel_library("nudft")
-    info = build_info("nudft")
-    print("K1a build: %.2f s (%s) -> %s"
-          % (info["seconds"], "compiled" if info["built"] else "cached",
-             info["path"]))
-    print(info["report"].strip())
+    t0 = time.time()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        list(pool.map(load_kernel_library, ("nudft", "banded")))
+    print("kernel builds (in parallel): %.2f s" % (time.time() - t0))
+    for kname in ("nudft", "banded"):
+        info = build_info(kname)
+        print("%s build: %.2f s (%s) -> %s"
+              % (kname, info["seconds"],
+                 "compiled" if info["built"] else "cached", info["path"]))
+        print(info["report"].strip())
 
     root = os.path.dirname(os.path.abspath(__file__))
     out_root = os.path.join(root, "build", "chip_smoke")
-    parms = slice_parms(out_root, have_h5py)
-    sim = prepare_simulation(parms, cuda)
+    direct = slice_parms(out_root, have_h5py, "direct", "hera37_usm64_direct")
+
+    t0 = time.time()
+    sim = prepare_simulation(direct, cuda)
     k = kernel_phase(sim, cuda)
     del sim
     torch.cuda.empty_cache()
+    print("[K1a phase: %.2f s]" % (time.time() - t0))
 
-    print("slice phase: run_simulation(device='cuda'), products: NPZ%s"
-          % (" + HDF5" if have_h5py else " only (no h5py)"))
-    cuda_nudft.nudft_cuda.launches = 0
+    print("direct slice phase: run_simulation(device='cuda'), engine: "
+          "direct, products: NPZ%s" % (" + HDF5" if have_h5py else
+                                       " only (no h5py)"))
     t0 = time.time()
-    vs, outdir = run_simulation(parms, verbose=True, save=True, device=cuda)
+    cuda_nudft.nudft_cuda.launches = 0
+    vs, outdir = run_simulation(direct, verbose=True, save=True, device=cuda)
+    k1a_launches = cuda_nudft.nudft_cuda.launches
     wall = time.time() - t0
-    launches = cuda_nudft.nudft_cuda.launches
-    print("slice wall-clock: %.3f s (666 bl x 1024 ch x 4 acc, 49152 src), "
-          "K1a launches: %d" % (wall, launches))
+    print("direct slice wall-clock: %.3f s (666 bl x 1024 ch x 4 acc, "
+          "49152 src), K1a launches: %d" % (wall, k1a_launches))
     assert vs.skyvis.shape == (666, 1024, 4), vs.skyvis.shape
     assert np.isfinite(vs.skyvis).all() and np.isfinite(vs.vis).all()
-    assert launches == 4, launches
-    # snapshot 0 of the run = the kernel phase's result, phased the same
-    ph = parms["phasing"]
-    one = VisibilitySet(baselines=vs.baselines, labels=vs.labels,
-                        freqs=vs.freqs, lst=vs.lst[:1],
-                        skyvis=k["v0"][:, :, None],
-                        latitude=vs.latitude,
-                        phase_center=vs.pointing_center[:1],
-                        phase_center_coords="altaz")
-    want = phase_centering(one, np.atleast_2d(ph["center"]),
-                           ph["coords"]).skyvis[:, :, 0]
+    assert k1a_launches == 4, k1a_launches
+    want = phased_snapshot0(vs, direct, k["v0"])
     d0 = np.abs(vs.skyvis[:, :, 0] - want).max() / np.abs(want).max()
     print("snapshot 0 vs kernel phase: max|dV|/max|V| = %.3e (%s)"
           % (d0, "bit-exact" if d0 == 0 else "not bit-exact"))
     assert d0 <= 1e-6, d0
-    with np.load(os.path.join(outdir, "simdata", "simvis.npz")) as f:
-        assert np.array_equal(f["skyvis_freq"], vs.skyvis)
-    if have_h5py:
-        from prisim_tpu_torch.io import load_hdf5
-        back = load_hdf5(os.path.join(outdir, "simdata", "simvis.hdf5"))
-        assert np.array_equal(back.skyvis, vs.skyvis)
+    check_products(vs, outdir, have_h5py)
+    direct_skyvis = vs.skyvis
+    del vs
+    print("[direct slice phase: %.2f s]" % (time.time() - t0))
+
+    banded = slice_parms(out_root, have_h5py, "auto", "hera37_usm64_banded")
+    t0 = time.time()
+    k2 = k2_phase(banded, cuda)
+    torch.cuda.empty_cache()
+    print("[K2 phase: %.2f s]" % (time.time() - t0))
+
+    print("banded slice phase: run_simulation(device='cuda'), engine: auto")
+    t0 = time.time()
+    dump = os.path.join(out_root, "banded_gate.npz")
+    os.makedirs(out_root, exist_ok=True)
+    os.environ["PRISIM_DEBUG_XCHECK_DUMP"] = dump
+    cuda_nudft.nudft_cuda.launches = 0
+    cuda_banded.banded_spread_cuda.launches = 0
+    vs, outdir = run_simulation(banded, verbose=True, save=True, device=cuda)
+    k2_launches = cuda_banded.banded_spread_cuda.launches
+    gate_k1a = cuda_nudft.nudft_cuda.launches
+    del os.environ["PRISIM_DEBUG_XCHECK_DUMP"]
+    wall = time.time() - t0
+    print("banded slice wall-clock: %.3f s, K2 launches: %d (gate 1 + 4 "
+          "snapshots expected), K1a launches: %d (the gate's direct side, "
+          "hi + lo: 2 expected; a demotion adds 4)"
+          % (wall, k2_launches, gate_k1a))
+    assert k2_launches == 5 and gate_k1a == 2, (k2_launches, gate_k1a)
+    assert vs.skyvis.shape == (666, 1024, 4), vs.skyvis.shape
+    assert np.isfinite(vs.skyvis).all() and np.isfinite(vs.vis).all()
+    with np.load(dump) as g:
+        gate = (g["direct0"], g["fast0"], bool(g["ok0"]),
+                float(g["resid0"]), float(g["csA0"]))
+    gate_report("banded slice", gate)
+    want = phased_snapshot0(vs, banded, gate[1])
+    d0 = np.abs(vs.skyvis[:, :, 0] - want).max() / np.abs(want).max()
+    print("snapshot 0 vs the gate's banded snapshot: max|dV|/max|V| = %.3e"
+          % d0)
+    assert d0 <= 1e-6, d0
+    dd = np.abs(vs.skyvis - direct_skyvis).max()
+    print("banded run vs direct run, all 4 snapshots: max|dV|/max|V| = %.3e"
+          % (dd / np.abs(direct_skyvis).max()))
+    check_products(vs, outdir, have_h5py)
+    del vs, direct_skyvis
+    torch.cuda.empty_cache()
+    print("[banded slice phase: %.2f s]" % (time.time() - t0))
+
+    t0 = time.time()
+    northstar_phase(cuda)
+    print("[north-star phase: %.2f s]" % (time.time() - t0))
 
     print(smi)
-    print(json.dumps({"kernels": [{
-        "name": "nudft_k1a", "route": "cuda",
-        "source": cuda_nudft.KERNEL_SOURCE,
-        "replaces": cuda_nudft.TPU_KERNEL, "launches": launches,
-        "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-        "plain_ms": k["plain_ms"]}]}))
+    print(json.dumps({"kernels": [
+        {"name": "nudft_k1a", "route": "cuda",
+         "source": cuda_nudft.KERNEL_SOURCE,
+         "replaces": cuda_nudft.TPU_KERNEL, "launches": k1a_launches,
+         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+         "plain_ms": k["plain_ms"]},
+        {"name": "banded_k2", "route": "cuda",
+         "source": cuda_banded.KERNEL_SOURCE,
+         "replaces": cuda_banded.TPU_KERNEL, "launches": k2_launches,
+         "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
+         "plain_ms": k2["plain_ms"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

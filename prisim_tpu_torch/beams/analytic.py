@@ -5,17 +5,21 @@ All functions take
   dircos : (nsrc, 3) float32 direction cosines in local (E, N, U)
   freqs  : (nchan,) float32 frequencies in Hz
 and return (nsrc, nchan) float32 field or power patterns, on the device
-of `dircos`.
+of `dircos`. `airy_beam_df` is the float64 truth pattern of the banded
+engine's truth-amps path.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 
 from prisim_tpu import constants as CNST
 
-__all__ = ["bessel_j1", "airy_beam", "gaussian_beam"]
+__all__ = ["bessel_j1", "airy_beam", "airy_beam_df", "airy_df_available",
+           "gaussian_beam"]
 
 
 def _j1_cheb_coeffs(deg=26):
@@ -36,7 +40,8 @@ def _j1_cheb_coeffs(deg=26):
     return np.polynomial.chebyshev.chebfit(nodes, g, deg)
 
 
-_J1_CHEB = [float(np.float32(c)) for c in _j1_cheb_coeffs()]
+_J1_CHEB64 = _j1_cheb_coeffs()
+_J1_CHEB = [float(np.float32(c)) for c in _J1_CHEB64]
 
 
 def bessel_j1(x):
@@ -83,6 +88,80 @@ def _offaxis_sin(dircos, pointing_dircos=None):
     sinang = torch.sqrt(torch.clip(1.0 - cosang ** 2, 0.0, 1.0))
     below = torch.logical_or(dircos[:, 2] < 0.0, cosang < 0.0)
     return sinang, below
+
+
+def _j1_true(x, N=4096):
+    """True J1 in float64 via the integral representation
+    J1(x) = (1/pi) int_0^pi cos(theta - x sin(theta)) dtheta, midpoint
+    rule (geometric convergence for analytic integrands). Host numpy,
+    fit time only."""
+    x = np.asarray(x, np.float64)
+    th = (np.arange(N) + 0.5) * np.pi / N
+    return np.mean(np.cos(th[None, :] - x[:, None]
+                          * np.sin(th)[None, :]), axis=1)
+
+
+_AIRY_TAIL_HI = 32.0
+
+
+@functools.lru_cache(maxsize=None)
+def _airy_tail_cheb(deg=40):
+    """Chebyshev coefficients of h(x) = 2 J1(x)/x on x in [8, 32]
+    (t = (x - 20)/12), fit in f64 against the true J1 integral; residual
+    ~1e-16. Computed at first use (~0.3 s), not at import."""
+    xs = np.linspace(8.0, _AIRY_TAIL_HI, 4001)
+    h = 2.0 * _j1_true(xs) / xs
+    t = (xs - 20.0) / 12.0
+    return np.polynomial.chebyshev.chebfit(t, h, deg)
+
+
+def _clenshaw(t, coeffs):
+    """Clenshaw evaluation of a Chebyshev series at the float64 tensor t,
+    in the recurrence order of the JAX package's _df_clenshaw."""
+    t2 = 2.0 * t
+    b1 = torch.zeros_like(t)
+    b2 = torch.zeros_like(t)
+    for c in coeffs[:0:-1]:
+        b1, b2 = t2 * b1 - b2 + float(c), b1
+    return t * b1 - b2 + float(coeffs[0])
+
+
+def airy_beam_df(s_hi, s_lo, freqs, diameter, power=True):
+    """The truth Airy power pattern of the banded engine's truth-amps path,
+    in float64.
+
+    Counterpart of the JAX package's two-float `airy_beam_df`, which
+    exists because the TPU has no float64; the card has it, so the same
+    model is evaluated in float64 tensors: sin(theta) = sqrt(l^2 + m^2)
+    from the two-float source vectors, x = pi D nu / c sin(theta), and
+    2 J1(x)/x by Clenshaw on the [0, 8) Chebyshev fit of bessel_j1 and
+    the degree-40 true-J1 fit on [8, 32] (no division, no trigonometry).
+
+    s_hi, s_lo : (S, 3) float32 two-float ENU direction cosines
+    freqs      : (r,) host float64 frequencies; pi*D*max(freqs)/c must be
+                 <= 32 (callers check airy_df_available)
+    Returns the (S, r) float64 power (or field) pattern, zero below the
+    horizon (sign of the two-float Up component)."""
+    freqs = np.asarray(freqs, np.float64)
+    a = np.pi * freqs * (diameter / CNST.c)      # x = a * sin(theta)
+    if a.max() > _AIRY_TAIL_HI:
+        raise ValueError("airy_beam_df: pi*D*nu/c = %.1f exceeds the "
+                         "[8,32] tail fit domain" % a.max())
+    s = s_hi.double() + s_lo.double()
+    s2 = torch.clamp(s[:, 0] * s[:, 0] + s[:, 1] * s[:, 1], max=1.0)
+    x = torch.sqrt(s2)[:, None] * torch.as_tensor(a, device=s.device)[None]
+    small = 2.0 * _clenshaw(x * x * (1.0 / 32.0) - 1.0, _J1_CHEB64)
+    tail = _clenshaw((x - 20.0) * (1.0 / 12.0), _airy_tail_cheb())
+    p = torch.where(x >= 8.0, tail, small)
+    if power:
+        p = p * p
+    return torch.where((s[:, 2] > 0.0)[:, None], p, torch.zeros_like(p))
+
+
+def airy_df_available(freqs, diameter):
+    """True when airy_beam_df's tail fit covers the band."""
+    return (np.pi * float(np.max(freqs)) * diameter / CNST.c
+            <= _AIRY_TAIL_HI)
 
 
 def airy_beam(dircos, freqs, diameter, pointing_dircos=None, power=True):

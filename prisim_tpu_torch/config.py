@@ -96,11 +96,16 @@ DEFAULT_PARMS = {
                    "delay_transform": False, "memsave": False,
                    "store_prev_sky": True, "cleanup": 3,
                    "src_block": 512, "use_pallas": "auto", "acc_chunk": None,
-                   # engine: 'auto' and 'direct' run the direct NUDFT
-                   # (kernel K1a on a card); 'nufft' (the banded engine)
-                   # is not ported yet. The nufft_* keys keep the JAX
-                   # package's schema (see prisim_tpu/config.py) and
-                   # are read by no ported code.
+                   # engine: 'direct' runs the direct NUDFT (kernel K1a
+                   # on a card), 'nufft' the banded delay-space NUFFT
+                   # (kernel K2 on a card) behind its gate against the
+                   # direct engine; 'auto' is 'nufft' on a card and
+                   # 'direct' on the CPU. The nufft_* keys keep the JAX
+                   # package's schema (see prisim_tpu/config.py);
+                   # nufft_spread 'sorted' raises (not ported),
+                   # nufft_inflight is inert (NOOP_KEYS) and
+                   # nufft_dot_split only sets the plan field (K2 sums
+                   # in float64).
                    "engine": "auto", "nufft_rank": None,
                    "nufft_spread": "auto",
                    "nufft_crosscheck": True, "nufft_inflight": None,
@@ -146,6 +151,9 @@ NOOP_KEYS = {
         "not this boolean",
     "skyparm.21cmfast":
         "HI-cube selection is via skyparm.model, not this boolean",
+    "processing.nufft_inflight":
+        "banded snapshots run one after another in eager PyTorch; there is "
+        "no queue of dispatched snapshots to bound",
     "pp.eqvol":
         "the port runs on one device; there is no work-stealing counter "
         "to toggle",

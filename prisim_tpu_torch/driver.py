@@ -1,12 +1,18 @@
 """Simulation driver: parameters -> drift scan on one device -> products.
 
-Counterpart of prisim_tpu/driver.py for the direct engine on one device:
+Counterpart of prisim_tpu/driver.py on one device:
 
   load_parms -> layout (+ perturbations) -> baselines -> frequency grid
   -> observation schedule (drift|track|file) -> sky model (+ precession,
-  roi_radius) -> beam -> NUDFT drift scan (kernel K1a on a CUDA card, its
-  plain version on the CPU) -> Tsys/noise -> gains -> phasing ->
+  roi_radius) -> beam -> drift scan -> Tsys/noise -> gains -> phasing ->
   projection -> optional delay transform -> HDF5/NPZ + metadata.
+
+The drift scan runs one of two engines (processing.engine): the direct
+NUDFT (kernel K1a on a CUDA card, its plain version on the CPU) or the
+banded delay-space NUFFT (kernel K2 on a card, its plain version on the
+CPU), behind a gate against the direct engine that demotes the run to the
+direct engine when it fails. 'auto' picks the banded engine on a card and
+the direct engine on the CPU.
 
 The device is explicit: run_simulation(..., device="cuda") raises when no
 card is present and never carries on on the CPU. Branches that are not
@@ -17,6 +23,8 @@ ROADMAP item that ports them.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import gc
 import json
 import os
 import time
@@ -36,16 +44,21 @@ from prisim_tpu.skymodel import (SkyModel, healpix_diffuse_model,
 from . import __version__
 from . import geometry as geom
 from . import windows as win
+from .beams.analytic import airy_beam_df, airy_df_available
 from .beams.dispatch import check_ported as check_beam_ported
 from .beams.dispatch import primary_beam
 from .config import dump_parms, load_parms
 from .engine.noise import generate_noise, thermal_noise_rms
+from .engine.nufft_banded import PlanRejected, make_banded_plan, \
+    make_banded_snapshot_fns
+from .engine.nufft_delay import chebyshev_node_model, chebyshev_projection
 from .engine.observe import Instrument, Observation, SkySources, \
-    simulate_drift
+    schedule_tensors, simulate_drift
 from .vis import VisibilitySet, delay_transform, phase_centering, \
     project_baselines
 
 __all__ = ["run_simulation", "prepare_simulation", "resolve_device",
+           "banded_engine",
            "build_layout", "build_frequencies", "build_schedule",
            "build_sky", "build_tsys", "precess_sky_to_obs_epoch", "main"]
 
@@ -514,15 +527,30 @@ def _telescope(parms):
     return telescope
 
 
+def _resolve_engine(parms, device):
+    """'direct' or 'nufft': processing.engine, with 'auto' resolved as
+    the reference resolves it on its accelerator (the banded NUFFT engine
+    on a CUDA card, the direct engine on the CPU)."""
+    engine = (parms["processing"].get("engine") or "auto").lower()
+    if engine == "auto":
+        return "nufft" if device.type == "cuda" else "direct"
+    if engine not in ("direct", "nufft"):
+        raise ValueError("processing.engine must be auto, direct or nufft")
+    return engine
+
+
 def check_supported(parms, device):
     """Raise, before any compute, for every branch the port lacks."""
     proc = parms["processing"]
-    engine = (proc.get("engine") or "auto").lower()
+    engine = _resolve_engine(parms, device)
     if engine == "nufft":
-        raise _not_ported("processing.engine: nufft (banded NUFFT, "
-                          "kernel K2)", "9-11")
-    if engine not in ("auto", "direct"):
-        raise ValueError("processing.engine must be auto, direct or nufft")
+        spread = str(proc.get("nufft_spread") or "auto").lower()
+        if spread == "sorted":
+            raise _not_ported("processing.nufft_spread: sorted (the sorted "
+                              "spread; the port has the banded one)", 9)
+        if spread not in ("auto", "banded"):
+            raise ValueError("processing.nufft_spread must be auto, banded "
+                             "or sorted")
     if proc.get("use_pallas") is False and device.type == "cuda":
         raise ValueError("processing.use_pallas: false asks for the plain "
                          "NUDFT, but on a CUDA device the direct engine "
@@ -566,8 +594,13 @@ def check_supported(parms, device):
         raise _not_ported("diagnosis.jax_profile/resource_monitor", 17)
 
 
-def _make_beam_fn(parms, telescope):
-    """beam_fn(dircos, freqs) -> (S, C) power pattern on dircos's device."""
+def _make_beam_fn(parms, telescope, freqs):
+    """beam_fn(dircos, freqs) -> (S, C) power pattern on dircos's device.
+
+    Where the beam is a plain chromatic zenith Airy dish (the conditions
+    of the reference, prisim_tpu/driver.py:983-1015), it also carries
+    beam_fn.df_eval(s_hi, s_lo, nu) -> (S, len(nu)) float64, the truth
+    pattern of the banded engine's truth-amps path."""
     bm = parms.get("beam") or {}
     achromatic = bm.get("chromatic") is False
     sel_freq = float(bm.get("select_freq") or 150e6)
@@ -581,6 +614,25 @@ def _make_beam_fn(parms, telescope):
             return pb1.expand(dircos.shape[0], f.shape[0])
         return primary_beam(dircos, f, telescope, pol=pol)
 
+    if not achromatic and not telescope.get("groundplane"):
+        tid = telescope.get("id")
+        odc = telescope.get("orientation_dircos")
+        # hera/hirax steer the Airy axis by orientation_dircos and the
+        # truth form is zenith-only; the generic dish ignores orientation
+        zenith = odc is None or (abs(odc[0]) < 1e-12 and abs(odc[1]) < 1e-12
+                                 and odc[2] > 0)
+        if tid in ("hera", "hirax"):
+            dia = (14.0 if tid == "hera" else 6.0) if zenith else None
+        elif (tid not in ("vla", "gmrt", "ugmrt", "mwa", "mwa_dipole",
+                          "paper")
+              and telescope.get("aperture_locs") is None
+              and telescope.get("shape") == "dish"):
+            dia = telescope.get("size")
+        else:
+            dia = None
+        if dia and airy_df_available(freqs, float(dia)):
+            beam_fn.df_eval = functools.partial(airy_beam_df,
+                                                diameter=float(dia))
     return beam_fn
 
 
@@ -593,6 +645,7 @@ class Simulation:
     obs: Observation
     telescope: dict
     inst: Instrument
+    skymodel: SkyModel           # host sky (the truth path's node fluxes)
     sky: SkySources
     beam_fn: object
     src_block: int
@@ -644,8 +697,30 @@ def prepare_simulation(parms, device, verbose=False):
     if verbose:
         print("[prisim_tpu_torch] %d bl x %d chan x %d acc, %d sources on %s"
               % (bls.nbl, freqs.size, obs.n_acc, sky.nsrc, device))
-    return Simulation(layout, bls, freqs, obs, telescope, inst, sks,
-                      _make_beam_fn(parms, telescope), src_block)
+    return Simulation(layout, bls, freqs, obs, telescope, inst, sky, sks,
+                      _make_beam_fn(parms, telescope, freqs), src_block)
+
+
+class _EngineDemotion(Exception):
+    """Internal: re-run with processing.engine: direct once the failed
+    attempt's frame, and with it its device buffers, has unwound (the
+    loop of the reference's run_simulation)."""
+
+    def __init__(self, parms):
+        super().__init__("engine demotion")
+        self.parms = parms
+
+
+def _demote(parms, reason):
+    """Print why the banded engine is refused; the demotion to raise.
+    Every demotion goes to the direct engine: the reference's sorted
+    spread, its target for a rejected plan or a non-unit source, is not
+    ported."""
+    print("[prisim_tpu_torch] %s; falling back to the direct engine"
+          % reason)
+    p2 = dict(parms)
+    p2["processing"] = dict(parms["processing"], engine="direct")
+    return _EngineDemotion(p2)
 
 
 def run_simulation(parms, outdir=None, verbose=True, save=True,
@@ -653,22 +728,146 @@ def run_simulation(parms, outdir=None, verbose=True, save=True,
     """Run a full simulation from a parameter source (path, YAML string
     or dict) on `device` ('cuda' or 'cpu').
 
-    Returns (VisibilitySet, output_dir or None)."""
+    processing.engine 'auto' runs the banded NUFFT engine (kernel K2,
+    gated against the direct engine) on a CUDA card and the direct engine
+    on the CPU. Returns (VisibilitySet, output_dir or None)."""
     if not isinstance(parms, dict) or "telescope" not in parms:
         parms = load_parms(parms)
     dev = resolve_device(device)
+    cur = parms
+    while True:
+        try:
+            return _run_simulation_inner(cur, outdir, verbose, save, dev)
+        except _EngineDemotion as dem:
+            cur = dem.parms
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+
+
+def _run_simulation_inner(parms, outdir, verbose, save, dev):
     check_supported(parms, dev)
     t0 = time.time()
     sim = prepare_simulation(parms, dev, verbose=verbose)
     _phase(verbose, "inputs built and on %s" % dev, t0)
     t1 = time.time()
-    vis_tbc = simulate_drift(sim.inst, sim.sky, sim.obs, sim.beam_fn,
-                             src_block=sim.src_block)
+    if _resolve_engine(parms, dev) == "nufft":
+        vis_tbc = _simulate_banded(parms, sim, verbose)
+    else:
+        vis_tbc = simulate_drift(sim.inst, sim.sky, sim.obs, sim.beam_fn,
+                                 src_block=sim.src_block)
     skyvis = np.ascontiguousarray(
         np.transpose(vis_tbc.cpu().numpy(), (1, 2, 0)))
     _phase(verbose, "visibilities computed + transferred", t1)
     return _finalize_simulation(parms, sim, skyvis, outdir, verbose, save,
                                 t0, dev)
+
+
+_ON = ("auto", "true", "1", "yes", "on")
+
+
+def banded_engine(parms, sim):
+    """(plan, snapshot functions) of the banded NUFFT engine for `sim`,
+    built as the driver builds them (prisim_tpu/driver.py:1139-1410):
+    rank 16 for a fractional bandwidth <= 0.4, else 32, capped at half
+    the channels; the node model; truth amps where the beam has a truth
+    form (beam_fn.df_eval), with dot_split 4 in the plan. Raises
+    PlanRejected when the plan is rejected."""
+    proc = parms["processing"]
+    freqs = sim.freqs
+    frac_bw = (freqs[-1] - freqs[0]) / freqs[freqs.size // 2]
+    rank = int(proc.get("nufft_rank") or (16 if frac_bw <= 0.4 else 32))
+    rank = min(rank, max(2, freqs.size // 2), freqs.size)
+    node_model = bool(proc.get("nufft_node_model", True))
+    truth_req = str(proc.get("nufft_truth_amps", "auto")).lower()
+    truth_on = (node_model and truth_req in _ON
+                and hasattr(sim.beam_fn, "df_eval"))
+    if truth_req in _ON and truth_req != "auto" and not truth_on:
+        print("[prisim_tpu_torch] nufft_truth_amps requested but "
+              "unavailable (needs the node model and a truth beam form); "
+              "using the f32 path")
+    if node_model and not proc.get("nufft_crosscheck", True):
+        print("[prisim_tpu_torch] warning: nufft_node_model is on with "
+              "nufft_crosscheck disabled - non-smooth source spectra may "
+              "lose accuracy ungated (set nufft_node_model: false for the "
+              "projection form)")
+    plan_kw = {k: v for k, v in dict(
+        beta=proc.get("nufft_beta"),
+        dot_split=proc.get("nufft_dot_split")).items() if v}
+    if truth_on:
+        plan_kw.setdefault("dot_split", 4)
+    plan = make_banded_plan(np.asarray(sim.bls.vectors), sim.inst.nu0,
+                            sim.inst.dnu, freqs.size, rank=rank, **plan_kw)
+    pinvQ, Q = chebyshev_projection(freqs, rank)
+    truth = None
+    if truth_on:
+        nm = chebyshev_node_model(freqs, rank)
+        truth = {"beam_df": sim.beam_fn.df_eval,
+                 "flux_nodes": sim.skymodel.generate_spectrum(nm.nu_nodes)}
+    return plan, make_banded_snapshot_fns(
+        sim.inst, sim.sky, sim.beam_fn, plan, pinvQ, Q,
+        gate_src_block=sim.src_block, node_model=node_model, truth=truth)
+
+
+def _simulate_banded(parms, sim, verbose):
+    """All accumulations through the banded NUFFT engine, behind its
+    shared-amps gate on snapshot 0 (prisim_tpu/driver.py:1346-1500).
+    Returns (T, B, C) complex64 or raises _EngineDemotion."""
+    proc = parms["processing"]
+    try:
+        plan, snap = banded_engine(parms, sim)
+    except PlanRejected as exc:
+        raise _demote(parms, "banded NUFFT plan rejected (%s)" % exc)
+    if verbose:
+        print("[prisim_tpu_torch] banded NUFFT: %d bl -> %d swept rows, "
+              "%d directions, rank %d, R_max %d, n_blk max %d, %d source "
+              "chunk(s) of %d%s"
+              % (plan.nbl_full, plan.nbl, plan.ndir, plan.rank, plan.R_max,
+                 plan.n_blk_max, snap.n_chunks, snap.src_chunk,
+                 ", truth amps" if snap.truth else ""))
+    Mh, Ml, pch, pcl = schedule_tensors(sim.obs, sim.inst.latitude,
+                                        sim.inst.device)
+    if proc.get("nufft_crosscheck", True):
+        t1 = time.time()
+        tol = float(proc.get("nufft_crosscheck_tol") or 2e-6)
+        rtol = float(proc.get("nufft_resid_tol") or 1e-4)
+        direct0, banded0, ok0, resid0, cs0 = snap.gate_fn(
+            Mh[0], Ml[0], pch[0], pcl[0])
+        dump = os.environ.get("PRISIM_DEBUG_XCHECK_DUMP")
+        if dump:
+            np.savez(dump, fast0=banded0, direct0=direct0,
+                     Mh0=Mh[0].cpu().numpy(), Ml0=Ml[0].cpu().numpy(),
+                     pch0=pch[0].cpu().numpy(), pcl0=pcl[0].cpu().numpy(),
+                     freqs=sim.freqs, bl=np.asarray(sim.bls.vectors),
+                     rank=plan.rank, resid0=resid0, csA0=cs0, ok0=ok0,
+                     truth_on=snap.truth)
+        dmax = float(np.abs(banded0 - direct0).max())
+        vmax = float(np.abs(direct0).max())
+        # relative to the coherent flux scale max_c sum_s |A_sc| (>= max|V|),
+        # which an f32 engine's absolute error scales with; both forms print
+        rel = dmax / max(vmax, cs0, 1e-30)
+        norms = ("max|dV|/max_c sum_s|A| = %.2e, max|dV|/max|V| = %.2e"
+                 % (dmax / max(cs0, 1e-30), dmax / max(vmax, 1e-30)))
+        resid_bad = snap.truth and resid0 > rtol
+        if not ok0 or rel > tol or resid_bad:
+            raise _demote(parms, "banded NUFFT shared-amps cross-check "
+                          "FAILED (%s; rel=%.2e > %.0e, ok=%s%s)"
+                          % (norms, rel, tol, ok0,
+                             ", model resid=%.2e > %.0e" % (resid0, rtol)
+                             if resid_bad else ""))
+        if verbose:
+            print("[prisim_tpu_torch] banded/direct shared-amps cross-check "
+                  "ok (%s%s)" % (norms, ", truth amps, model resid=%.2e"
+                                 % resid0 if snap.truth else ""))
+        _phase(verbose, "banded shared-amps gate", t1)
+    snaps, oks = [], []
+    for t in range(sim.obs.n_acc):
+        v, ok = snap(Mh[t], Ml[t], pch[t], pcl[t])
+        snaps.append(v)
+        oks.append(ok)
+    if not bool(torch.stack(oks).all()):
+        raise _demote(parms, "banded NUFFT unit-source check failed")
+    return torch.stack(snaps)
 
 
 def _phase(verbose, label, since):

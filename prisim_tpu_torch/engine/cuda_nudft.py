@@ -18,6 +18,7 @@ counts kernel launches and nothing else.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -33,7 +34,9 @@ _SMEM_BUDGET = 96 * 1024       # bytes of shared memory per block
 _MAX_ST = 32                   # sources per tile
 
 
+@functools.cache
 def _library():
+    """The K1a library, built or loaded, with its argument types bound."""
     lib = load_kernel_library("nudft")
     fn = lib.prisim_nudft_k1a
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6

@@ -1,0 +1,617 @@
+"""Banded delay-space NUFFT engine: plan, prep, spread, post and snapshots.
+
+Counterpart of prisim_tpu/engine/nufft_banded.py. On a uniform channel
+grid the frequency axis of V(b, nu_c) = sum_s A_sc e^{-2 pi i nu_c tau_sb}
+is a 1-D type-3 NUFFT per baseline: the carrier-phased rank-r spectral
+coefficients of each source are spread onto an oversampled delay grid by
+K Kaiser-Bessel taps, one FFT per baseline turns the grid into channels,
+and a deconvolution and the rank combine give V. With tau_sb =
+|b| u_sd / c and u_sd = s_eff . b_hat_d, baselines that share a direction
+d share one source stream u.
+
+* The plan (host numpy) groups baselines by direction, collapses
+  redundant and sign-flipped baselines onto unique canonical rows, and
+  fixes per baseline the static range of delay rows that unit sources can
+  reach: row p of baseline b holds grid bin blk_lo_b * G_blk + p.
+* `_prep` computes u per direction in two-float and transposes the
+  spectral payload; sources are padded to the tile with u = 3, outside
+  every physical u (|u| <= 2), and zero payload.
+* The spread is kernel K2 (csrc/banded.cu, wrapper cuda_banded.py) on a
+  CUDA card and `banded_spread_plain` on the CPU. Both return the rows
+  (B, R_max, 2r) in float64: the TPU kernel's f32 dot, Kahan carries,
+  dot_split and cross-chunk Kahan sum have no role with f64 sums.
+* `_post` wraps the rows mod n, FFTs them with torch.fft in complex128,
+  keeps the C channels, deconvolves, combines the ranks, applies the exact
+  per-baseline roll-theorem ramp and expands the redundancy.
+
+The snapshot functions (make_banded_snapshot_fns) chunk the sources as
+the reference does and carry the shared-amps gate against the direct
+engine (kernel K1a on a card, the plain NUDFT on the CPU). The truth-amps
+path computes the node-model coefficients in float64 and spreads them in
+ONE launch as a float64 payload; the reference needs two f32 launches
+(hi and lo) for the same pair.
+"""
+
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass, field, replace
+
+import numpy as np
+import torch
+
+from prisim_tpu import constants as CNST
+from prisim_tpu import healpix as hp
+
+from .. import twofloat as tf
+from .nufft_delay import (chebyshev_node_model, kb_fourier, kb_tap_coeffs,
+                          spectral_project)
+from .observe import _beam_and_flux, df_rotate3, direct_visibilities
+
+__all__ = ["make_banded_plan", "BandedPlan", "PlanRejected",
+           "group_directions",
+           "spatial_permutation", "reorder_sources", "banded_spread_plain",
+           "make_coeff_fn", "make_coeff_fn_truth", "make_banded_snapshot_fns"]
+
+_PAD_U = 3.0            # outside any physical u (|s_eff . b_hat| <= 2)
+_VALID_U = 2.5          # u below this is a source, at or above it a pad
+# Kernel K2 runs one block per 32 output rows of a baseline on grid.y,
+# which holds at most 65535 blocks.
+_MAX_ROWS = 65535 * 32
+
+
+# --------------------------------------------------------------------------
+# host-side plan
+# --------------------------------------------------------------------------
+
+class PlanRejected(ValueError):
+    """make_banded_plan cannot plan these baselines and grid; the driver
+    runs the direct engine instead."""
+
+
+def spatial_permutation(s_eq, nside=512):
+    """Host permutation ordering sources by HEALPix NEST index, so that a
+    tile of consecutive sources is a compact sky patch whose delay bins
+    span few rows for every baseline. Any order is exact."""
+    s = np.asarray(s_eq, dtype=np.float64)
+    r = np.linalg.norm(s, axis=1)
+    theta = np.arccos(np.clip(s[:, 2] / r, -1.0, 1.0))
+    phi = np.mod(np.arctan2(s[:, 1], s[:, 0]), 2.0 * np.pi)
+    pix = hp.ang2pix(nside, theta, phi, nest=True)
+    return np.argsort(pix, kind="stable")
+
+
+def reorder_sources(sky, perm):
+    """SkySources with every per-source tensor taken along axis 0."""
+    idx = torch.as_tensor(np.asarray(perm, np.int64),
+                          device=sky.s_eq_hi.device)
+    return replace(sky, s_eq_hi=sky.s_eq_hi[idx], s_eq_lo=sky.s_eq_lo[idx],
+                   flux=sky.flux[idx])
+
+
+def group_directions(bl_vectors, decimals=9):
+    """Group baselines by unit direction: (dirs (D, 3) f64, d_of_b (B,)
+    int32). Opposite directions are distinct groups."""
+    bl = np.asarray(bl_vectors, dtype=np.float64)
+    norm = np.linalg.norm(bl, axis=1)
+    if np.any(norm == 0):
+        raise PlanRejected("zero-length baseline")
+    unit = bl / norm[:, None]
+    key = np.round(unit, decimals)
+    uniq, inv = np.unique(key, axis=0, return_inverse=True)
+    inv = inv.reshape(-1)
+    dirs = np.empty_like(uniq)
+    for g in range(uniq.shape[0]):
+        dirs[g] = unit[np.argmax(inv == g)]
+    return dirs, inv.astype(np.int32)
+
+
+def _ramp(blk_lo, G_blk, n, nchan):
+    """Exact roll-theorem phase ramp (B, C) complex128 for the per-baseline
+    bin offset blk_lo * G_blk at the kept FFT indices (host trig on exact
+    integer arguments)."""
+    k_idx = np.concatenate([np.arange(n - nchan // 2, n),
+                            np.arange(0, nchan - nchan // 2)])
+    off = (np.asarray(blk_lo).astype(np.int64) * G_blk) % n
+    m = (k_idx[None, :] * off[:, None]) % n
+    ang = 2.0 * np.pi * m / n
+    return np.cos(ang) - 1j * np.sin(ang)
+
+
+@dataclass
+class BandedPlan:
+    """Static per-(layout, band, rank) data for the banded NUFFT; the
+    fields are those of the JAX package's plan."""
+    nu0: float
+    dnu: float
+    nchan: int
+    rank: int
+    beta: float
+    K: int
+    alpha: float
+    n: int                     # oversampled FFT length
+    h: float                   # delay grid step (s)
+    T_s: int                   # source tile (sources are padded to it)
+    G_blk: int                 # block granularity (rows, mult of 8)
+    G_win: int                 # per-block window rows (G_blk + taps)
+    n_blk_max: int             # max blocks over baselines
+    R_max: int                 # output rows per baseline
+    dirs_hi: np.ndarray        # (D, 3) f32 two-float direction split
+    dirs_lo: np.ndarray
+    d_of_b: np.ndarray         # (B,) int32
+    blk_lo: np.ndarray         # (B,) int32 first block (bin/G_blk, signed)
+    n_blk: np.ndarray          # (B,) int32 blocks holding first taps
+    blen_hi: np.ndarray        # (B,) f32 two-float |b|
+    blen_lo: np.ndarray
+    tap_w: np.ndarray          # (K, deg+1) f64 per-tap poly (polyval)
+    deconv: np.ndarray         # (C,) f32 1/what(k/n)
+    ramp: np.ndarray           # (B, C) c64 exact bin-offset phase ramp
+    consts: dict = field(default_factory=dict)
+    # redundancy collapse: the spread runs over unique canonical baseline
+    # vectors; expand_idx/conj recover the full set (V(-b) = conj V(b)).
+    # None => identity.
+    expand_idx: np.ndarray = None   # (B_full,) int32 row of unique set
+    conj: np.ndarray = None         # (B_full,) bool conjugate the row
+
+    @property
+    def nbl(self):
+        return self.d_of_b.shape[0]
+
+    @property
+    def nbl_full(self):
+        return (self.d_of_b.shape[0] if self.expand_idx is None
+                else self.expand_idx.shape[0])
+
+    @property
+    def ndir(self):
+        return self.dirs_hi.shape[0]
+
+    @functools.cached_property
+    def deconv64(self):
+        """(C,) float64 deconvolution for the complex128 post."""
+        k = np.arange(self.nchan) - self.nchan // 2
+        return 1.0 / kb_fourier(k / self.n, self.K, self.alpha)
+
+    @functools.cached_property
+    def ramp64(self):
+        """(B, C) complex128 ramp for the complex128 post."""
+        return _ramp(self.blk_lo, self.G_blk, self.n, self.nchan)
+
+    def tensor(self, name, dev, dtype=None):
+        """Array `name` of the plan as a tensor on `dev`. The plan is fixed
+        for a run, so each is uploaded once per plan, device and dtype."""
+        cache = self.__dict__.setdefault("_on_device", {})
+        key = (name, torch.device(dev), dtype)
+        if key not in cache:
+            cache[key] = torch.as_tensor(
+                np.ascontiguousarray(getattr(self, name)), dtype=dtype,
+                device=dev)
+        return cache[key]
+
+
+def _split(x):
+    hi = np.float32(x)
+    lo = np.float32(np.float64(x) - np.float64(hi))
+    return hi, lo
+
+
+def _friendly_fft_length(n0):
+    """Smallest n >= n0 with a balanced split n = n1 * n2 (largest divisor
+    n1 <= sqrt(n), n/n1 <= 8 n1). The port's torch.fft does not need it;
+    it is kept so that the grid length, and with it every plan field,
+    equals the reference's."""
+    for cand in range(int(n0), int(n0) + 512):
+        n1 = 1
+        for d in range(int(np.sqrt(cand)), 0, -1):
+            if cand % d == 0:
+                n1 = d
+                break
+        if n1 > 1 and cand // n1 <= 8 * n1:
+            return cand
+    return int(n0)
+
+
+def make_banded_plan(bl_vectors, nu0, dnu, nchan, rank, beta=2.0, K=9,
+                     T_s=2048, G_blk=None, tap_degree=10,
+                     collapse=True, dot_split=1):
+    """Static plan for baseline vectors (meters) and a uniform frequency
+    grid; every field equals the JAX package's on the same inputs.
+
+    ``collapse`` sweeps only unique sign-canonical baseline vectors (keyed
+    at round(bl, 6)); V(-b) = conj(V(b)) exactly since the amps are real.
+    ``dot_split`` is kept in consts for parity with the reference; the
+    port's f64 sums do not use it.
+
+    Raises PlanRejected (a ValueError) when the longest baseline's rows
+    exceed what kernel K2's grid can hold (_MAX_ROWS), or for an even K
+    or a G_blk that is not a multiple of 8."""
+    bl = np.asarray(bl_vectors, dtype=np.float64)
+    if K % 2 == 0:
+        raise PlanRejected("K must be odd (tap rows -half..+half)")
+    expand_idx = conj_mask = None
+    if collapse:
+        key = np.round(bl, 6)
+        neg = ((key[:, 0] < 0)
+               | ((key[:, 0] == 0) & (key[:, 1] < 0))
+               | ((key[:, 0] == 0) & (key[:, 1] == 0)
+                  & (key[:, 2] < 0)))
+        can = np.where(neg[:, None], -bl, bl)
+        _, first, inv = np.unique(np.round(can, 6), axis=0,
+                                  return_index=True, return_inverse=True)
+        if first.shape[0] < bl.shape[0] or neg.any():
+            expand_idx = inv.reshape(-1).astype(np.int32)
+            conj_mask = neg
+            bl = can[first]
+    alpha = np.pi * K * (1.0 - 0.5 / beta) - 0.01
+    n = _friendly_fft_length(int(np.ceil(beta * nchan)))
+    h = 1.0 / (n * dnu)
+    dirs, d_of_b = group_directions(bl)
+    blen = np.linalg.norm(bl, axis=1)
+    inv_ch = 1.0 / (CNST.c * h)
+    if G_blk is None:
+        G_blk = 32
+    if G_blk % 8:
+        raise PlanRejected("G_blk must be a multiple of 8")
+    half = K // 2
+    G_win = int(-(-(G_blk + K - 1) // 8) * 8)
+    # static per-baseline occupied range: bins in +-(phimax + 1)
+    phimax = blen * 2.0 * inv_ch
+    blk_lo = np.floor((-phimax - half - 2.0) / G_blk).astype(np.int32)
+    hi_own = phimax + 2.0 - half          # max first-tap (ownership) row
+    n_blk = (np.floor(hi_own / G_blk).astype(np.int64)
+             - blk_lo.astype(np.int64) + 1).astype(np.int32)
+    n_blk_max = int(n_blk.max())
+    R_max = n_blk_max * G_blk + (G_win - G_blk)
+    R_max = int(-(-R_max // 8) * 8)
+    if R_max > _MAX_ROWS:
+        raise PlanRejected(
+            "banded plan: per-baseline output rows (%d) exceed kernel K2's"
+            " grid (%d rows); longest baseline %.0f m spans too many delay"
+            " bins at nchan=%d" % (R_max, _MAX_ROWS, blen.max(), nchan))
+    k = np.arange(nchan) - nchan // 2
+    deconv = (1.0 / kb_fourier(k / n, K, alpha)).astype(np.float32)
+    dh, dl = zip(*[_split(v) for v in dirs.ravel()])
+    bh, blo = zip(*[_split(v) for v in blen])
+    numid = nu0 + (nchan // 2) * dnu
+    return BandedPlan(
+        nu0=float(nu0), dnu=float(dnu), nchan=int(nchan), rank=int(rank),
+        beta=float(beta), K=int(K), alpha=float(alpha), n=n, h=h,
+        T_s=int(T_s), G_blk=int(G_blk), G_win=G_win,
+        n_blk_max=n_blk_max, R_max=R_max,
+        dirs_hi=np.asarray(dh, np.float32).reshape(dirs.shape),
+        dirs_lo=np.asarray(dl, np.float32).reshape(dirs.shape),
+        d_of_b=d_of_b, blk_lo=blk_lo, n_blk=n_blk,
+        blen_hi=np.asarray(bh, np.float32),
+        blen_lo=np.asarray(blo, np.float32),
+        tap_w=kb_tap_coeffs(K, alpha, degree=tap_degree),
+        deconv=deconv,
+        ramp=_ramp(blk_lo, G_blk, n, nchan).astype(np.complex64),
+        consts=dict(inv_ch=inv_ch, numid_c=numid / CNST.c,
+                    n_blk_mean=float(np.mean(n_blk)),
+                    dot_split=int(dot_split)),
+        expand_idx=expand_idx, conj=conj_mask)
+
+
+# --------------------------------------------------------------------------
+# prep, spread, post
+# --------------------------------------------------------------------------
+
+def _two_float_u(seh, sel, dirs_hi, dirs_lo):
+    """u = s_eff . b_hat_d in two-float: (D, S) pair."""
+    th = tl = None
+    for ax in range(3):
+        ph, plo = tf.df_mul(dirs_hi[:, ax:ax + 1], dirs_lo[:, ax:ax + 1],
+                            seh[None, :, ax], sel[None, :, ax])
+        th, tl = (ph, plo) if th is None else tf.df_add(th, tl, ph, plo)
+    return th, tl
+
+
+def _prep(plan, seh, sel, P):
+    """Per-direction u streams and the transposed spectral payload.
+
+    seh/sel (S, 3) float32 two-float s_eff; P (S, r) float32 or float64.
+    Returns (u_h (1, D*S_pad) f32, u_l, P_r (r, S_pad) in P's dtype, ok):
+    ok (0-d bool tensor) is False when a source vector is not unit, so
+    that its bins could leave the static row range."""
+    S = seh.shape[0]
+    S_pad = -(-S // plan.T_s) * plan.T_s
+    dev = seh.device
+    uh, ul = _two_float_u(seh, sel, plan.tensor("dirs_hi", dev),
+                          plan.tensor("dirs_lo", dev))
+    ok = uh.abs().max() <= float(np.float32(2.0 + 1e-4))
+    if S_pad != S:
+        uh = torch.nn.functional.pad(uh, (0, S_pad - S), value=_PAD_U)
+        ul = torch.nn.functional.pad(ul, (0, S_pad - S))
+        P = torch.nn.functional.pad(P, (0, 0, 0, S_pad - S))
+    return (uh.reshape(1, -1), ul.reshape(1, -1), P.t().contiguous(), ok)
+
+
+def _f32(x, dev):
+    return torch.tensor(float(x), dtype=torch.float32, device=dev)
+
+
+def banded_spread_plain(plan, u_h, u_l, P_r):
+    """The plain PyTorch version of kernel K2: the same arithmetic, summed
+    by index_add_ in float64.
+
+    u_h/u_l (1, D*S_pad) float32 two-float u streams and P_r (r, S_pad)
+    payload from _prep. Per (baseline, source): t = |b| u and the grid
+    bin phi = t/(c h) in two-float, m0 = rint(phi_hi) (half to even),
+    z0 = (phi_hi - m0) + phi_lo in float64, the carrier e^{-2 pi i
+    nu_mid t / c} as a float64 phasor of the frac-reduced two-float cycle
+    count, and the K tap weights w_j(z0) by float64 Horner on plan.tap_w.
+    A valid source (u_hi < 2.5; pads sit at 3) whose first-tap row
+    m0 - K//2 - blk_lo*G_blk lies in [0, n_blk*G_blk) adds
+    w_j [P cos, -P sin] to row (first-tap row + j). Returns (B, R_max, 2r)
+    float64 rows."""
+    dev = P_r.device
+    B, r, K, R = plan.nbl, plan.rank, plan.K, plan.R_max
+    S = P_r.shape[1]
+    uh = u_h.reshape(plan.ndir, S)
+    ul = u_l.reshape(plan.ndir, S)
+    dofb = torch.as_tensor(plan.d_of_b, dtype=torch.long, device=dev)
+    blh = torch.as_tensor(plan.blen_hi, device=dev)[:, None]
+    bll = torch.as_tensor(plan.blen_lo, device=dev)[:, None]
+    ivh, ivl = (_f32(v, dev) for v in _split(plan.consts["inv_ch"]))
+    nmh, nml = (_f32(v, dev) for v in _split(plan.consts["numid_c"]))
+    half = K // 2
+    base = torch.as_tensor(plan.blk_lo.astype(np.int64) * plan.G_blk,
+                           device=dev)[:, None]
+    own_hi = torch.as_tensor(plan.n_blk.astype(np.int64) * plan.G_blk,
+                             device=dev)[:, None]
+    row0 = (torch.arange(B, device=dev) * R)[:, None]
+    P = P_r.double()
+    out = torch.zeros((B * R, 2 * r), dtype=torch.float64, device=dev)
+    # sources per step: the (B, s, 2r) contributions stay near 2^24 values
+    src_block = max(256, (1 << 24) // max(1, B * 2 * r))
+    for s0 in range(0, S, src_block):
+        s1 = min(S, s0 + src_block)
+        uhb, ulb = uh[dofb, s0:s1], ul[dofb, s0:s1]              # (B, s)
+        th, tl = tf.df_mul(blh, bll, uhb, ulb)
+        phh, phl = tf.df_mul(th, tl, ivh, ivl)
+        m0 = torch.round(phh)
+        z0 = (phh - m0).double() + phl.double()
+        fh, fl = tf.df_frac(*tf.df_mul(th, tl, nmh, nml))
+        ang = (2.0 * np.pi) * (fh.double() + fl.double())
+        mown = m0.long() - half - base
+        keep = (uhb < _VALID_U) & (mown >= 0) & (mown < own_hi)
+        Pb = P[:, s0:s1].t()[None]                               # (1, s, r)
+        X = torch.cat([Pb * torch.cos(ang)[..., None],
+                       Pb * (-torch.sin(ang))[..., None]], dim=-1)
+        X = X * keep[..., None]
+        first = torch.where(keep, row0 + mown, torch.zeros_like(mown))
+        for j, co in enumerate(np.asarray(plan.tap_w, np.float64)):
+            w = torch.full_like(z0, float(co[0]))
+            for c in co[1:].tolist():
+                w = w * z0 + c
+            out.index_add_(0, (first + j).reshape(-1),
+                           (w[..., None] * X).reshape(-1, 2 * r))
+    return out.reshape(B, R, 2 * r)
+
+
+def _spread(plan, u_h, u_l, P_r):
+    """Kernel K2 for CUDA tensors, the plain version for CPU tensors."""
+    from .cuda_banded import banded_spread_cuda
+    return banded_spread_cuda(plan, u_h, u_l, P_r)
+
+
+def _post(plan, out, Qc):
+    """Rows -> visibilities: wrap rows mod n, FFT, keep the channels,
+    deconvolve, combine the ranks, apply the exact ramp, expand the
+    redundancy. out (B, R_max, 2r) float64 rows; Qc (C, r) basis.
+    Returns (B_full, C) complex128."""
+    B = out.shape[0]
+    r, n, R, C = plan.rank, plan.n, plan.R_max, plan.nchan
+    m = -(-R // n)
+    gw = torch.nn.functional.pad(out, (0, 0, 0, m * n - R))
+    gw = gw.reshape(B, m, n, 2 * r).sum(dim=1)
+    Gf = torch.fft.fft(torch.complex(gw[..., :r], gw[..., r:]), dim=1)
+    half = C // 2
+    Gk = torch.cat([Gf[:, n - half:, :], Gf[:, :C - half, :]], dim=1)
+    dev, rdt = out.device, out.dtype
+    Qd = (torch.as_tensor(Qc, device=dev).to(rdt)
+          * plan.tensor("deconv64", dev, rdt)[:, None])
+    V = torch.einsum("bcr,cr->bc", Gk, Qd.to(Gk.dtype))
+    V = V * plan.tensor("ramp64", dev).to(V.dtype)
+    if plan.expand_idx is not None:
+        V = V[plan.tensor("expand_idx", dev, torch.long)]
+        if plan.conj is not None and bool(np.any(plan.conj)):
+            V = torch.where(plan.tensor("conj", dev)[:, None],
+                            V.conj().resolve_conj(), V)
+    return V
+
+
+# --------------------------------------------------------------------------
+# spectral models
+# --------------------------------------------------------------------------
+
+def make_coeff_fn(freqs, rank, pinvQ, beam_fn, node_model=True):
+    """coeffs(sh, fx) -> (S, rank) float32 spectral coefficients of the
+    beam-weighted fluxes: the node model (beam x flux at the rank
+    Chebyshev nodes, the flux taken through its rank-r projection) or the
+    full-channel projection form. Carries the NodeModel (or None) as
+    ``coeffs.node_model``."""
+    freqs64 = np.asarray(freqs, np.float64)
+    if not node_model:
+        def coeffs(sh, fx):
+            f = torch.as_tensor(freqs64, dtype=torch.float32,
+                                device=sh.device)
+            amps = _beam_and_flux(sh, fx, f, beam_fn)
+            return spectral_project(amps, torch.as_tensor(pinvQ,
+                                                          device=sh.device))
+
+        coeffs.node_model = None
+        return coeffs
+
+    nm = chebyshev_node_model(freqs64, rank)
+
+    def coeffs(sh, fx):
+        dev = sh.device
+        fluxC = spectral_project(fx, torch.as_tensor(pinvQ, device=dev))
+        fluxn = fluxC @ torch.as_tensor(nm.V, device=dev).t()
+        nodes = torch.as_tensor(nm.nu_nodes, dtype=torch.float32, device=dev)
+        ampsn = _beam_and_flux(sh, fluxn, nodes, beam_fn)
+        return ampsn @ torch.as_tensor(nm.node2coef, device=dev)
+
+    coeffs.node_model = nm
+    return coeffs
+
+
+def make_coeff_fn_truth(freqs, rank, beam_df_fn):
+    """Node-model coefficients of the truth-amps path, in float64.
+
+    The reference carries this chain in two-float32 (beam, flux at the
+    nodes, the node -> coefficient matmul) because its f32 amps floor
+    every engine at ~3.5e-6 of scale at north-star source counts; the
+    card computes it in float64 instead:
+      beam at the r Chebyshev nodes : beam_df_fn(sh, sl, nu_nodes), (S, r)
+                                      float64 (beams.analytic.airy_beam_df)
+      flux at the nodes             : host float64, (S, r), per call
+      values -> coefficients        : float64 matmul with node2coef64
+    Returns coeffs_df(sh, sl, flux_nodes) -> (S, r) float64; carries the
+    NodeModel as .node_model."""
+    nm = chebyshev_node_model(freqs, rank)
+
+    def coeffs_df(sh, sl, flux_nodes):
+        b = beam_df_fn(sh, sl, nm.nu_nodes)
+        return (b * flux_nodes) @ torch.as_tensor(nm.node2coef64,
+                                                  device=b.device)
+
+    coeffs_df.node_model = nm
+    return coeffs_df
+
+
+def _split64(x):
+    """float64 tensor -> float32 (hi, lo) with hi + lo ~= x."""
+    hi = x.float()
+    return hi.contiguous(), (x - hi.double()).float().contiguous()
+
+
+def make_banded_snapshot_fns(instrument, sky, beam_fn, plan, pinvQ, Q,
+                             src_chunk=None, gate_src_block=512,
+                             node_model=True, truth=None):
+    """Snapshot functions of the banded engine for one sky and plan.
+
+    The sources are reordered once by HEALPix NEST index (spatial_
+    permutation), so that a tile is a compact sky patch and K2 skips most
+    tiles for most row blocks. Sources are chunked as in the reference: the two-float u streams take
+    2 x D x S_chunk floats, bounded at ~0.75 GiB. ``truth`` =
+    {"beam_df": fn(sh, sl, nu_nodes) -> (S, r) float64, "flux_nodes":
+    (S, r) host float64 in the ORIGINAL source order} selects the
+    truth-amps path.
+
+    Returns run(Mh, Ml, pch, pcl) -> ((B_full, C) complex64, ok 0-d bool
+    tensor), with
+      run.gate_fn(Mh, Ml, pch, pcl) -> (direct0, banded0, ok, resid,
+          coherent_scale): the shared-amps gate. The same chunk inputs feed
+          the banded pipeline and the direct engine. With the f32 models
+          the direct side gets the true full-channel beam x flux (so the
+          gate sees the model's inadequacy too); in truth mode it gets the
+          float64 model amps, split hi/lo, in two direct calls, and model
+          adequacy is gated separately by resid = max|model - amps| /
+          max|amps| against the f32 full-channel amps. coherent_scale is
+          max_c sum_s |A_sc| of the amps the direct side summed.
+      run.prep_chunk(c, Mh, Ml, pch, pcl) -> _prep's outputs for chunk c,
+      run.n_chunks, run.src_chunk, run.node_model and run.truth (whether
+      the truth-amps path runs)."""
+    dev = instrument.device
+    perm = spatial_permutation(tf.join_f64(sky.s_eq_hi, sky.s_eq_lo))
+    sky = reorder_sources(sky, perm)
+    freqs_f32 = torch.as_tensor(instrument.freqs, dtype=torch.float32,
+                                device=dev)
+    coeffs = make_coeff_fn(instrument.freqs, plan.rank, pinvQ, beam_fn,
+                           node_model=node_model)
+    nm = coeffs.node_model
+    coeffs_df = None
+    if truth is not None:
+        coeffs_df = make_coeff_fn_truth(instrument.freqs, plan.rank,
+                                        truth["beam_df"])
+        fluxn64 = np.asarray(truth["flux_nodes"], np.float64)[perm]
+
+    S = int(sky.s_eq_hi.shape[0])
+    if src_chunk is None:
+        per_src = max(1, plan.ndir) * 8
+        cap = int((768 << 20) / per_src / plan.T_s) * plan.T_s
+        src_chunk = min(-(-S // plan.T_s) * plan.T_s, max(plan.T_s, cap))
+    src_chunk = int(src_chunk)
+    n_chunks = -(-S // src_chunk)
+    S_pad = n_chunks * src_chunk
+    seqh, seql, flux = sky.s_eq_hi, sky.s_eq_lo, sky.flux
+    if S_pad != S:
+        # zenith unit rows (|s| = 1 keeps the span check true), zero flux
+        padrow = torch.zeros((S_pad - S, 3), dtype=torch.float32, device=dev)
+        padrow[:, 2] = 1.0
+        seqh = torch.cat([seqh, padrow])
+        seql = torch.cat([seql, torch.zeros_like(padrow)])
+        flux = torch.cat([flux, flux.new_zeros((S_pad - S, flux.shape[1]))])
+    fn64 = None
+    if truth is not None:
+        fn64 = torch.as_tensor(np.concatenate(
+            [fluxn64, np.zeros((S_pad - S, fluxn64.shape[1]))]), device=dev)
+    Qc = torch.as_tensor(nm.Q64 if nm is not None else Q,
+                         dtype=torch.float64, device=dev)
+
+    def _chunk(c, Mh, Ml, pch, pcl):
+        sl = slice(c * src_chunk, (c + 1) * src_chunk)
+        sh, slo = df_rotate3(Mh, Ml, seqh[sl], seql[sl])
+        seh, sel = tf.df_add(sh, slo, -pch[None, :], -pcl[None, :])
+        if truth is not None:
+            P = coeffs_df(sh, slo, fn64[sl])
+        else:
+            P = coeffs(sh, flux[sl])
+        return sl, sh, seh.contiguous(), sel.contiguous(), P
+
+    def prep_chunk(c, Mh, Ml, pch, pcl):
+        _, _, seh, sel, P = _chunk(c, Mh, Ml, pch, pcl)
+        return _prep(plan, seh, sel, P)
+
+    def run(Mh, Ml, pch, pcl):
+        rows = None
+        ok = torch.ones((), dtype=torch.bool, device=dev)
+        for c in range(n_chunks):
+            u_h, u_l, P_r, okc = prep_chunk(c, Mh, Ml, pch, pcl)
+            part = _spread(plan, u_h, u_l, P_r)
+            rows = part if rows is None else rows.add_(part)
+            ok = ok & okc
+        return _post(plan, rows, Qc).to(torch.complex64), ok
+
+    def gate(Mh, Ml, pch, pcl):
+        C = instrument.nchan
+        vd = torch.zeros((plan.nbl_full, C), dtype=torch.complex128,
+                         device=dev)
+        csum = torch.zeros((C,), dtype=torch.float64, device=dev)
+        rows = None
+        ok = True
+        rmax = amax = 0.0
+        for c in range(n_chunks):
+            sl, sh, seh, sel, P = _chunk(c, Mh, Ml, pch, pcl)
+            u_h, u_l, P_r, okc = _prep(plan, seh, sel, P)
+            part = _spread(plan, u_h, u_l, P_r)
+            rows = part if rows is None else rows.add_(part)
+            ok = ok and bool(okc)
+            amps = _beam_and_flux(sh, flux[sl], freqs_f32,
+                                  beam_fn).contiguous()
+            if truth is None:
+                vd += direct_visibilities(seh, sel, instrument, amps,
+                                          gate_src_block)
+                csum += amps.double().abs().sum(dim=0)
+            else:
+                model = P @ Qc.t()                               # (S, C)
+                for part_amps in _split64(model):
+                    vd += direct_visibilities(seh, sel, instrument,
+                                              part_amps, gate_src_block)
+                rmax = max(rmax, float((model - amps.double()).abs().max()))
+                amax = max(amax, float(amps.abs().max()))
+                csum += model.abs().sum(dim=0)
+        vb = _post(plan, rows, Qc)
+        resid = rmax / max(amax, 1e-30)
+        return (vd.cpu().numpy(), vb.cpu().numpy(), ok, resid,
+                float(csum.max()))
+
+    run.gate_fn = gate
+    run.prep_chunk = prep_chunk
+    run.n_chunks = n_chunks
+    run.src_chunk = src_chunk
+    run.node_model = nm
+    run.truth = truth is not None
+    return run

@@ -24,7 +24,8 @@ from .cuda_nudft import nudft_cuda
 from .nudft import check_point_sources, freq_grid_scalars, nudft_visibilities
 
 __all__ = ["Instrument", "Observation", "SkySources", "enu_rotation_from_eq",
-           "df_rotate3", "snapshot_nudft_inputs", "simulate_snapshot",
+           "df_rotate3", "snapshot_nudft_inputs", "direct_visibilities",
+           "simulate_snapshot",
            "simulate_drift_rotations", "simulate_drift", "schedule_tensors"]
 
 
@@ -182,17 +183,24 @@ def snapshot_nudft_inputs(instrument, sky, Mh, Ml, pch, pcl, beam_fn):
     return seh.contiguous(), sel.contiguous(), amps.contiguous()
 
 
+def direct_visibilities(seh, sel, instrument, amps, src_block=512):
+    """The direct engine on `instrument`'s baselines: kernel K1a for CUDA
+    tensors, the plain version (in blocks of src_block sources) for CPU
+    tensors. Returns (B, C) complex64."""
+    args = (seh, sel, instrument.bl_hi, instrument.bl_lo, amps,
+            instrument.grid_scalars(), instrument.nchan)
+    if seh.is_cuda:
+        return nudft_cuda(*args)
+    return nudft_visibilities(*args, src_block=src_block)
+
+
 def simulate_snapshot(instrument, sky, Mh, Ml, pch, pcl, beam_fn,
                       src_block=512):
     """One accumulation: (B, C) complex64 noiseless visibilities.
     src_block sizes the plain version's source blocks (CPU tensors)."""
     seh, sel, amps = snapshot_nudft_inputs(instrument, sky, Mh, Ml, pch,
                                            pcl, beam_fn)
-    args = (seh, sel, instrument.bl_hi, instrument.bl_lo, amps,
-            instrument.grid_scalars(), instrument.nchan)
-    if seh.is_cuda:
-        return nudft_cuda(*args)
-    return nudft_visibilities(*args, src_block=src_block)
+    return direct_visibilities(seh, sel, instrument, amps, src_block)
 
 
 def schedule_tensors(observation, latitude, device):

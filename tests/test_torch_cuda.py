@@ -1,5 +1,6 @@
-"""Kernel K1a on the card against its plain PyTorch version and the f64
-golden. Every test here needs a CUDA card and skips without one; run them
+"""Kernels K1a and K2 on the card against their plain PyTorch versions (and
+K1a against the f64 golden). Every test here needs a CUDA card and skips
+without one; run them
 on the card, from the repo root, with
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu \
@@ -14,6 +15,8 @@ import pytest
 import torch
 
 from prisim_tpu_torch import twofloat as tf
+from prisim_tpu_torch.engine import nufft_banded as nb
+from prisim_tpu_torch.engine.cuda_banded import banded_spread_cuda
 from prisim_tpu_torch.engine.cuda_nudft import nudft_cuda
 from prisim_tpu_torch.engine.nudft import (freq_grid_scalars,
                                            nudft_reference_f64,
@@ -104,6 +107,7 @@ def test_run_simulation_cuda_matches_cpu(cuda, tmp_path):
         "bandpass": {"nchan": 32, "freq_resolution": 97656.25},
         "obsparm": {"n_acc": 2, "t_acc": 60.0},
         "skyparm": {"model": "usm", "nside": 8},
+        "processing": {"engine": "direct"},
         "save_formats": {"fmt": "none", "npz": True}})
     n0 = nudft_cuda.launches
     vs_gpu, _ = run_simulation(parms, verbose=False, device="cuda")
@@ -113,3 +117,92 @@ def test_run_simulation_cuda_matches_cpu(cuda, tmp_path):
     scale = np.abs(vs_cpu.skyvis).max()
     assert np.abs(vs_gpu.skyvis - vs_cpu.skyvis).max() / scale < BAR
     np.testing.assert_array_equal(vs_gpu.vis_noise, vs_cpu.vis_noise)
+
+
+def _banded_problem(bl, C, r, S, T_s, seed, cuda, dtype=torch.float64):
+    plan = nb.make_banded_plan(np.asarray(bl, np.float64), 150e6, 97656.25,
+                               C, rank=r, T_s=T_s)
+    rng = np.random.RandomState(seed)
+    s = rng.randn(S, 3)
+    s /= np.linalg.norm(s, axis=1, keepdims=True)
+    s[:, 2] = np.abs(s[:, 2])
+    seh, sel = (torch.as_tensor(x, device=cuda)
+                for x in tf.split_f64(s - np.asarray([0.0, 0.0, 1.0])))
+    P = torch.as_tensor(rng.rand(S, r), dtype=dtype, device=cuda)
+    return plan, nb._prep(plan, seh, sel, P)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["ragged", "beyond_smem", "f32_payload",
+                                  "wide_rank"])
+def test_k2_matches_plain(cuda, case):
+    """K2 against banded_spread_plain on the same prep outputs: 1e-12 of
+    max|rows| (both sum in float64, in another order), and bit-equal from
+    one launch to the next. beyond_smem: 300-1000 m baselines give rows of
+    R_max x 2r doubles far past one block's 227 KB of shared memory."""
+    rng = np.random.RandomState(0)
+    bl, C, r, S, T_s = {
+        "ragged": (rng.uniform(-60, 60, (12, 3)), 64, 6, 300, 128),
+        "beyond_smem": ([[300.0, 10.0, 0.0], [-1000.0, 40.0, 1.0],
+                         [14.6, 0.0, 0.0]], 1024, 32, 5000, 2048),
+        "f32_payload": (rng.uniform(-80, 80, (40, 3)), 256, 16, 3000, 256),
+        "wide_rank": (rng.uniform(-40, 40, (5, 3)), 128, 40, 700, 256),
+    }[case]
+    plan, (u_h, u_l, P_r, ok) = _banded_problem(
+        bl, C, r, S, T_s, seed=len(case), cuda=cuda,
+        dtype=torch.float32 if case == "f32_payload" else torch.float64)
+    if case == "beyond_smem":
+        assert plan.R_max * 2 * r * 8 > 232448
+    n0 = banded_spread_cuda.launches
+    cached = len(plan.__dict__.get("_on_device", {}))      # _prep's
+    got = banded_spread_cuda(plan, u_h, u_l, P_r)
+    again = banded_spread_cuda(plan, u_h, u_l, P_r)
+    torch.cuda.synchronize()
+    assert banded_spread_cuda.launches == n0 + 2
+    want = nb.banded_spread_plain(plan, u_h, u_l, P_r)
+    assert bool(ok) and got.shape == (plan.nbl, plan.R_max, 2 * r)
+    assert torch.equal(got, again)
+    assert len(plan._on_device) == cached + 6   # K2's tables, once
+    scale = float(want.abs().max())
+    assert scale > 0
+    assert float((got - want).abs().max()) / scale < 1e-12
+
+
+@pytest.mark.gpu
+def test_k2_rejects_bad_inputs(cuda):
+    plan, (u_h, u_l, P_r, _) = _banded_problem(
+        [[30.0, 0.0, 0.0]], 64, 4, 100, 128, seed=0, cuda=cuda)
+    with pytest.raises(TypeError):
+        banded_spread_cuda(plan, u_h.double(), u_l, P_r)
+    with pytest.raises(ValueError):
+        banded_spread_cuda(plan, u_h, u_l.cpu(), P_r)
+    with pytest.raises(ValueError):
+        banded_spread_cuda(plan, u_h, u_l, P_r[:2])
+
+
+@pytest.mark.gpu
+def test_banded_run_cuda_matches_cpu(cuda, tmp_path):
+    """The banded engine on the card (K2, gated by K1a) against the same
+    run on the CPU (plain versions): 1e-6 of max|V| (float64 rows in both,
+    complex64 output)."""
+    from prisim_tpu_torch.config import load_parms
+    from prisim_tpu_torch.driver import run_simulation
+    parms = load_parms({
+        "dirstruct": {"rootdir": str(tmp_path)},
+        "telescope": {"id": "hera"},
+        "array": {"layout": "HERA-7", "redundant": False},
+        "bandpass": {"nchan": 64, "freq_resolution": 97656.25},
+        "obsparm": {"n_acc": 2, "t_acc": 60.0},
+        "skyparm": {"model": "usm", "nside": 8},
+        "processing": {"engine": "auto"},
+        "save_formats": {"fmt": "none", "npz": False}})
+    n0, k0 = banded_spread_cuda.launches, nudft_cuda.launches
+    vs_gpu, _ = run_simulation(parms, verbose=False, save=False,
+                               device="cuda")
+    assert banded_spread_cuda.launches == n0 + 3       # gate + 2 snapshots
+    assert nudft_cuda.launches == k0 + 2               # gate: hi + lo
+    parms["processing"]["engine"] = "nufft"
+    vs_cpu, _ = run_simulation(parms, verbose=False, save=False,
+                               device="cpu")
+    scale = np.abs(vs_cpu.skyvis).max()
+    assert np.abs(vs_gpu.skyvis - vs_cpu.skyvis).max() / scale < 1e-6

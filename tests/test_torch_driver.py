@@ -20,6 +20,7 @@ from prisim_tpu_torch.vis import delay_transform
 
 EXAMPLE = os.path.join(os.path.dirname(__file__), "..", "prisim_tpu",
                        "examples", "simparms", "hera19_random.yaml")
+NUFFT_EXAMPLE = os.path.join(os.path.dirname(EXAMPLE), "hera7_nufft.yaml")
 BAR = 2e-6     # max|dskyvis| / max|skyvis|
 
 
@@ -133,7 +134,7 @@ def test_delay_transform_matches_jax(runs):
 
 
 @pytest.mark.parametrize("over", [
-    {"processing.engine": "nufft"},
+    {"processing.engine": "nufft", "processing.nufft_spread": "sorted"},
     {"processing.gradient_mode": "baseline"},
     {"processing.n_sky_sectors": 2},
     {"beam.pol": "XY"},
@@ -224,3 +225,133 @@ def test_generic_beam_shapes_match_jax(shape):
     got = pb_t(torch.as_tensor(s), torch.as_tensor(f), tel).numpy()
     assert got.shape == (200, 8)
     np.testing.assert_allclose(got, want, rtol=0, atol=2e-6)
+
+
+# --------------------------------------------------------------------------
+# the banded NUFFT engine (processing.engine: nufft)
+# --------------------------------------------------------------------------
+
+def _nufft_parms(root):
+    p = cfg_jax.load_parms(os.path.abspath(NUFFT_EXAMPLE))
+    p["plots"] = False
+    p["dirstruct"]["rootdir"] = str(root)
+    return p
+
+
+def _run_dumped(run, parms, dump, **kw):
+    """run(parms, ...) with the engine gate's pair dumped to `dump`."""
+    os.environ["PRISIM_DEBUG_XCHECK_DUMP"] = str(dump)
+    try:
+        vs, _ = run(parms, verbose=False, save=False, **kw)
+    finally:
+        del os.environ["PRISIM_DEBUG_XCHECK_DUMP"]
+    with np.load(dump) as d:
+        return vs, dict(d)
+
+
+@pytest.fixture(scope="module")
+def nufft_runs(tmp_path_factory):
+    """examples/simparms/hera7_nufft.yaml (HERA-7 redundant, 128 ch, 512
+    random sources, 2 acc, truth amps) without its plots: JAX's banded
+    spread (interpret mode, one device), the port's banded engine on the
+    CPU, and the port's direct engine."""
+    root = tmp_path_factory.mktemp("nufft")
+    pj = _nufft_parms(root)
+    pj["pp"]["key"] = "none"
+    pj["processing"]["nufft_spread"] = "banded"
+    vj, gj = _run_dumped(drv_jax.run_simulation, pj, root / "gj.npz")
+    vt, gt = _run_dumped(drv_t.run_simulation, _nufft_parms(root),
+                         root / "gt.npz", device="cpu")
+    pd = _nufft_parms(root)
+    pd["processing"]["engine"] = "direct"
+    vd, _ = drv_t.run_simulation(pd, verbose=False, save=False,
+                                 device="cpu")
+    return dict(vj=vj, gj=gj, vt=vt, gt=gt, vd=vd)
+
+
+def test_nufft_example_matches_jax(nufft_runs):
+    """The port's banded run against JAX's, both behind their gates: 2e-6
+    of the coherent scale max_c sum_s |A| (JAX's f32 spread and post)."""
+    vj, vt, gt = nufft_runs["vj"], nufft_runs["vt"], nufft_runs["gt"]
+    assert vt.skyvis.shape == vj.skyvis.shape == (9, 128, 2)
+    assert bool(gt["truth_on"]) and bool(gt["ok0"])
+    coherent = float(gt["csA0"])
+    np.testing.assert_allclose(coherent, float(nufft_runs["gj"]["csA0"]),
+                               rtol=1e-6)
+    assert np.abs(vt.skyvis - vj.skyvis).max() / coherent <= 2e-6
+    # the gate itself: the port's banded snapshot 0 against its direct
+    # engine on the same model amps, at the port's 2e-6 default
+    dmax = np.abs(gt["fast0"] - gt["direct0"]).max()
+    assert dmax / coherent <= 2e-6
+
+
+def test_nufft_example_matches_direct_engine(nufft_runs):
+    """The port's banded run against its own direct run. In truth mode the
+    banded engine sums the float64 Airy model and the direct engine the
+    f32 hera beam, which differ per element by the gate's amps-space
+    residual (5.4e-6 of max|A| here); so the runs differ by at most that
+    residual times the coherent scale: 1e-5 of the coherent scale."""
+    vt, vd, gt = nufft_runs["vt"], nufft_runs["vd"], nufft_runs["gt"]
+    coherent = float(gt["csA0"])
+    assert 0 < float(gt["resid0"]) <= 1e-5
+    assert np.abs(vt.skyvis - vd.skyvis).max() / coherent <= 1e-5
+    np.testing.assert_array_equal(vt.vis_noise, vd.vis_noise)
+
+
+_OCTAVE = {
+    "telescope": {"id": "custom"},
+    "bandpass": {"nchan": 32, "freq": 150e6,
+                 "freq_resolution": 3.125e6},   # 100-200 MHz octave
+    "array": {"layout": "HERA-7"},
+    "obsparm": {"n_acc": 1, "t_acc": 60.0},
+    "skyparm": {"model": "random", "nsrc": 128, "seed": 5},
+    "save_formats": {"fmt": "none", "npz": False},
+}
+
+
+def test_low_rank_demotes_to_direct(capsys):
+    """As tests/test_round4.py does for JAX: rank 4 over an octave is far
+    too low for the band, the gate (here its amps-space residual) fails,
+    and the run is the direct engine's, bit for bit."""
+    p = cfg_t.load_parms(dict(_OCTAVE, processing={
+        "engine": "nufft", "nufft_rank": 4}))
+    vs, _ = drv_t.run_simulation(p, verbose=True, save=False, device="cpu")
+    out = capsys.readouterr().out
+    assert "cross-check FAILED" in out and "model resid" in out
+    assert "falling back to the direct engine" in out
+    p2 = cfg_t.load_parms(dict(_OCTAVE, processing={"engine": "direct"}))
+    vs2, _ = drv_t.run_simulation(p2, verbose=False, save=False,
+                                  device="cpu")
+    np.testing.assert_array_equal(vs.skyvis, vs2.skyvis)
+
+
+def test_rejected_plan_demotes_to_direct(capsys, monkeypatch):
+    from prisim_tpu_torch.engine.nufft_banded import PlanRejected
+
+    def reject(*a, **k):
+        raise PlanRejected("too many delay rows")
+    monkeypatch.setattr(drv_t, "make_banded_plan", reject)
+    p = cfg_t.load_parms(dict(_OCTAVE, processing={"engine": "nufft"}))
+    vs, _ = drv_t.run_simulation(p, verbose=False, save=False, device="cpu")
+    out = capsys.readouterr().out
+    assert "plan rejected (too many delay rows)" in out
+    p2 = cfg_t.load_parms(dict(_OCTAVE, processing={"engine": "direct"}))
+    vs2, _ = drv_t.run_simulation(p2, verbose=False, save=False,
+                                  device="cpu")
+    np.testing.assert_array_equal(vs.skyvis, vs2.skyvis)
+
+
+def test_engine_auto_on_cpu_is_direct(monkeypatch):
+    """'auto' picks the banded engine on a card only; on the CPU it is the
+    direct engine and never builds the banded one."""
+    def no_banded(*a, **k):
+        raise AssertionError("banded engine built")
+    monkeypatch.setattr(drv_t, "banded_engine", no_banded)
+    p = cfg_t.load_parms(dict(_OCTAVE, processing={"engine": "auto"}))
+    vs, _ = drv_t.run_simulation(p, verbose=False, save=False, device="cpu")
+    p2 = cfg_t.load_parms(dict(_OCTAVE, processing={"engine": "direct"}))
+    vs2, _ = drv_t.run_simulation(p2, verbose=False, save=False,
+                                  device="cpu")
+    np.testing.assert_array_equal(vs.skyvis, vs2.skyvis)
+    assert drv_t._resolve_engine(p, torch.device("cuda")) == "nufft"
+    assert drv_t._resolve_engine(p, torch.device("cpu")) == "direct"
