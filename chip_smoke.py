@@ -2,8 +2,9 @@
 
     python3 chip_smoke.py
 
-Builds kernels K1a (csrc/nudft.cu) and K2 (csrc/banded.cu) with nvcc
-(sm_90a), the two builds started together, then:
+Builds the NUDFT kernels K1a, K1b and K1c (csrc/nudft.cu) and K2
+(csrc/banded.cu) with nvcc (sm_90a), the two builds started together,
+then:
 
 1. K1a phase: K1a and its plain PyTorch version on the card at the slice's
    snapshot shape (HERA-37 non-redundant: 666 baselines x 1024 channels x
@@ -31,11 +32,33 @@ Builds kernels K1a (csrc/nudft.cu) and K2 (csrc/banded.cu) with nvcc
    630 x 1024 x 786,432; K2 against its plain version on the first source
    chunk, and both times; the K2 time per snapshot; K1a against the f64
    golden on 16 baselines over all 786,432 sources.
+6. K1b phase: the gradient moments at the slice shape on snapshot 0's
+   inputs, K1b against its plain version (all baselines) and against the
+   f64 golden (16 baselines) for the visibilities (both normalizations)
+   and the three planes (max|dG| / max|G|), and both times.
+7. K1c phase: the same shape on a DSM FITS map that this script writes
+   with the port's write_bintable (nside 64, every pixel given the
+   pixel-resolution gaussian shape of the DSM reader, sigma_uv ~ 53): K1c
+   against its plain version and the golden, the weight's range, both
+   times; and one K1b + K1c launch on a few thousand of those sources.
+8. Gradient slice phase: run_simulation with processing.gradient_mode:
+   baseline and engine: auto, 4 accumulations, products saved; checks that
+   the run took the direct engine (K1b 4 launches, K2 none), the gradient
+   cube (3, 666, 1024, 4), and that snapshot 0 equals the K1b phase's.
+9. DSM slice phase: run_simulation with skyparm.model: dsm on that FITS
+   map, engine: auto, 4 accumulations, products saved; K1c 4 launches, K2
+   none, snapshot 0 equals the K1c phase's.
+10. North-star K1c phase: hera331_northstar.yaml's telescope, array and
+   band on a DSM FITS map at nside 256 (786,432 shaped sources), one
+   accumulation: K1c's time over 630 x 1024 x 786,432, and K1c against
+   its plain version and the golden on 16 baselines over all sources.
 
 Exits non-zero on any failure, and without a CUDA card. The last line is
 {"ok": true, "device": {...}}; the line before it lists the kernels.
 """
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -52,13 +75,21 @@ GATE_TOL = 2e-6       # banded gate: max|dV| / max_c sum_s |A|
 # (readings 2.2e-15 to 2.8e-15 at the slice and the north star), where an
 # f32 sum would read ~1e-7
 ROWS_BAR = 1e-12
+GRAD_BAR = 5e-6       # K1b planes vs the golden, max|dG| / max|G|
+EXT_BAR = 3e-6        # K1c vs the golden, max|dV| / max|V|
+# K1b and K1c vs their plain version, max|dV| / max|V| (and max|dG| /
+# max|G|): both sum in float64 from the same float32 weights, so they agree
+# to the complex64 rounding of the output; an f32 sum would read ~1e-6
+PLAIN_BAR = 1e-7
 N_GOLDEN_BL = 16
 N_TIMED = 3
 
 
-def slice_parms(rootdir, have_h5py, engine, simid):
+def slice_parms(rootdir, have_h5py, engine, simid, **sections):
+    """The slice: HERA-37 all pairs, 1024 channels, an nside-64 sky, 4
+    accumulations; `sections` update the parameter sections."""
     from prisim_tpu_torch.config import load_parms
-    return load_parms({
+    p = {
         "dirstruct": {"rootdir": rootdir, "project": "chip_smoke",
                       "simid": simid},
         "telescope": {"id": "hera", "latitude": -30.7224, "Trx": 100.0},
@@ -71,14 +102,17 @@ def slice_parms(rootdir, have_h5py, engine, simid):
         "processing": {"engine": engine},
         "save_formats": {"fmt": "HDF5" if have_h5py else "none",
                          "npz": True},
-    })
+    }
+    for sec, val in sections.items():
+        p[sec] = dict(p.get(sec, {}), **val)
+    return load_parms(p)
 
 
-def northstar_parms():
+def northstar_parms(**sections):
     """hera331_northstar.yaml's telescope, array and band, cut to one
-    accumulation and no products."""
+    accumulation and no products; `sections` update the sections."""
     from prisim_tpu_torch.config import load_parms
-    return load_parms({
+    p = {
         "telescope": {"id": "hera", "latitude": -30.7224,
                       "longitude": 21.4278, "A_eff": 154.0, "eff_Q": 0.96,
                       "Trx": 100.0},
@@ -91,7 +125,26 @@ def northstar_parms():
         "skyparm": {"model": "usm", "nside": 256},
         "processing": {"engine": "nufft"},
         "save_formats": {"fmt": "none", "npz": False},
-    })
+    }
+    for sec, val in sections.items():
+        p[sec] = dict(p.get(sec, {}), **val)
+    return load_parms(p)
+
+
+def write_dsm_fits(prefix, nside, seed=0):
+    """A DSM-format FITS map for `nside`, written with the port's writer to
+    '<prefix>_150.0_MHz_nside_<nside>.fits', the file that
+    catalog.DSM_file_prefix: <prefix> names: temperatures 100-110 K (a
+    near-uniform diffuse sky, where max|V| sits far below the coherent
+    scale) and temperature spectral indices -2.55 +- 0.05 at 150 MHz, from
+    `seed`. Returns the prefix."""
+    from prisim_tpu_torch.catalogs import write_dsm_fits as write
+    npix = 12 * nside * nside
+    rng = np.random.RandomState(seed)
+    os.makedirs(os.path.dirname(prefix), exist_ok=True)
+    write("%s_150.0_MHz_nside_%d.fits" % (prefix, nside),
+          100.0 + 10.0 * rng.rand(npix), -2.55 + 0.05 * rng.randn(npix))
+    return prefix
 
 
 def cuda_time_ms(fn, n=N_TIMED, warm=True):
@@ -154,7 +207,7 @@ def kernel_phase(sim, cuda):
     inst, sky = sim.inst, sim.sky
     Mh, Ml, pch, pcl = observe.schedule_tensors(sim.obs, inst.latitude,
                                                  cuda)
-    seh, sel, amps = observe.snapshot_nudft_inputs(
+    seh, sel, amps, _ = observe.snapshot_nudft_inputs(
         inst, sky, Mh[0], Ml[0], pch[0], pcl[0], sim.beam_fn)
     args = (seh, sel, inst.bl_hi, inst.bl_lo, amps, inst.grid_scalars(),
             inst.nchan)
@@ -368,8 +421,8 @@ def northstar_phase(cuda):
 
     # K1a against the f64 golden on the direct engine's inputs
     inst = sim.inst
-    seh, sel, amps = snapshot_nudft_inputs(inst, sim.sky, Mh, Ml, pch, pcl,
-                                           sim.beam_fn)
+    seh, sel, amps, _ = snapshot_nudft_inputs(inst, sim.sky, Mh, Ml, pch,
+                                              pcl, sim.beam_fn)
     pick, lens = golden_pick(inst)
     pk = torch.as_tensor(pick, device=cuda)
     t0 = time.time()
@@ -386,6 +439,267 @@ def northstar_phase(cuda):
     if not g_rel_v < BAR:
         raise SystemExit("north-star K1a disagrees with the golden: %.3e "
                          "(bar %.0e)" % (g_rel_v, BAR))
+
+
+def joined(hi, lo):
+    """The float64 value of a two-float pair of tensors, on their device."""
+    from prisim_tpu_torch import twofloat as tf
+    return torch.as_tensor(tf.join_f64(hi, lo), device=hi.device)
+
+
+def rel_err(a, b, scale):
+    """max|a - b| / scale, and max|a - b|."""
+    d = float((a.to(torch.complex128) - b.to(torch.complex128)).abs().max())
+    return d / scale, d
+
+
+def timed_pair(kernel, plain):
+    """(kernel ms, plain ms, the four runs): plain, kernel, kernel, plain,
+    by CUDA events in one call."""
+    t_p = cuda_time_ms(plain)
+    t_k = cuda_time_ms(kernel)
+    t_k2 = cuda_time_ms(kernel)
+    t_p2 = cuda_time_ms(plain)
+    return 0.5 * (t_k + t_k2), 0.5 * (t_p + t_p2), (t_p, t_k, t_k2, t_p2)
+
+
+def mode_phase(label, sim, cuda, gradient, shaped):
+    """K1b (`gradient`) or K1c (`shaped`) on snapshot 0's inputs of `sim`:
+    against the plain version on all baselines and the f64 golden on
+    N_GOLDEN_BL of them, then both times. Returns the kernel's outputs
+    and its numbers for the kernels line."""
+    from prisim_tpu_torch import twofloat as tf
+    from prisim_tpu_torch.engine import cuda_nudft, observe
+    from prisim_tpu_torch.engine.nudft import (nudft_reference_f64,
+                                               nudft_visibilities)
+    inst, sky = sim.inst, sim.sky
+    Mh, Ml, pch, pcl = observe.schedule_tensors(sim.obs, inst.latitude,
+                                                 cuda)
+    seh, sel, amps, sh = observe.snapshot_nudft_inputs(
+        inst, sky, Mh[0], Ml[0], pch[0], pcl[0], sim.beam_fn)
+    sigma = sky.src_shape_sigma if shaped else None
+    args = (seh, sel, inst.bl_hi, inst.bl_lo, amps, inst.grid_scalars(),
+            inst.nchan)
+    kw = dict(s_sky=sh, src_shape_sigma=sigma, gradient=gradient)
+    S, B, C = seh.shape[0], inst.nbl, inst.nchan
+    print("%s phase: S=%d sources x B=%d baselines x C=%d channels%s"
+          % (label, S, B, C, "" if sigma is None else
+             ", sigma_uv %.4f-%.4f" % (float(sigma.min()),
+                                       float(sigma.max()))))
+    if shaped:
+        from prisim_tpu_torch.engine.nudft import ext_alpha, ext_chan_scale
+        up = amps.abs().sum(dim=1) > 0
+        alpha = ext_alpha(sh[up], sigma[up], inst.bl_hi, inst.bl_lo)
+        k2 = ext_chan_scale(inst.grid_scalars(), C, device=cuda)
+        print("%s weight over the %d sources above the horizon x %d "
+              "baselines x %d channels: %.6f to %.6f" % (
+                  label, int(up.sum()), B, C,
+                  float(torch.exp(-alpha.max() * k2.max())),
+                  float(torch.exp(-alpha.min() * k2.min()))))
+    out_k = cuda_nudft.nudft_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    out_p = nudft_visibilities(*args, **kw)
+    torch.cuda.synchronize()
+    if not gradient:
+        out_k, out_p = (out_k,), (out_p,)
+    assert out_k[0].shape == (B, C)
+    assert all(bool(torch.isfinite(x).all()) for x in out_k)
+    coherent = float(amps.abs().sum(dim=0).max())
+    vmax = float(out_p[0].abs().max())
+    rel_v, max_abs = rel_err(out_k[0], out_p[0], vmax)
+    print("%s vs plain (all %d bl): max|dV|=%.4e  /max|V|=%.4e  "
+          "/max_c sum_s|A|=%.4e" % (label, B, max_abs, rel_v,
+                                    max_abs / coherent))
+    rels = [rel_v]
+    if gradient:
+        gmax = float(out_p[1].abs().max())
+        rel_g, g_abs = rel_err(out_k[1], out_p[1], gmax)
+        print("%s planes vs plain: max|dG|=%.4e  /max|G|=%.4e  "
+              "(max|G|=%.4e)" % (label, g_abs, rel_g, gmax))
+        rels.append(rel_g)
+        max_abs = max(max_abs, g_abs)
+
+    pick, lens = golden_pick(inst)
+    pk = torch.as_tensor(pick, device=cuda)
+    bl64 = torch.as_tensor(tf.join_f64(inst.bl_hi, inst.bl_lo)[pick],
+                           device=cuda)
+    gold = nudft_reference_f64(joined(seh, sel), bl64, amps, inst.freqs, **kw)
+    gold = gold if gradient else (gold,)
+    gv = float(gold[0].abs().max())
+    g_rel_v, g_abs = rel_err(out_k[0][pk], gold[0], gv)
+    p_rel_v, _ = rel_err(out_p[0][pk], gold[0], gv)
+    print("%s vs f64 golden (%d bl, %.1f-%.1f m): max|dV|=%.4e  "
+          "/max|V|=%.4e  /max_c sum_s|A|=%.4e  (plain: /max|V|=%.4e)"
+          % (label, len(pick), lens[pick[0]], lens[pick[-1]], g_abs,
+             g_rel_v, g_abs / coherent, p_rel_v))
+    bars = [(g_rel_v, EXT_BAR if shaped else BAR)]
+    if gradient:
+        gg = float(gold[1].abs().max())
+        g_rel_g, _ = rel_err(out_k[1][:, pk], gold[1], gg)
+        p_rel_g, _ = rel_err(out_p[1][:, pk], gold[1], gg)
+        print("%s planes vs f64 golden: max|dG|/max|G|=%.4e  (plain: "
+              "%.4e)" % (label, g_rel_g, p_rel_g))
+        bars.append((g_rel_g, GRAD_BAR))
+    if not (all(r < PLAIN_BAR for r in rels)
+            and all(r < bar for r, bar in bars)):
+        raise SystemExit("%s disagrees: vs plain %s (bar %.0e), vs golden "
+                         "%s" % (label, rels, PLAIN_BAR, bars))
+    ms_k, ms_p, runs = timed_pair(
+        lambda: cuda_nudft.nudft_cuda(*args, **kw),
+        lambda: nudft_visibilities(*args, **kw))
+    macs = float(S) * B * C
+    print("%s   time: %.4f ms (runs %.4f, %.4f) = %.4e complex MAC/s"
+          % (label, ms_k, runs[1], runs[2], macs / (ms_k / 1e3)))
+    print("plain time: %.4f ms (runs %.4f, %.4f)" % (ms_p, runs[0], runs[3]))
+    return dict(out=[x.cpu().numpy() for x in out_k], max_abs_err=max_abs,
+                ms=ms_k, plain_ms=ms_p)
+
+
+def both_modes_small(sim, cuda, n_src=4096, n_bl=32):
+    """One K1b + K1c launch on the first n_src sources above the horizon
+    and n_bl baselines of snapshot 0 of `sim` (a shaped sky), against its
+    plain version and the golden."""
+    from prisim_tpu_torch.engine import cuda_nudft, observe
+    from prisim_tpu_torch.engine.nudft import (nudft_reference_f64,
+                                               nudft_visibilities)
+    inst, sigma = sim.inst, sim.sky.src_shape_sigma
+    Mh, Ml, pch, pcl = observe.schedule_tensors(sim.obs, inst.latitude,
+                                                 cuda)
+    seh, sel, amps, sh = observe.snapshot_nudft_inputs(
+        inst, sim.sky, Mh[0], Ml[0], pch[0], pcl[0], sim.beam_fn)
+    up = torch.nonzero(amps.abs().sum(dim=1) > 0)[:n_src, 0]
+    args = (seh[up].contiguous(), sel[up].contiguous(),
+            inst.bl_hi[:n_bl].contiguous(), inst.bl_lo[:n_bl].contiguous(),
+            amps[up].contiguous(), inst.grid_scalars(), inst.nchan)
+    kw = dict(s_sky=sh[up].contiguous(), src_shape_sigma=sigma[up].contiguous(),
+              gradient=True)
+    (vk, gk) = cuda_nudft.nudft_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    (vp, gp) = nudft_visibilities(*args, **kw)
+    gv, gg = nudft_reference_f64(joined(args[0], args[1]),
+                                 joined(args[2], args[3]), args[4],
+                                 inst.freqs, **kw)
+    rv = rel_err(vk, vp, float(gv.abs().max()))[0]
+    rg = rel_err(gk, gp, float(gg.abs().max()))[0]
+    gv_r = rel_err(vk, gv, float(gv.abs().max()))[0]
+    gg_r = rel_err(gk, gg, float(gg.abs().max()))[0]
+    print("K1b+K1c (%d sources x %d bl x %d ch): vs plain /max|V|=%.4e "
+          "/max|G|=%.4e; vs f64 golden /max|V|=%.4e /max|G|=%.4e"
+          % (len(up), n_bl, inst.nchan, rv, rg, gv_r, gg_r))
+    if not (rv < PLAIN_BAR and rg < PLAIN_BAR and gv_r < EXT_BAR
+            and gg_r < GRAD_BAR):
+        raise SystemExit("K1b+K1c disagrees")
+
+
+def counts():
+    from prisim_tpu_torch.engine import cuda_banded, cuda_nudft
+    f = cuda_nudft.nudft_cuda
+    return dict(k1a=f.launches, k1b=f.launches_grad, k1c=f.launches_ext,
+                k2=cuda_banded.banded_spread_cuda.launches)
+
+
+def zero_counts():
+    from prisim_tpu_torch.engine import cuda_banded, cuda_nudft
+    f = cuda_nudft.nudft_cuda
+    f.launches = f.launches_grad = f.launches_ext = 0
+    cuda_banded.banded_spread_cuda.launches = 0
+
+
+def direct_mode_slice(label, parms, have_h5py, cuda, v0, want):
+    """run_simulation(parms) on the card, expected to take the direct
+    engine in one mode: checks the printed routing, the counts `want`
+    (all others 0), the output, the products, and snapshot 0 against the
+    kernel phase's `v0`. Returns the run's VisibilitySet and counts."""
+    from prisim_tpu_torch.driver import run_simulation
+    print("%s phase: run_simulation(device='cuda'), engine: auto" % label)
+    t0 = time.time()
+    log = io.StringIO()
+    zero_counts()
+    with contextlib.redirect_stdout(log):
+        vs, outdir = run_simulation(parms, verbose=True, save=True,
+                                    device=cuda)
+    got = counts()
+    wall = time.time() - t0
+    print(log.getvalue().rstrip())
+    print("%s wall-clock: %.3f s, launches %s" % (label, wall, got))
+    assert "running the direct engine" in log.getvalue()
+    assert got == dict(dict.fromkeys(got, 0), **want), got
+    shape = np.shape(v0) + (parms["obsparm"]["n_acc"],)
+    assert vs.skyvis.shape == shape, (vs.skyvis.shape, shape)
+    assert np.isfinite(vs.skyvis).all() and np.isfinite(vs.vis).all()
+    want0 = phased_snapshot0(vs, parms, v0)
+    d0 = np.abs(vs.skyvis[:, :, 0] - want0).max() / np.abs(want0).max()
+    print("snapshot 0 vs the kernel phase: max|dV|/max|V| = %.3e (%s)"
+          % (d0, "bit-exact" if d0 == 0 else "not bit-exact"))
+    assert d0 <= 1e-6, d0
+    check_products(vs, outdir, have_h5py)
+    with np.load(os.path.join(outdir, "simdata", "simvis.npz")) as f:
+        assert not any("grad" in k for k in f.files)
+    print("[%s phase: %.2f s]" % (label, wall))
+    return vs, got
+
+
+def northstar_k1c_phase(prefix, cuda):
+    """One north-star snapshot of K1c on a DSM FITS map at nside 256: its
+    time over all 630 baselines, and K1c against its plain version and
+    the f64 golden on N_GOLDEN_BL baselines over all sources."""
+    from prisim_tpu_torch.driver import prepare_simulation
+    from prisim_tpu_torch.engine import cuda_nudft
+    from prisim_tpu_torch.engine.nudft import (nudft_reference_f64,
+                                               nudft_visibilities)
+    from prisim_tpu_torch.engine.observe import (schedule_tensors,
+                                                 snapshot_nudft_inputs)
+    parms = northstar_parms(skyparm={"model": "dsm", "nside": 256},
+                            catalog={"DSM_file_prefix": prefix})
+    t0 = time.time()
+    sim = prepare_simulation(parms, cuda)
+    inst, sky = sim.inst, sim.sky
+    Mh, Ml, pch, pcl = (x[0] for x in schedule_tensors(
+        sim.obs, inst.latitude, cuda))
+    seh, sel, amps, sh = snapshot_nudft_inputs(inst, sky, Mh, Ml, pch, pcl,
+                                               sim.beam_fn)
+    torch.cuda.synchronize()
+    print("north-star K1c phase: %d bl x %d ch x %d DSM sources, sigma_uv "
+          "%.4f (set-up %.2f s)" % (inst.nbl, inst.nchan, seh.shape[0],
+                                    float(sky.src_shape_sigma.min()),
+                                    time.time() - t0))
+    kw = dict(s_sky=sh, src_shape_sigma=sky.src_shape_sigma)
+    args = (seh, sel, inst.bl_hi, inst.bl_lo, amps, inst.grid_scalars(),
+            inst.nchan)
+    t0 = time.time()
+    v_k = cuda_nudft.nudft_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    print("north-star K1c first launch: %.2f s" % (time.time() - t0))
+    assert v_k.shape == (inst.nbl, inst.nchan)
+    assert bool(torch.isfinite(v_k).all())
+    ms = cuda_time_ms(lambda: cuda_nudft.nudft_cuda(*args, **kw), n=1,
+                      warm=False)
+    S = seh.shape[0]
+    print("north-star K1c time: %.4f ms per snapshot = %.4e complex MAC/s"
+          % (ms, float(S) * inst.nbl * inst.nchan / (ms / 1e3)))
+    pick, lens = golden_pick(inst)
+    pk = torch.as_tensor(pick, device=cuda)
+    blh, bll = inst.bl_hi[pk].contiguous(), inst.bl_lo[pk].contiguous()
+    t0 = time.time()
+    v_p = nudft_visibilities(seh, sel, blh, bll, amps, inst.grid_scalars(),
+                             inst.nchan, src_block=4096, **kw)
+    torch.cuda.synchronize()
+    t_p = time.time() - t0
+    gold = nudft_reference_f64(joined(seh, sel), joined(blh, bll), amps,
+                               inst.freqs, **kw)
+    gv = float(gold.abs().max())
+    coherent = float(amps.abs().sum(dim=0).max())
+    r_p, _ = rel_err(v_k[pk], v_p, gv)
+    r_g, d_g = rel_err(v_k[pk], gold, gv)
+    print("north-star K1c vs plain (%d bl, plain %.2f s): /max|V|=%.4e; vs "
+          "f64 golden (%.1f-%.1f m): max|dV|=%.4e  /max|V|=%.4e  "
+          "/max_c sum_s|A|=%.4e" % (len(pick), t_p, r_p, lens[pick[0]],
+                                     lens[pick[-1]], d_g, r_g,
+                                     d_g / coherent))
+    if not (r_p < PLAIN_BAR and r_g < EXT_BAR):
+        raise SystemExit("north-star K1c disagrees: vs plain %.3e, vs "
+                         "golden %.3e" % (r_p, r_g))
+    return ms
 
 
 def main():
@@ -501,6 +815,52 @@ def main():
     northstar_phase(cuda)
     print("[north-star phase: %.2f s]" % (time.time() - t0))
 
+    grad = slice_parms(out_root, have_h5py, "auto", "hera37_usm64_gradient",
+                       processing={"gradient_mode": "baseline"})
+    t0 = time.time()
+    k1b = mode_phase("K1b", prepare_simulation(grad, cuda), cuda,
+                     gradient=True, shaped=False)
+    torch.cuda.empty_cache()
+    print("[K1b phase: %.2f s]" % (time.time() - t0))
+    vs, got = direct_mode_slice("gradient slice", grad, have_h5py, cuda,
+                                k1b["out"][0], dict(k1b=4))
+    k1b_launches = got["k1b"]
+    g = vs.gradients["baseline"]
+    assert g.shape == (3, 666, 1024, 4) and np.isfinite(g).all(), g.shape
+    d0 = np.abs(g[:, :, :, 0] - k1b["out"][1]).max() / np.abs(g).max()
+    print("gradient cube %s; snapshot 0 vs the K1b phase's planes: "
+          "max|dG|/max|G| = %.3e" % (g.shape, d0))
+    assert d0 <= 1e-6, d0
+    del vs, g, k1b["out"]
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    prefix = os.path.join(out_root, "dsm")
+    for nside in (64, 256):
+        write_dsm_fits(prefix, nside)
+    print("DSM FITS maps written (nside 64 and 256): %.2f s"
+          % (time.time() - t0))
+    dsm = slice_parms(out_root, have_h5py, "auto", "hera37_dsm64",
+                      skyparm={"model": "dsm", "nside": 64},
+                      catalog={"DSM_file_prefix": prefix})
+    t0 = time.time()
+    sim = prepare_simulation(dsm, cuda)
+    k1c = mode_phase("K1c", sim, cuda, gradient=False, shaped=True)
+    both_modes_small(sim, cuda)
+    del sim
+    torch.cuda.empty_cache()
+    print("[K1c phase: %.2f s]" % (time.time() - t0))
+    vs, got = direct_mode_slice("DSM slice", dsm, have_h5py, cuda,
+                                k1c["out"][0], dict(k1c=4))
+    k1c_launches = got["k1c"]
+    del vs, k1c["out"]
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    northstar_k1c_phase(prefix, cuda)
+    torch.cuda.empty_cache()
+    print("[north-star K1c phase: %.2f s]" % (time.time() - t0))
+
     print(smi)
     print(json.dumps({"kernels": [
         {"name": "nudft_k1a", "route": "cuda",
@@ -508,6 +868,16 @@ def main():
          "replaces": cuda_nudft.TPU_KERNEL, "launches": k1a_launches,
          "max_abs_err": k["max_abs_err"], "ms": k["ms"],
          "plain_ms": k["plain_ms"]},
+        {"name": "nudft_k1b", "route": "cuda",
+         "source": cuda_nudft.KERNEL_SOURCE,
+         "replaces": cuda_nudft.TPU_KERNEL_GRAD, "launches": k1b_launches,
+         "max_abs_err": k1b["max_abs_err"], "ms": k1b["ms"],
+         "plain_ms": k1b["plain_ms"]},
+        {"name": "nudft_k1c", "route": "cuda",
+         "source": cuda_nudft.KERNEL_SOURCE,
+         "replaces": cuda_nudft.TPU_KERNEL_EXT, "launches": k1c_launches,
+         "max_abs_err": k1c["max_abs_err"], "ms": k1c["ms"],
+         "plain_ms": k1c["plain_ms"]},
         {"name": "banded_k2", "route": "cuda",
          "source": cuda_banded.KERNEL_SOURCE,
          "replaces": cuda_banded.TPU_KERNEL, "launches": k2_launches,

@@ -1,0 +1,157 @@
+"""Survey catalog readers: SUMSS, NVSS, GLEAM, MWACS and DSM/GSM per-pixel
+FITS tables.
+
+Counterpart of prisim_tpu/catalogs.py, which is jax-free at module level
+but whose FITS readers import prisim_tpu.io.fitsio, and with it
+prisim_tpu/io/__init__.py, which imports jax. The text readers (SUMSS,
+MWACS), the flux cut and the power-law model builder need no FITS and are
+prisim_tpu's own; the FITS readers are rewritten here on the port's
+jax-free io.fitsio, with the same formats and results. Each reader
+returns a prisim_tpu SkyModel (power-law spectra, extended-source shapes
+where cataloged)."""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+from prisim_tpu import constants as CNST
+from prisim_tpu import healpix as hp
+from prisim_tpu.catalogs import (_draw_spindex, _powerlaw_model, flux_cut,
+                                 read_mwacs, read_sumss)
+
+from .io import fitsio
+
+__all__ = ["read_sumss", "read_nvss", "read_gleam", "read_mwacs",
+           "read_dsm_fits", "write_dsm_fits", "flux_cut"]
+
+
+def _fits_table_columns(path):
+    for hdu in fitsio.read_fits(path):
+        if "columns" in hdu:
+            return hdu["columns"]
+    raise ValueError("no binary table found in %s" % path)
+
+
+def read_nvss(path, spindex_mean=-0.83, spindex_rms=0.0,
+              spindex_seed=None, exclude_sumss_sky=False):
+    """NVSS FITS catalog: columns RA(2000), DEC(2000), PEAK INT (Jy/beam),
+    MAJOR AX, MINOR AX (deg); 1.4 GHz (PRISim's run_prisim.py NVSS
+    branch). exclude_sumss_sky keeps dec > -30 only (the csm merge)."""
+    cols = _fits_table_columns(path)
+    ra = np.asarray(cols["RA(2000)"], dtype=np.float64)
+    dec = np.asarray(cols["DEC(2000)"], dtype=np.float64)
+    flux = np.asarray(cols["PEAK INT"], dtype=np.float64)
+    majax = np.asarray(cols["MAJOR AX"], dtype=np.float64)
+    minax = np.asarray(cols["MINOR AX"], dtype=np.float64)
+    if exclude_sumss_sky:
+        keep = dec > -30.0
+        ra, dec, flux = ra[keep], dec[keep], flux[keep]
+        majax, minax = majax[keep], minax[keep]
+    spindex = _draw_spindex(flux.size, spindex_mean, spindex_rms,
+                            spindex_seed)
+    shape = np.stack([majax, minax, np.zeros_like(majax)], axis=-1)
+    return _powerlaw_model(ra, dec, flux, 1.4e9, spindex,
+                           src_shape=shape, name="NVSS")
+
+
+def read_gleam(path, select_freq=150e6):
+    """GLEAM FITS catalog: RAJ2000/DEJ2000, per-subband int_flux_XXX
+    columns (the one nearest select_freq is the reference flux),
+    a_wide/b_wide/pa_wide semi-axes (arcsec), fitted alpha."""
+    cols = _fits_table_columns(path)
+    ra = np.asarray(cols["RAJ2000"], dtype=np.float64)
+    dec = np.asarray(cols["DEJ2000"], dtype=np.float64)
+    flux_cols = sorted(
+        c for c in cols
+        if c.startswith("int_flux_") and "err" not in c
+        and "fit" not in c and "wide" not in c)
+    if flux_cols:
+        freqs_mhz = np.asarray([float(c.split("_")[-1])
+                                for c in flux_cols])
+        i = int(np.argmin(np.abs(freqs_mhz * 1e6 - select_freq)))
+        flux = np.asarray(cols[flux_cols[i]], dtype=np.float64)
+        fref = freqs_mhz[i] * 1e6
+    else:
+        flux = np.asarray(cols["int_flux_wide"], dtype=np.float64)
+        fref = 200e6
+    alpha = (np.asarray(cols["alpha"], dtype=np.float64)
+             if "alpha" in cols else np.full(ra.size, -0.83))
+    alpha = np.where(np.isfinite(alpha), alpha, -0.83)
+    shape = None
+    if "a_wide" in cols:
+        pa = cols["pa_wide"] if "pa_wide" in cols else np.zeros(ra.size)
+        shape = np.stack([2 * np.asarray(cols["a_wide"], np.float64) / 3600.0,
+                          2 * np.asarray(cols["b_wide"], np.float64) / 3600.0,
+                          np.asarray(pa, np.float64)], axis=-1)
+    return _powerlaw_model(ra, dec, flux, fref, alpha, src_shape=shape,
+                           name="GLEAM")
+
+
+def read_dsm_fits(path, nside=None, map_freq=150e6):
+    """Diffuse sky model (DSM/GSM) per-pixel FITS catalog.
+
+    A header carries PIXAREA (pixel solid angle, sr); a binary table has
+    columns RA, DEC (degrees), T_<MHz> pixel temperatures (K) at map_freq
+    and spindex (the temperature spectral index). Pixel flux S = T 2 k_B
+    (nu/c)^2 pixarea / Jy; the flux spectral index is spindex + 2.
+    `path` may be the full filename or the reference's file prefix,
+    expanded to '<prefix>_<MHz:.1f>_MHz_nside_<nside>.fits'. Every pixel
+    carries the pixel-resolution shape majax = minax = sqrt(pixarea).
+    Returns a power-law SkyModel in Jy."""
+    if not os.path.exists(path):
+        if nside is None:
+            raise ValueError("nside required to expand a DSM file prefix")
+        path = "%s_%.1f_MHz_nside_%d.fits" % (path, map_freq / 1e6,
+                                              int(nside))
+    hdus = fitsio.read_fits(path)
+    pixarea = next((float(h["header"]["PIXAREA"]) for h in hdus
+                    if "PIXAREA" in h["header"]), None)
+    cols = next((h["columns"] for h in hdus if "columns" in h), None)
+    if cols is None:
+        raise ValueError("no binary table in %s" % path)
+    ra = np.asarray(cols["RA"], dtype=np.float64)
+    dec = np.asarray(cols["DEC"], dtype=np.float64)
+    tname = "T_%.0f" % (map_freq / 1e6)
+    if tname not in cols:
+        cand = [k for k in cols if k.startswith("T_")]
+        if not cand:
+            raise ValueError("no temperature column (T_<MHz>) in %s"
+                             % path)
+        tname = cand[0]
+        map_freq = float(tname[2:]) * 1e6
+    temp = np.asarray(cols[tname], dtype=np.float64)
+    if pixarea is None:
+        pixarea = hp.nside2pixarea(hp.npix2nside(ra.size))
+    flux = temp * 2.0 * CNST.k_B * (map_freq / CNST.c) ** 2 \
+        * pixarea / CNST.Jy
+    spindex = np.asarray(cols["spindex"] if "spindex" in cols
+                         else np.full(ra.size, -2.55),
+                         dtype=np.float64) + 2.0
+    resol = np.degrees(np.sqrt(pixarea))
+    shape = np.stack([np.full(ra.size, resol), np.full(ra.size, resol),
+                      np.zeros(ra.size)], axis=-1)
+    return _powerlaw_model(ra, dec, flux, np.full(ra.size, map_freq),
+                           spindex, src_shape=shape, name="DSM")
+
+
+def write_dsm_fits(path, temp, spindex, map_freq=150e6):
+    """Write a full-sky HEALPix map (RING order) as the per-pixel DSM FITS
+    table read_dsm_fits reads: PIXAREA in the primary header, then RA,
+    DEC (pixel centers, degrees), T_<MHz> (temp, K at map_freq) and
+    spindex (the temperature spectral index)."""
+    temp = np.asarray(temp, dtype=np.float64)
+    nside = hp.npix2nside(temp.size)
+    theta, phi = hp.pix2ang(nside, np.arange(temp.size))
+    with open(path, "wb") as fh:
+        fh.write(fitsio.format_header([
+            fitsio.card("SIMPLE", True), fitsio.card("BITPIX", 8),
+            fitsio.card("NAXIS", 0), fitsio.card("EXTEND", True),
+            fitsio.card("PIXAREA", hp.nside2pixarea(nside))]))
+        fitsio.write_bintable(fh, "DSM", [
+            ("RA", "1D", np.degrees(phi)),
+            ("DEC", "1D", 90.0 - np.degrees(theta)),
+            ("T_%.0f" % (map_freq / 1e6), "1D", temp),
+            ("spindex", "1D", np.broadcast_to(
+                np.asarray(spindex, dtype=np.float64), temp.shape))])

@@ -29,8 +29,12 @@ def instrument_from_numpy(bl_hi, bl_lo, freqs, device="cpu", **meta):
                       np.asarray(freqs, dtype=np.float64), **meta)
 
 
-def sky_from_numpy(s_eq_hi, s_eq_lo, flux, device="cpu"):
-    """Point-source SkySources from two-float unit vectors (S, 3) and the
-    (S, C) spectrum."""
+def sky_from_numpy(s_eq_hi, s_eq_lo, flux, device="cpu",
+                   src_shape_sigma=None):
+    """SkySources from two-float unit vectors (S, 3), the (S, C) spectrum
+    and, for extended sources, the (S,) uv-plane gaussian sigmas (inf for
+    a point source)."""
     return SkySources(_f32(s_eq_hi, device), _f32(s_eq_lo, device),
-                      _f32(flux, device))
+                      _f32(flux, device),
+                      None if src_shape_sigma is None
+                      else _f32(src_shape_sigma, device))

@@ -1,37 +1,53 @@
-// Kernel K1a: NUDFT visibilities of point sources, for Hopper (sm_90a).
+// Kernels K1a, K1b and K1c: NUDFT visibilities for Hopper (sm_90a).
 //
-// Replaces the point-source mode of the TPU kernel
-// prisim_tpu/engine/pallas_nudft.py::_kernel. It computes
-//   V[b, c] = sum_s A[s, c] exp(-2 pi i nu_c (s_eff . b) / c_light),
-//   nu_c = nu0 + (chan0 + c) dnu,
-// with the arithmetic of the plain version (engine/nudft.py): the delay
+// Replace the three modes of the TPU kernel
+// prisim_tpu/engine/pallas_nudft.py::_kernel. On a uniform channel grid
+// nu_c = nu0 + (chan0 + c) dnu they compute
+//   V[b, c]   = sum_s A[s, c] w[s, b, c] exp(-2 pi i nu_c (s_eff . b) / c_l)
+//   G_k[b, c] = sum_s s_sky[s, k] A[s, c] w[s, b, c] exp(...)   (K1b)
+//   w[s, b, c] = exp(-alpha[s, b] (nu_c / c_l)^2),                (K1c)
+//   alpha = max(|b|^2 - (s_sky . b)^2, 0) / (2 sigma_s^2),
+// with w = 1 for K1a and K1b alone, and for sigma = inf (a point source).
+// K1a is <kGrad = false, kExt = false>, K1b <true, false>, K1c
+// <false, true>; <true, true> runs both at once.
+//
+// Arithmetic, as in the plain version (engine/nudft.py): the delay
 // k = s.b and the cycle counts p0 = k nu0/c, d = k dnu/c are two-float
 // and reduced mod 1; with c = q L + r the phasor is U[s,b,q] W[s,b,r],
 // where U is taken at the cycle count p0 + (q L + chan0) d and W at r d,
 // each reduced mod 1 in two-float and turned into a float64 phasor by
-// sincospi. U W A is summed in float64. (On the slice shape an f32
-// phasor and product chain floors at 2.1e-6 of max|V| against the f64
+// sincospi. The products are summed in float64. (On the slice shape an
+// f32 phasor and product chain floors at 2.1e-6 of max|V| against the f64
 // golden even with an exact sum, above the engines' 2e-6 bar; see
-// PERF.md.) The f64 sum needs no Kahan compensation.
+// PERF.md.) The f64 sums need no Kahan compensation. The gaussian weight
+// is float32: alpha is taken in float64 with every rounding pinned
+// (__dadd_rn, __dmul_rn, __ddiv_rn) and rounded to float32, as is the
+// channel factor (nu_c/c)^2, and w = expf(-alpha k2) with the accurate
+// expf (no fast math), so that the weight equals the plain version's.
+// A w is exact in float64.
 //
 // What bounds it on the H100: float64 issue (64 FP64 lanes per SM and
-// clock, half the FP32 rate). Each complex multiply-add is 6 FP64
-// instructions, and each of the Q + L phasors per (source, baseline) is
-// one sincospi (~64 phasors per 1024 channels). At the slice shape that
-// issue estimate is ~25-30 ms per snapshot; the kernel measures 72 ms
-// (PERF.md), so something else (sincospi cost, occupancy, barriers) also
-// holds it back. Amplitude traffic is S*C*4 bytes per block; a block owns
-// kNB baselines so each amplitude load feeds kNB MACs, and blocks that
-// run together read the same source tiles, which L2 serves.
+// clock, half the FP32 rate). K1a's complex multiply-add is 6 FP64
+// instructions; each of the Q + L phasors per (source, baseline) is one
+// sincospi (~64 phasors per 1024 channels). K1b adds the three moments,
+// 14 FP64 instructions per term in all, and K1c one FP64 multiply, the
+// conversion and an expf (FP32 and MUFU pipes) per term. Amplitude
+// traffic is S*C*4 bytes per block; a block owns NB baselines so each
+// amplitude load feeds NB terms, and blocks that run together read the
+// same source tiles, which L2 serves.
 //
-// Design: one block owns kNB baselines x kTile channels and loops over
-// ALL sources in tiles of ST (no reduction crosses blocks; this loop takes
-// the place of the TPU grid's sequential source axis). Per tile the
-// threads build the two-float cycle scalars, then the U and W phasor
-// tables in shared memory; each thread then owns kCPT channels c = c0 +
-// tid + j*kThreads (all with the same fine index r, since L divides
-// kThreads) and accumulates in float64 registers. Ragged S, B and C are
-// masked in the kernel. The output is written as complex64 (B, nchan).
+// Design: one block owns NB baselines x (kThreads * CPT) channels and
+// loops over ALL sources in tiles of ST (no reduction crosses blocks;
+// this loop takes the place of the TPU grid's sequential source axis).
+// Per tile the threads build the two-float cycle scalars (and alpha) per
+// (baseline, source) pair, then the U and W phasor tables in shared
+// memory; each thread then owns CPT channels c = c0 + tid + j*kThreads
+// (all with the same fine index r, since L divides kThreads) and
+// accumulates in float64 registers. K1b's 3 extra complex accumulators
+// per output would take 96 more registers at K1a's NB=2 x CPT=4, past what
+// __launch_bounds__(256) leaves without spills, so gradient mode runs
+// CPT=2. Ragged S, B and C are masked in the kernel. The outputs are
+// written as complex64 (B, nchan) and (3, B, nchan).
 #include <cuda_runtime.h>
 
 #include "twofloat.cuh"
@@ -41,27 +57,69 @@ using prisim::df;
 namespace {
 
 constexpr int kThreads = 256;             // threads per block
-constexpr int kCPT = 4;                   // channels per thread
-constexpr int kNB = 2;                    // baselines per block
-constexpr int kTile = kThreads * kCPT;    // channels per block
 
+// Modes of the C interface (bit flags).
+constexpr int kModeGrad = 1;
+constexpr int kModeExt = 2;
+
+template <int NB, int CPT, bool kGrad, bool kExt>
+struct Cfg {
+  static constexpr int kTile = kThreads * CPT;   // channels per block
+  static int tq_cap(int Q, int L) { return (kTile / L < Q) ? kTile / L : Q; }
+  // Shared-memory bytes of one block for a source tile of ST.
+  static size_t smem(int Q, int L, int ST) {
+    const size_t ns = static_cast<size_t>(NB) * ST;
+    return ns * (tq_cap(Q, L) + L) * sizeof(double2) +
+           (kGrad ? 3 * static_cast<size_t>(ST) * sizeof(double) : 0) +
+           (4 + (kExt ? 1 : 0)) * ns * sizeof(float);
+  }
+};
+
+// alpha = max(|b|^2 - (s . b)^2, 0) / (2 sigma^2) in float64, every
+// rounding pinned in the order of engine/nudft.py::ext_alpha, rounded to
+// float32.
+__device__ __forceinline__ float ext_alpha(const float* s, float sigma,
+                                           const float* bh, const float* bl) {
+  double b[3];
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+    b[ax] = __dadd_rn(static_cast<double>(bh[ax]), static_cast<double>(bl[ax]));
+  }
+  const double k = __dadd_rn(
+      __dadd_rn(__dmul_rn(static_cast<double>(s[0]), b[0]),
+                __dmul_rn(static_cast<double>(s[1]), b[1])),
+      __dmul_rn(static_cast<double>(s[2]), b[2]));
+  const double bl2 = __dadd_rn(__dadd_rn(__dmul_rn(b[0], b[0]),
+                                         __dmul_rn(b[1], b[1])),
+                               __dmul_rn(b[2], b[2]));
+  const double proj2 = fmax(__dadd_rn(bl2, -__dmul_rn(k, k)), 0.0);
+  const double sig = static_cast<double>(sigma);
+  return __double2float_rn(__ddiv_rn(__dmul_rn(0.5, proj2), __dmul_rn(sig, sig)));
+}
+
+template <int NB, int CPT, bool kGrad, bool kExt>
 __global__ void __launch_bounds__(kThreads)
-nudft_k1a_kernel(const float* __restrict__ seh, const float* __restrict__ sel,
-                 const float* __restrict__ blh, const float* __restrict__ bll,
-                 const float* __restrict__ amps, float2* __restrict__ out,
-                 int S, int B, int nchan, int Q, int L, int ST, int TQ_cap,
-                 float g0h, float g0l, float gdh, float gdl, int chan0) {
+nudft_kernel(const float* __restrict__ seh, const float* __restrict__ sel,
+             const float* __restrict__ blh, const float* __restrict__ bll,
+             const float* __restrict__ amps, const float* __restrict__ ssky,
+             const float* __restrict__ sigma, float2* __restrict__ out,
+             float2* __restrict__ gout, int S, int B, int nchan, int Q, int L,
+             int ST, int TQ_cap, float g0h, float g0l, float gdh, float gdl,
+             int chan0) {
   extern __shared__ double2 smem[];
-  const int NS = kNB * ST;                  // (baseline, source) pairs
+  const int NS = NB * ST;                   // (baseline, source) pairs
   double2* U = smem;                        // [NS][TQ_cap]
   double2* W = U + NS * TQ_cap;             // [NS][L]
-  float* p0h_s = reinterpret_cast<float*>(W + NS * L);
+  double* sk = reinterpret_cast<double*>(W + NS * L);   // [ST][3] (K1b)
+  float* p0h_s = reinterpret_cast<float*>(sk + (kGrad ? 3 * ST : 0));
   float* p0l_s = p0h_s + NS;
   float* dh_s = p0l_s + NS;
   float* dl_s = dh_s + NS;
+  float* alpha_s = dl_s + NS;               // [NS] (K1c)
 
+  constexpr int kTile = Cfg<NB, CPT, kGrad, kExt>::kTile;
   const int tid = threadIdx.x;
-  const int b0 = blockIdx.x * kNB;
+  const int b0 = blockIdx.x * NB;
   const int c0 = blockIdx.y * kTile;
   const int q0 = c0 / L;
   const int TQ = min(TQ_cap, Q - q0);
@@ -69,31 +127,45 @@ nudft_k1a_kernel(const float* __restrict__ seh, const float* __restrict__ sel,
   const df g0 = {g0h, g0l};
   const df gd = {gdh, gdl};
 
-  int qi[kCPT];
-  bool live[kCPT];
+  int qi[CPT];
+  bool live[CPT];
+  float k2[CPT];                            // (nu_c / c)^2 (K1c)
 #pragma unroll
-  for (int j = 0; j < kCPT; ++j) {
+  for (int j = 0; j < CPT; ++j) {
     live[j] = c0 + tid + j * kThreads < nchan;
     qi[j] = min((tid + j * kThreads) / L, TQ - 1);
+    if constexpr (kExt) {
+      const double x = __dadd_rn(
+          __dadd_rn(static_cast<double>(g0h), static_cast<double>(g0l)),
+          __dmul_rn(__dadd_rn(static_cast<double>(gdh),
+                              static_cast<double>(gdl)),
+                    static_cast<double>(chan0 + c0 + tid + j * kThreads)));
+      k2[j] = __double2float_rn(__dmul_rn(x, x));
+    }
   }
-  double acc_r[kNB][kCPT], acc_i[kNB][kCPT];
+  constexpr int kOut = kGrad ? 4 : 1;       // V, then G_0..G_2
+  double acc_r[kOut][NB][CPT], acc_i[kOut][NB][CPT];
 #pragma unroll
-  for (int bi = 0; bi < kNB; ++bi) {
+  for (int o = 0; o < kOut; ++o) {
 #pragma unroll
-    for (int j = 0; j < kCPT; ++j) acc_r[bi][j] = acc_i[bi][j] = 0.0;
+    for (int bi = 0; bi < NB; ++bi) {
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) acc_r[o][bi][j] = acc_i[o][bi][j] = 0.0;
+    }
   }
 
   for (int s0 = 0; s0 < S; s0 += ST) {
     const int ns = min(ST, S - s0);
     __syncthreads();                        // previous tables consumed
 
-    // 1. two-float cycle scalars per (baseline, source) pair
+    // 1. per (baseline, source) pair: two-float cycle scalars, alpha
     if (tid < NS) {
       const int bi = tid / ST;
       const int s = s0 + (tid - bi * ST);
       const int b = b0 + bi;
       df p0 = {0.f, 0.f};
       df d = {0.f, 0.f};
+      float alpha = 0.f;
       if (s < S && b < B) {
         float sh[3], sl[3], bh[3], bl[3];
 #pragma unroll
@@ -106,11 +178,18 @@ nudft_k1a_kernel(const float* __restrict__ seh, const float* __restrict__ sel,
         const df k = prisim::df_dot3(sh, sl, bh, bl);
         p0 = prisim::df_frac(prisim::df_mul(k, g0));
         d = prisim::df_frac(prisim::df_mul(k, gd));
+        if constexpr (kExt) alpha = ext_alpha(ssky + 3 * s, sigma[s], bh, bl);
       }
       p0h_s[tid] = p0.h;
       p0l_s[tid] = p0.l;
       dh_s[tid] = d.h;
       dl_s[tid] = d.l;
+      if constexpr (kExt) alpha_s[tid] = alpha;
+    }
+    if constexpr (kGrad) {
+      if (tid < 3 * ST) {
+        sk[tid] = (tid < 3 * ns) ? static_cast<double>(ssky[3 * s0 + tid]) : 0.0;
+      }
     }
     __syncthreads();
 
@@ -133,87 +212,158 @@ nudft_k1a_kernel(const float* __restrict__ seh, const float* __restrict__ sel,
     }
     __syncthreads();
 
-    // 3. multiply-accumulate in float64: acc += U * (A W)
+    // 3. multiply-accumulate in float64: acc += U * (A w W)
     for (int si = 0; si < ns; ++si) {
       const float* arow =
           amps + static_cast<size_t>(s0 + si) * nchan + c0 + tid;
-      double a[kCPT];
+      double a[CPT];
 #pragma unroll
-      for (int j = 0; j < kCPT; ++j) {
+      for (int j = 0; j < CPT; ++j) {
         a[j] = live[j] ? static_cast<double>(__ldg(arow + j * kThreads)) : 0.0;
       }
+      double s3[3];
+      if constexpr (kGrad) {
 #pragma unroll
-      for (int bi = 0; bi < kNB; ++bi) {
+        for (int k = 0; k < 3; ++k) s3[k] = sk[3 * si + k];
+      }
+#pragma unroll
+      for (int bi = 0; bi < NB; ++bi) {
         const int pr = bi * ST + si;
         const double2 w = W[pr * L + r];
         const double2* u = U + pr * TQ_cap;
+        float alpha = 0.f;
+        if constexpr (kExt) alpha = alpha_s[pr];
 #pragma unroll
-        for (int j = 0; j < kCPT; ++j) {
+        for (int j = 0; j < CPT; ++j) {
+          double aw = a[j];
+          if constexpr (kExt) {
+            aw *= static_cast<double>(expf(-__fmul_rn(alpha, k2[j])));
+          }
           const double2 uu = u[qi[j]];
-          const double tr = a[j] * w.x;
-          const double ti = a[j] * w.y;
-          acc_r[bi][j] += uu.x * tr - uu.y * ti;
-          acc_i[bi][j] += uu.x * ti + uu.y * tr;
+          const double tr = aw * w.x;
+          const double ti = aw * w.y;
+          if constexpr (kGrad) {
+            const double er = uu.x * tr - uu.y * ti;
+            const double ei = uu.x * ti + uu.y * tr;
+            acc_r[0][bi][j] += er;
+            acc_i[0][bi][j] += ei;
+#pragma unroll
+            for (int k = 0; k < 3; ++k) {
+              acc_r[1 + k][bi][j] += s3[k] * er;
+              acc_i[1 + k][bi][j] += s3[k] * ei;
+            }
+          } else {
+            acc_r[0][bi][j] += uu.x * tr - uu.y * ti;
+            acc_i[0][bi][j] += uu.x * ti + uu.y * tr;
+          }
         }
       }
     }
   }
 
 #pragma unroll
-  for (int bi = 0; bi < kNB; ++bi) {
+  for (int bi = 0; bi < NB; ++bi) {
     const int b = b0 + bi;
     if (b >= B) continue;
 #pragma unroll
-    for (int j = 0; j < kCPT; ++j) {
-      if (live[j]) {
-        out[static_cast<size_t>(b) * nchan + c0 + tid + j * kThreads] =
-            make_float2(static_cast<float>(acc_r[bi][j]),
-                        static_cast<float>(acc_i[bi][j]));
+    for (int j = 0; j < CPT; ++j) {
+      if (!live[j]) continue;
+      const size_t at = static_cast<size_t>(b) * nchan + c0 + tid + j * kThreads;
+      out[at] = make_float2(static_cast<float>(acc_r[0][bi][j]),
+                            static_cast<float>(acc_i[0][bi][j]));
+      if constexpr (kGrad) {
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          gout[static_cast<size_t>(k) * B * nchan + at] =
+              make_float2(static_cast<float>(acc_r[1 + k][bi][j]),
+                          static_cast<float>(acc_i[1 + k][bi][j]));
+        }
       }
     }
   }
+}
+
+template <int NB, int CPT, bool kGrad, bool kExt>
+int launch(const void* seh, const void* sel, const void* blh, const void* bll,
+           const void* amps, const void* ssky, const void* sigma, void* out,
+           void* gout, int S, int B, int nchan, int Q, int L, int ST,
+           float g0h, float g0l, float gdh, float gdl, int chan0,
+           cudaStream_t stream) {
+  using C = Cfg<NB, CPT, kGrad, kExt>;
+  auto kernel = nudft_kernel<NB, CPT, kGrad, kExt>;
+  if (NB * ST > kThreads) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = C::smem(Q, L, ST);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const dim3 grid((B + NB - 1) / NB, (nchan + C::kTile - 1) / C::kTile);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(seh), static_cast<const float*>(sel),
+      static_cast<const float*>(blh), static_cast<const float*>(bll),
+      static_cast<const float*>(amps), static_cast<const float*>(ssky),
+      static_cast<const float*>(sigma), static_cast<float2*>(out),
+      static_cast<float2*>(gout), S, B, nchan, Q, L, ST, C::tq_cap(Q, L),
+      g0h, g0l, gdh, gdl, chan0);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared-memory bytes one block needs for a source tile of ST.
-size_t prisim_nudft_k1a_smem(int Q, int L, int ST) {
-  const int TQ_cap = (kTile / L < Q) ? kTile / L : Q;
-  const size_t ns = static_cast<size_t>(kNB) * ST;
-  return ns * (TQ_cap + L) * sizeof(double2) + 4 * ns * sizeof(float);
+// Shared-memory bytes one block of `mode` (0 K1a, 1 K1b, 2 K1c, 3 both)
+// needs for a source tile of ST; 0 for an unknown mode.
+size_t prisim_nudft_smem(int Q, int L, int ST, int mode) {
+  switch (mode) {
+    case 0: return Cfg<2, 4, false, false>::smem(Q, L, ST);
+    case kModeGrad: return Cfg<2, 2, true, false>::smem(Q, L, ST);
+    case kModeExt: return Cfg<2, 4, false, true>::smem(Q, L, ST);
+    case kModeGrad | kModeExt: return Cfg<2, 2, true, true>::smem(Q, L, ST);
+    default: return 0;
+  }
 }
 
-// Launch K1a on `stream`. Pointers are device pointers to contiguous
-// float32 arrays: seh/sel (S, 3), blh/bll (B, 3), amps (S, nchan); `out`
-// is complex64 (B, nchan). L must be a power of two <= 256 and
-// kNB * ST <= 256. Returns the cudaError_t of the launch.
-int prisim_nudft_k1a(const void* seh, const void* sel, const void* blh,
-                     const void* bll, const void* amps, void* out, int S,
-                     int B, int nchan, int Q, int L, int ST, float g0h,
-                     float g0l, float gdh, float gdl, int chan0,
-                     void* stream) {
-  if (L < 1 || L > kThreads || (L & (L - 1)) || ST < 1 ||
-      kNB * ST > kThreads || Q * L < nchan || S < 1 || B < 1 || nchan < 1) {
+// Launch the NUDFT of `mode` on `stream`. Pointers are device pointers
+// to contiguous float32 arrays: seh/sel (S, 3), blh/bll (B, 3), amps
+// (S, nchan), s_sky (S, 3) for K1b or K1c, sigma (S,) for K1c (unused
+// ones may be null); `out` is complex64 (B, nchan) and `gout` complex64
+// (3, B, nchan) for K1b. L must be a power of two <= 256, 2 * ST <= 256
+// and, for K1b, 3 * ST <= 256. Returns the cudaError_t of the launch.
+int prisim_nudft(const void* seh, const void* sel, const void* blh,
+                 const void* bll, const void* amps, const void* ssky,
+                 const void* sigma, void* out, void* gout, int S, int B,
+                 int nchan, int Q, int L, int ST, float g0h, float g0l,
+                 float gdh, float gdl, int chan0, int mode, void* stream) {
+  const bool grad = mode & kModeGrad;
+  const bool ext = mode & kModeExt;
+  if (L < 1 || L > kThreads || (L & (L - 1)) || ST < 1 || Q * L < nchan ||
+      S < 1 || B < 1 || nchan < 1 || (mode & ~(kModeGrad | kModeExt)) ||
+      ((grad || ext) && ssky == nullptr) || (ext && sigma == nullptr) ||
+      (grad && (gout == nullptr || 3 * ST > kThreads))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int TQ_cap = (kTile / L < Q) ? kTile / L : Q;
-  const size_t smem = prisim_nudft_k1a_smem(Q, L, ST);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        nudft_k1a_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case 0:
+      return launch<2, 4, false, false>(seh, sel, blh, bll, amps, ssky, sigma,
+                                        out, gout, S, B, nchan, Q, L, ST, g0h,
+                                        g0l, gdh, gdl, chan0, st);
+    case kModeGrad:
+      return launch<2, 2, true, false>(seh, sel, blh, bll, amps, ssky, sigma,
+                                       out, gout, S, B, nchan, Q, L, ST, g0h,
+                                       g0l, gdh, gdl, chan0, st);
+    case kModeExt:
+      return launch<2, 4, false, true>(seh, sel, blh, bll, amps, ssky, sigma,
+                                       out, gout, S, B, nchan, Q, L, ST, g0h,
+                                       g0l, gdh, gdl, chan0, st);
+    default:
+      return launch<2, 2, true, true>(seh, sel, blh, bll, amps, ssky, sigma,
+                                      out, gout, S, B, nchan, Q, L, ST, g0h,
+                                      g0l, gdh, gdl, chan0, st);
   }
-  const dim3 grid((B + kNB - 1) / kNB, (nchan + kTile - 1) / kTile);
-  nudft_k1a_kernel<<<grid, kThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(seh), static_cast<const float*>(sel),
-      static_cast<const float*>(blh), static_cast<const float*>(bll),
-      static_cast<const float*>(amps), static_cast<float2*>(out), S, B,
-      nchan, Q, L, ST, TQ_cap, g0h, g0l, gdh, gdl, chan0);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

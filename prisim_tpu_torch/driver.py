@@ -12,7 +12,10 @@ NUDFT (kernel K1a on a CUDA card, its plain version on the CPU) or the
 banded delay-space NUFFT (kernel K2 on a card, its plain version on the
 CPU), behind a gate against the direct engine that demotes the run to the
 direct engine when it fails. 'auto' picks the banded engine on a card and
-the direct engine on the CPU.
+the direct engine on the CPU. Gradient runs (processing.gradient_mode,
+kernel K1b) and skies with source shapes (extended sources, kernel K1c:
+the catalog and DSM FITS skies, a 7-column custom catalog) always run the
+direct engine, as the reference does.
 
 The device is explicit: run_simulation(..., device="cuda") raises when no
 card is present and never carries on on the CPU. Branches that are not
@@ -42,6 +45,7 @@ from prisim_tpu.skymodel import (SkyModel, healpix_diffuse_model,
                                  temperature_to_jy_per_pixel)
 
 from . import __version__
+from . import catalogs as CATS
 from . import geometry as geom
 from . import windows as win
 from .beams.analytic import airy_beam_df, airy_df_available
@@ -258,12 +262,14 @@ def _apply_snapshot_selection(obs, parms):
 
 
 def build_sky(parms, freqs):
-    """Sky model from parms['skyparm']/parms['catalog']. Ported models:
-    'random' (synthetic catalog), 'custom' (ascii catalog: RA DEC FLUX
-    [SPINDEX] [MAJAX MINAX PA]), 'hi_monopole', 'noise', 'skymod_hdf5'
-    (native SkyModel HDF5), 'hi_cube' from npz, and 'usm'/'hpx'/'dsm'/
-    'gsm' HEALPix maps from .npy/.npz. The catalog readers (csm, asm,
-    sumss, nvss, gleam, mwacs and FITS maps or cubes) raise."""
+    """Sky model from parms['skyparm']/parms['catalog'] (prisim_tpu/
+    driver.py:200-431). Ported models: 'random' (synthetic catalog),
+    'custom' (ascii catalog: RA DEC FLUX [SPINDEX] [MAJAX MINAX PA]), the
+    survey catalogs 'sumss', 'nvss', 'gleam', 'mwacs' and their merges
+    'csm' (SUMSS + NVSS) and 'asm' (csm + the DSM map), 'hi_monopole',
+    'noise', 'skymod_hdf5' (native SkyModel HDF5), 'hi_cube' from npz, and
+    'usm'/'hpx'/'dsm'/'gsm' HEALPix maps from .npy/.npz or per-pixel DSM
+    FITS tables. FITS HI cubes raise."""
     sp = parms["skyparm"]
     cat = parms["catalog"]
     model = (sp.get("model") or "custom").lower()
@@ -295,8 +301,62 @@ def build_sky(parms, freqs):
         fmin = sp.get("flux_min")
         if fmin is not None:
             sm = sm.subset(np.where(flux >= float(fmin))[0])
-    elif model in ("csm", "asm", "sumss", "nvss", "gleam", "mwacs"):
-        raise _not_ported("skyparm.model %r (catalog readers)" % model, 16)
+    elif model in ("csm", "asm"):
+        # csm: SUMSS below dec -30 and NVSS above; asm: the same point
+        # sources merged with the DSM diffuse map
+        parts = []
+        if model == "asm":
+            path = cat.get("DSM_file_prefix") or cat.get("spectrum_file")
+            if not path:
+                raise ValueError("asm needs catalog.DSM_file_prefix "
+                                 "(per-pixel DSM FITS table)")
+            parts.append(CATS.read_dsm_fits(
+                path, nside=int(sp.get("nside") or 64),
+                map_freq=float(sp.get("custom_reffreq") or 0.15) * 1e9))
+        if cat.get("SUMSS_file"):
+            parts.append(CATS.read_sumss(
+                cat["SUMSS_file"],
+                spindex_rms=float(sp.get("spindex_rms") or 0.0),
+                spindex_seed=sp.get("spindex_seed")))
+        if cat.get("NVSS_file"):
+            parts.append(CATS.read_nvss(
+                cat["NVSS_file"], exclude_sumss_sky=bool(
+                    cat.get("SUMSS_file")),
+                spindex_rms=float(sp.get("spindex_rms") or 0.0),
+                spindex_seed=sp.get("spindex_seed")))
+        if not parts or (model == "csm" and not any(
+                cat.get(k) for k in ("SUMSS_file", "NVSS_file"))):
+            raise ValueError("%s needs catalog.SUMSS_file and/or "
+                             "catalog.NVSS_file" % model)
+        # the flux cut applies to the point-source catalogs only: every
+        # DSM pixel is kept
+        ndiff = 1 if model == "asm" else 0
+        if sp.get("flux_min") is not None and len(parts) > ndiff:
+            ps = CATS.flux_cut(SkyModel.concat(parts[ndiff:]),
+                               flux_min=sp["flux_min"],
+                               flux_max=sp.get("flux_max"),
+                               cut_freq=_fluxcut_freq(sp))
+            parts = parts[:ndiff] + [ps]
+        sm = SkyModel.concat(parts)
+    elif model in ("sumss", "nvss", "gleam", "mwacs"):
+        reader = {"sumss": CATS.read_sumss, "nvss": CATS.read_nvss,
+                  "gleam": CATS.read_gleam, "mwacs": CATS.read_mwacs}
+        path = cat.get(model.upper() + "_file") or cat.get("custom_file")
+        if not path:
+            raise ValueError("catalog.%s_file required for "
+                             "skyparm.model=%r" % (model.upper(), model))
+        kw = {}
+        if model in ("sumss", "nvss", "mwacs"):
+            kw = dict(spindex_mean=float(sp.get("spindex") or -0.83),
+                      spindex_rms=float(sp.get("spindex_rms") or 0.0),
+                      spindex_seed=sp.get("spindex_seed"))
+        elif model == "gleam":
+            kw = dict(select_freq=float(np.median(freqs)))
+        sm = reader[model](path, **kw)
+        if sp.get("flux_min") is not None or sp.get("flux_max") is not None:
+            sm = CATS.flux_cut(sm, flux_min=sp.get("flux_min"),
+                               flux_max=sp.get("flux_max"),
+                               cut_freq=_fluxcut_freq(sp))
     elif model in ("hi_monopole", "monopole"):
         # global-EoR tanh monopole on a uniform HEALPix sky
         nside = int(sp.get("nside") or 32)
@@ -346,12 +406,18 @@ def build_sky(parms, freqs):
             path = cat.get("DSM_file_prefix") or cat.get("spectrum_file")
             if not path:
                 raise ValueError("skyparm.model=%r needs a HEALPix map "
-                                 "(.npy, or .npz with 'maps' and 'freqs') "
-                                 "in catalog.spectrum_file" % model)
+                                 "(.npy, .npz with 'maps' and 'freqs', or a "
+                                 "DSM FITS table) in catalog.spectrum_file "
+                                 "or catalog.DSM_file_prefix" % model)
             if str(path).endswith((".fits", ".FITS")) or \
                     not os.path.exists(str(path)):
-                raise _not_ported("FITS HEALPix maps (catalog readers)", 16)
-            temp = np.load(path)
+                # per-pixel FITS table, or the reference's file prefix
+                # (expanded inside the reader)
+                temp = CATS.read_dsm_fits(
+                    path, nside=nside,
+                    map_freq=float(sp.get("custom_reffreq") or 0.15) * 1e9)
+            else:
+                temp = np.load(path)
             if hasattr(temp, "files"):
                 if "maps" in temp.files and "freqs" in temp.files:
                     temp = healpix_diffuse_model(
@@ -369,6 +435,11 @@ def build_sky(parms, freqs):
     else:
         raise ValueError("unsupported skyparm.model %r" % model)
     return sm
+
+
+def _fluxcut_freq(sp):
+    return (float(sp["fluxcut_reffreq"]) if sp.get("fluxcut_reffreq")
+            else None)
 
 
 def precess_sky_to_obs_epoch(sky, parms, obs):
@@ -543,7 +614,7 @@ def check_supported(parms, device):
     """Raise, before any compute, for every branch the port lacks."""
     proc = parms["processing"]
     engine = _resolve_engine(parms, device)
-    if engine == "nufft":
+    if engine == "nufft" and not proc.get("gradient_mode"):
         spread = str(proc.get("nufft_spread") or "auto").lower()
         if spread == "sorted":
             raise _not_ported("processing.nufft_spread: sorted (the sorted "
@@ -555,8 +626,6 @@ def check_supported(parms, device):
         raise ValueError("processing.use_pallas: false asks for the plain "
                          "NUDFT, but on a CUDA device the direct engine "
                          "always runs kernel K1a")
-    if proc.get("gradient_mode"):
-        raise _not_ported("processing.gradient_mode (kernel K1b)", 12)
     if int(proc.get("n_sky_sectors") or 1) > 1:
         raise _not_ported("processing.n_sky_sectors > 1", 17)
     pp = parms.get("pp") or {}
@@ -730,7 +799,10 @@ def run_simulation(parms, outdir=None, verbose=True, save=True,
 
     processing.engine 'auto' runs the banded NUFFT engine (kernel K2,
     gated against the direct engine) on a CUDA card and the direct engine
-    on the CPU. Returns (VisibilitySet, output_dir or None)."""
+    on the CPU; a gradient run or a sky with source shapes runs the direct
+    engine whatever the engine, and a gradient run's VisibilitySet
+    carries gradients["baseline"] (3, nbl, nchan, n_acc). Returns
+    (VisibilitySet, output_dir or None)."""
     if not isinstance(parms, dict) or "telescope" not in parms:
         parms = load_parms(parms)
     dev = resolve_device(device)
@@ -751,16 +823,31 @@ def _run_simulation_inner(parms, outdir, verbose, save, dev):
     sim = prepare_simulation(parms, dev, verbose=verbose)
     _phase(verbose, "inputs built and on %s" % dev, t0)
     t1 = time.time()
-    if _resolve_engine(parms, dev) == "nufft":
+    grad = bool(parms["processing"].get("gradient_mode"))
+    engine = _resolve_engine(parms, dev)
+    if engine == "nufft" and (grad or sim.sky.src_shape_sigma is not None):
+        print("[prisim_tpu_torch] %s, which the banded NUFFT engine does "
+              "not compute; running the direct engine"
+              % ("processing.gradient_mode asks for baseline gradients"
+                 if grad else "the sky has source shapes (extended "
+                 "sources)"))
+        engine = "direct"
+    gradients = None
+    if engine == "nufft":
         vis_tbc = _simulate_banded(parms, sim, verbose)
     else:
-        vis_tbc = simulate_drift(sim.inst, sim.sky, sim.obs, sim.beam_fn,
-                                 src_block=sim.src_block)
+        out = simulate_drift(sim.inst, sim.sky, sim.obs, sim.beam_fn,
+                             src_block=sim.src_block, gradient=grad)
+        vis_tbc = out[0] if grad else out
+        if grad:
+            # (T, 3, B, C) -> the reference's (3, nbl, nchan, n_acc)
+            gradients = {"baseline": np.ascontiguousarray(
+                np.transpose(out[1].cpu().numpy(), (1, 2, 3, 0)))}
     skyvis = np.ascontiguousarray(
         np.transpose(vis_tbc.cpu().numpy(), (1, 2, 0)))
     _phase(verbose, "visibilities computed + transferred", t1)
     return _finalize_simulation(parms, sim, skyvis, outdir, verbose, save,
-                                t0, dev)
+                                t0, dev, gradients=gradients)
 
 
 _ON = ("auto", "true", "1", "yes", "on")
@@ -877,9 +964,10 @@ def _phase(verbose, label, since):
 
 
 def _finalize_simulation(parms, sim, skyvis, outdir, verbose, save, t0,
-                         device):
+                         device, gradients=None):
     """Noise, gains, container, phasing, projection, optional delay
-    transform, save."""
+    transform, save. `gradients` ({"baseline": (3, nbl, nchan, n_acc)} or
+    None) goes into the container unphased, as in the reference."""
     tp = parms["telescope"]
     bls, freqs, obs = sim.bls, sim.freqs, sim.obs
     t1 = time.time()
@@ -921,7 +1009,7 @@ def _finalize_simulation(parms, sim, skyvis, outdir, verbose, save, t0,
         layout=dict(positions=np.asarray(sim.layout.positions),
                     labels=np.asarray(sim.layout.labels, dtype=str),
                     ids=np.arange(len(sim.layout.labels)), coords="ENU"),
-        flux_unit="Jy", gradients=None,
+        flux_unit="Jy", gradients=gradients,
         blgroups=_blgroups_dict(bls))
     ph = parms.get("phasing") or {}
     if ph.get("center") is not None:
@@ -981,14 +1069,14 @@ def _save_products(vs, parms, outdir=None):
 def main(argv=None):
     import argparse
     p = argparse.ArgumentParser(
-        description="prisim_tpu_torch simulation driver (direct engine)")
+        description="prisim_tpu_torch simulation driver")
     p.add_argument("-i", "--infile", required=True,
                    help="YAML simulation parameters")
     p.add_argument("-o", "--outdir", default=None)
     p.add_argument("-q", "--quiet", action="store_true")
     p.add_argument("--device", default="cuda",
-                   help="'cuda' (kernel K1a; raises without a card) or "
-                        "'cpu' (plain versions)")
+                   help="'cuda' (the CUDA kernels; raises without a card) "
+                        "or 'cpu' (their plain versions)")
     args = p.parse_args(argv)
     run_simulation(load_parms(args.infile), outdir=args.outdir,
                    verbose=not args.quiet, device=args.device)

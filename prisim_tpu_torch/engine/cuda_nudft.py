@@ -1,18 +1,25 @@
-"""Wrapper of kernel K1a, the hand-written CUDA NUDFT (csrc/nudft.cu).
+"""Wrapper of kernels K1a, K1b and K1c, the hand-written CUDA NUDFT
+(csrc/nudft.cu).
 
-K1a replaces the point-source mode of the TPU kernel
-prisim_tpu/engine/pallas_nudft.py::_kernel. On the H100 it is meant to
-be bound by float64 instruction issue (it runs at ~40% of that bound,
-PERF.md): the phasors and the sum are float64, because an f32 chain
-cannot meet the 2e-6 bar at the slice shape. The design evaluates each
-phasor once per (source, baseline, step) into shared memory, leaving 6
-FP64 instructions per complex multiply-add, and reuses every amplitude
+They replace the three modes of the TPU kernel
+prisim_tpu/engine/pallas_nudft.py::_kernel: point sources (K1a), the
+gradient moments G_k = sum_s s_sky,k A w E (K1b, `gradient=True`) and the
+gaussian weights of extended sources (K1c, `src_shape_sigma`); both may
+be on in one launch. On the H100 they are meant to be bound by float64
+instruction issue (K1a runs at ~40% of that bound, PERF.md): the phasors
+and the sums are float64, because an f32 chain cannot meet the 2e-6 bar
+at the slice shape. The design evaluates each phasor once per (source,
+baseline, step) into shared memory, leaving 6 FP64 instructions per
+complex multiply-add (14 with the moments), and reuses every amplitude
 load for several baselines (see the note at the top of csrc/nudft.cu).
 
 `nudft_cuda` takes the arguments of engine.nudft.nudft_visibilities. A
 CUDA tensor launches the kernel (or raises); a CPU tensor runs the plain
-version, and only because it lies on the CPU. `nudft_cuda.launches`
-counts kernel launches and nothing else.
+version, and only because it lies on the CPU. The counts are of kernel
+launches and nothing else: `nudft_cuda.launches` of K1a (point sources,
+no moments), `launches_grad` of every launch with the moments (K1b) and
+`launches_ext` of every launch with gaussian weights (K1c); a launch with
+both adds one to each of the last two.
 """
 
 from __future__ import annotations
@@ -23,35 +30,44 @@ import functools
 import torch
 
 from .._build import load_kernel_library
-from .nudft import check_point_sources, choose_ql, nudft_visibilities
+from .nudft import choose_ql, nudft_visibilities
 
-__all__ = ["nudft_cuda", "KERNEL_SOURCE", "TPU_KERNEL"]
+__all__ = ["nudft_cuda", "KERNEL_SOURCE", "TPU_KERNEL", "TPU_KERNEL_GRAD",
+           "TPU_KERNEL_EXT"]
 
 KERNEL_SOURCE = "prisim_tpu_torch/csrc/nudft.cu"
 TPU_KERNEL = "prisim_tpu/engine/pallas_nudft.py:54"
+TPU_KERNEL_GRAD = "prisim_tpu/engine/pallas_nudft.py:369"
+TPU_KERNEL_EXT = "prisim_tpu/engine/pallas_nudft.py:142"
 
 _SMEM_BUDGET = 96 * 1024       # bytes of shared memory per block
 _MAX_ST = 32                   # sources per tile
+_GRAD, _EXT = 1, 2             # mode bits of the C interface
 
 
 @functools.cache
 def _library():
-    """The K1a library, built or loaded, with its argument types bound."""
+    """The NUDFT library, built or loaded, with its argument types bound."""
     lib = load_kernel_library("nudft")
-    fn = lib.prisim_nudft_k1a
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                   + [ctypes.c_float] * 4 + [ctypes.c_int, ctypes.c_void_p])
+    fn = lib.prisim_nudft
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+                   + [ctypes.c_float] * 4
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    lib.prisim_nudft_k1a_smem.argtypes = [ctypes.c_int] * 3
-    lib.prisim_nudft_k1a_smem.restype = ctypes.c_size_t
+    lib.prisim_nudft_smem.argtypes = [ctypes.c_int] * 4
+    lib.prisim_nudft_smem.restype = ctypes.c_size_t
     return lib
 
 
-def _check_inputs(seh, sel, blh, bll, amps, nchan):
+def _check_inputs(seh, sel, blh, bll, amps, nchan, s_sky, sigma):
     S, B = seh.shape[0], blh.shape[0]
-    want = (("seh", seh, (S, 3)), ("sel", sel, (S, 3)),
+    want = [("seh", seh, (S, 3)), ("sel", sel, (S, 3)),
             ("blh", blh, (B, 3)), ("bll", bll, (B, 3)),
-            ("amps", amps, (S, nchan)))
+            ("amps", amps, (S, nchan))]
+    if s_sky is not None:
+        want.append(("s_sky", s_sky, (S, 3)))
+    if sigma is not None:
+        want.append(("src_shape_sigma", sigma, (S,)))
     for name, t, shape in want:
         if not isinstance(t, torch.Tensor):
             raise TypeError("%s must be a torch.Tensor" % name)
@@ -71,42 +87,66 @@ def _check_inputs(seh, sel, blh, bll, amps, nchan):
 
 
 def nudft_cuda(seh, sel, blh, bll, amps, grid_scalars, nchan, chan0=0,
-               gradient=False, src_shape_sigma=None):
-    """K1a NUDFT: complex64 (B, nchan) for point sources.
+               src_shape_sigma=None, s_sky=None, gradient=False):
+    """NUDFT: complex64 (B, nchan), and with `gradient` also the complex64
+    (3, B, nchan) moments.
 
     seh/sel (S, 3), blh/bll (B, 3) and amps (S, nchan) are contiguous
     float32 tensors on one device; grid_scalars = freq_grid_scalars(nu0,
-    dnu); chan0 offsets the channel grid."""
-    check_point_sources(gradient, src_shape_sigma)
+    dnu); chan0 offsets the channel grid. src_shape_sigma (S,) (inf for a
+    point source) turns on the gaussian weights (K1c) and `gradient` the
+    moments (K1b); both need s_sky (S, 3), the rotated sky directions."""
     nchan = int(nchan)
-    _check_inputs(seh, sel, blh, bll, amps, nchan)
+    if (gradient or src_shape_sigma is not None) and s_sky is None:
+        raise ValueError("s_sky is required for gradient/extended mode")
+    _check_inputs(seh, sel, blh, bll, amps, nchan, s_sky, src_shape_sigma)
     if seh.device.type == "cpu":
         return nudft_visibilities(seh, sel, blh, bll, amps, grid_scalars,
-                                  nchan, chan0=chan0)
+                                  nchan, chan0=chan0,
+                                  src_shape_sigma=src_shape_sigma,
+                                  s_sky=s_sky, gradient=gradient)
     if seh.device.type != "cuda":
         raise ValueError("nudft_cuda runs on CUDA or CPU tensors, got %s"
                          % seh.device)
     Q, L = choose_ql(nchan)
     if L > 256:
-        raise ValueError("K1a supports nchan <= 65536 (L <= 256), got "
-                         "nchan=%d" % nchan)
+        raise ValueError("the NUDFT kernels support nchan <= 65536 "
+                         "(L <= 256), got nchan=%d" % nchan)
+    mode = (_GRAD if gradient else 0) | (
+        _EXT if src_shape_sigma is not None else 0)
     lib = _library()
     st = _MAX_ST
-    while st > 1 and lib.prisim_nudft_k1a_smem(Q, L, st) > _SMEM_BUDGET:
+    while st > 1 and lib.prisim_nudft_smem(Q, L, st, mode) > _SMEM_BUDGET:
         st //= 2
     g0h, g0l, gdh, gdl = (float(v) for v in grid_scalars)
     S, B = seh.shape[0], blh.shape[0]
-    out = torch.empty((B, nchan), dtype=torch.complex64, device=seh.device)
-    with torch.cuda.device(seh.device):
+    dev = seh.device
+    out = torch.empty((B, nchan), dtype=torch.complex64, device=dev)
+    gout = (torch.empty((3, B, nchan), dtype=torch.complex64, device=dev)
+            if gradient else None)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.prisim_nudft_k1a(
+        err = lib.prisim_nudft(
             seh.data_ptr(), sel.data_ptr(), blh.data_ptr(), bll.data_ptr(),
-            amps.data_ptr(), out.data_ptr(), S, B, nchan, Q, L, st,
-            g0h, g0l, gdh, gdl, int(chan0), stream)
+            amps.data_ptr(), ptr(s_sky), ptr(src_shape_sigma),
+            out.data_ptr(), ptr(gout), S, B, nchan, Q, L, st,
+            g0h, g0l, gdh, gdl, int(chan0), mode, stream)
     if err != 0:
-        raise RuntimeError("K1a launch failed with cudaError_t %d" % err)
-    nudft_cuda.launches += 1
-    return out
+        raise RuntimeError("NUDFT kernel (mode %d) launch failed with "
+                           "cudaError_t %d" % (mode, err))
+    if mode == 0:
+        nudft_cuda.launches += 1
+    if mode & _GRAD:
+        nudft_cuda.launches_grad += 1
+    if mode & _EXT:
+        nudft_cuda.launches_ext += 1
+    return (out, gout) if gradient else out
 
 
 nudft_cuda.launches = 0
+nudft_cuda.launches_grad = 0
+nudft_cuda.launches_ext = 0

@@ -1,25 +1,38 @@
-"""Non-uniform DFT visibilities: the plain PyTorch version of kernel K1a.
+"""Non-uniform DFT visibilities: the plain PyTorch version of kernels K1a,
+K1b and K1c.
 
-Computes V(b, nu_c) = sum_s A(s, c) * exp(-2 pi i nu_c (s_eff . b) / c) on
-a uniform channel grid nu_c = nu0 + (chan0 + c) dnu, with the structure of
-prisim_tpu/engine/nudft.py:
+Computes, on a uniform channel grid nu_c = nu0 + (chan0 + c) dnu,
+
+    V(b, c)   = sum_s A(s, c) w(s, b, c) exp(-2 pi i nu_c (s_eff . b) / c)
+    G_k(b, c) = sum_s s_sky,k(s) A(s, c) w(s, b, c) exp(...)    (gradient)
+
+where s_eff = s_sky - pc is the effective direction, s_sky the rotated
+ENU direction, and w the gaussian weight of an extended source,
+w = exp(-0.5 (u_proj / sigma)^2) with u_proj = sqrt(|b|^2 - (s_sky.b)^2)
+nu_c / c (w = 1 for a point source, sigma = inf, or without shapes). The
+structure is that of prisim_tpu/engine/nudft.py:
 
 * the cycle count nu (s.b)/c is two-float (see ../twofloat.py), reduced
   mod 1 exactly;
 * U.W factorization: with c = q L + r, the phasor is U[s,b,q] W[s,b,r],
   so only S B (Q + L) phasors are evaluated;
-* sources stream in blocks of `src_block`.
+* sources stream in blocks of `src_block`; the weights and the gradient
+  moments are taken per coarse group q, so no (src_block, B, C) table is
+  built.
 
 Unlike the JAX engines, the phasors are evaluated in float64 from the
-reduced two-float cycle counts, and U W A is summed in float64. On the
-card's slice shape an f32 phasor and product chain floors at 2.1e-6 of
-max|V| against the f64 golden even with an exact sum (PERF.md, PR 1),
-above the engines' 2e-6 bar; the f64 chain is exact to the complex64
-rounding of the output.
+reduced two-float cycle counts, and the products are summed in float64.
+On the card's slice shape an f32 phasor and product chain floors at
+2.1e-6 of max|V| against the f64 golden even with an exact sum (PERF.md),
+above the engines' 2e-6 bar; the f64 chain is exact to the
+complex64 rounding of the output. The gaussian weight is float32, from a
+float32 exponent alpha (nu_c/c)^2 (`ext_alpha`, `ext_chan_scale`), as in
+the TPU kernel; its product with the f32 amplitude is exact in float64.
 
-This module is what a CPU tensor runs, and what the CUDA kernel
-(cuda_nudft.py) is held against on the card. `nudft_reference_f64` is
-the float64 golden of the same sum.
+This module is what a CPU tensor runs, and what the CUDA kernels
+(cuda_nudft.py) are held against on the card: they round every step of
+the weight as written here. `nudft_reference_f64` is the float64 golden
+of the same sums.
 """
 
 from __future__ import annotations
@@ -31,7 +44,7 @@ from prisim_tpu import constants as CNST
 from .. import twofloat as tf
 
 __all__ = ["nudft_visibilities", "nudft_reference_f64", "freq_grid_scalars",
-           "choose_ql", "check_point_sources"]
+           "choose_ql", "ext_alpha", "ext_chan_scale"]
 
 
 def freq_grid_scalars(nu0, dnu):
@@ -52,17 +65,34 @@ def choose_ql(nchan):
     return Q, L
 
 
-def check_point_sources(gradient=False, src_shape_sigma=None):
-    """Gradient moments (kernel K1b) and extended sources (K1c) are not
-    ported yet; both the plain version and the kernel refuse them."""
-    if gradient:
-        raise NotImplementedError(
-            "gradient mode (kernel K1b) is not ported yet (ROADMAP queue 1, "
-            "item 12)")
-    if src_shape_sigma is not None:
-        raise NotImplementedError(
-            "extended sources (kernel K1c) are not ported yet (ROADMAP "
-            "queue 1, item 12)")
+def ext_alpha(s_sky, sigma, blh, bll):
+    """Exponent scale of the gaussian weight, alpha = |b_perp|^2 /
+    (2 sigma^2) with |b_perp|^2 = max(|b|^2 - (s_sky . b)^2, 0), per
+    (source, baseline): float64 from the float32 inputs (b = blh + bll),
+    each operation rounded once in the order written, then rounded to
+    float32. sigma = inf (a point source) gives 0.
+
+    s_sky (S, 3), sigma (S,), blh/bll (B, 3) float32. Returns (S, B)
+    float32."""
+    b = blh.double() + bll.double()
+    s = s_sky.double()
+    ksky = (s[:, None, 0] * b[None, :, 0] + s[:, None, 1] * b[None, :, 1]
+            + s[:, None, 2] * b[None, :, 2])
+    bl2 = b[:, 0] * b[:, 0] + b[:, 1] * b[:, 1] + b[:, 2] * b[:, 2]
+    proj2 = torch.clamp(bl2[None, :] - ksky * ksky, min=0.0)
+    sig = sigma.double()
+    return ((0.5 * proj2) / (sig * sig)[:, None]).float()
+
+
+def ext_chan_scale(grid_scalars, nchan, chan0=0, device="cpu"):
+    """(nu_c / c)^2 for channels chan0 .. chan0 + nchan - 1: nu_c/c =
+    g0 + gd (chan0 + c) in float64 from the two-float grid scalars (each
+    of g0, gd exact in float64), squared, rounded to float32. Returns
+    (nchan,) float32."""
+    g0h, g0l, gdh, gdl = (float(v) for v in grid_scalars)
+    c = torch.arange(int(nchan), dtype=torch.float64, device=device)
+    x = (g0h + g0l) + (gdh + gdl) * (c + float(chan0))
+    return (x * x).float()
 
 
 def _phasors(p0h, p0l, dh, dl, steps):
@@ -80,14 +110,19 @@ def _phasors(p0h, p0l, dh, dl, steps):
     return torch.cos(ang), -torch.sin(ang)
 
 
-def _source_block_vis(seh, sel, blh, bll, amps, g, Q, L, chan0):
+def _source_block_vis(seh, sel, blh, bll, amps, g, Q, L, chan0, s_sky=None,
+                      alpha=None, k2=None):
     """Visibility contribution of one source block: float64 (re, im),
-    each (B, Q*L).
+    each (B, Q*L), and when s_sky is given the moments (re, im), each
+    (3, B, Q*L).
 
     seh/sel: (S, 3) effective direction cosines, two-float
     blh/bll: (B, 3) baselines (m), two-float
     amps:    (S, Q*L) beam-weighted fluxes (padded channels are zero)
-    g:       (g0h, g0l, gdh, gdl) float32 0-d tensors"""
+    g:       (g0h, g0l, gdh, gdl) float32 0-d tensors
+    s_sky:   (S, 3) float32 sky directions, for the gradient moments
+    alpha:   (S, B) float32 ext_alpha, with k2 (Q*L,) float32
+             ext_chan_scale: the gaussian weight exp(-alpha k2)"""
     g0h, g0l, gdh, gdl = g
     kh, kl = tf.df_dot3(seh[:, None, :], sel[:, None, :],
                         blh[None, :, :], bll[None, :, :])      # (S, B) m
@@ -102,30 +137,49 @@ def _source_block_vis(seh, sel, blh, bll, amps, g, Q, L, chan0):
     zero = torch.zeros_like(p0h)
     Wc, Ws = _phasors(zero, zero, dh, dl, r_steps)              # (S, B, L)
     A = amps.double().reshape(S, Q, L)
-    vr = torch.empty((B, Q, L), dtype=torch.float64, device=dev)
-    vi = torch.empty_like(vr)
+    gradient = s_sky is not None
+    nrow = 8 if gradient else 2
+    sk = s_sky.double() if gradient else None
+    out = torch.empty((B, Q, nrow, 2 * L), dtype=torch.float64, device=dev)
     for q in range(Q):
         Aq = A[:, q, :][:, None, :]                             # (S, 1, L)
-        # rhs (B, S, 2L) = [A W_re | A W_im]; lhs (B, 2, S) = [U_re; U_im]
+        if alpha is not None:
+            w = torch.exp(-(alpha[:, :, None] * k2[q * L:(q + 1) * L]))
+            Aq = Aq * w.double()                                # (S, B, L)
+        # rhs (B, S, 2L) = [A W_re | A W_im]; lhs (B, nrow, S) holds the
+        # rows U_re, U_im, then s_k U_re, s_k U_im for the moments
         rhs = torch.cat([Aq * Wc, Aq * Ws], dim=2).permute(1, 0, 2)
-        lhs = torch.stack([Uc[:, :, q], Us[:, :, q]], dim=0).permute(2, 0, 1)
-        out = torch.bmm(lhs, rhs)                               # (B, 2, 2L)
-        vr[:, q] = out[:, 0, :L] - out[:, 1, L:]
-        vi[:, q] = out[:, 0, L:] + out[:, 1, :L]
-    return vr.reshape(B, Q * L), vi.reshape(B, Q * L)
+        U = torch.stack([Uc[:, :, q], Us[:, :, q]], dim=0)       # (2, S, B)
+        if gradient:
+            U = torch.cat([U] + [U * sk[None, :, k, None] for k in range(3)])
+        out[:, q] = torch.bmm(U.permute(2, 0, 1), rhs)          # (B, nrow, 2L)
+    re = out[:, :, 0::2, :L] - out[:, :, 1::2, L:]              # (B, Q, n, L)
+    im = out[:, :, 0::2, L:] + out[:, :, 1::2, :L]
+    re, im = (x.permute(2, 0, 1, 3).reshape(nrow // 2, B, Q * L)
+              for x in (re, im))
+    if gradient:
+        return re[0], im[0], re[1:], im[1:]
+    return re[0], im[0]
 
 
 def nudft_visibilities(seh, sel, blh, bll, amps, grid_scalars, nchan,
-                       chan0=0, src_block=512, gradient=False,
-                       src_shape_sigma=None):
+                       chan0=0, src_shape_sigma=None, s_sky=None,
+                       src_block=512, gradient=False):
     """Full NUDFT over all sources, streamed in source blocks.
 
     seh/sel : (S, 3) float32 two-float effective dircos (s_hat - pc_hat)
     blh/bll : (B, 3) float32 two-float baselines (m, local ENU)
     amps    : (S, nchan) float32 beam-weighted source fluxes (Jy)
     grid_scalars : freq_grid_scalars(nu0, dnu)
-    Returns complex64 (B, nchan) on the device of the inputs."""
-    check_point_sources(gradient, src_shape_sigma)
+    src_shape_sigma : optional (S,) float32 gaussian sigma in uv units
+        (inf for a point source); needs s_sky
+    s_sky   : (S, 3) float32 rotated sky directions (ENU)
+    gradient: also return the moments G_k = sum_s s_sky,k A w E; needs
+        s_sky
+    Returns complex64 (B, nchan) on the device of the inputs, and with
+    `gradient` also the complex64 (3, B, nchan) moments."""
+    if (gradient or src_shape_sigma is not None) and s_sky is None:
+        raise ValueError("s_sky is required for gradient/extended mode")
     nchan = int(nchan)
     Q, L = choose_ql(nchan)
     C_pad = Q * L
@@ -134,39 +188,76 @@ def nudft_visibilities(seh, sel, blh, bll, amps, grid_scalars, nchan,
               for v in grid_scalars)
     if amps.shape[1] < C_pad:
         amps = torch.nn.functional.pad(amps, (0, C_pad - amps.shape[1]))
+    k2 = None
+    if src_shape_sigma is not None:
+        k2 = ext_chan_scale(grid_scalars, C_pad, chan0, dev)
     S = seh.shape[0]
     B = blh.shape[0]
-    sr = torch.zeros((B, C_pad), dtype=torch.float64, device=dev)
+    nout = 4 if gradient else 1
+    sr = torch.zeros((nout, B, C_pad), dtype=torch.float64, device=dev)
     si = torch.zeros_like(sr)
     for s0 in range(0, S, int(src_block)):
         sl = slice(s0, s0 + int(src_block))
-        vr, vi = _source_block_vis(seh[sl], sel[sl], blh, bll, amps[sl], g,
-                                   Q, L, chan0)
-        sr += vr
-        si += vi
-    return torch.complex(sr.float(), si.float())[:, :nchan]
+        alpha = None
+        if src_shape_sigma is not None:
+            alpha = ext_alpha(s_sky[sl], src_shape_sigma[sl], blh, bll)
+        out = _source_block_vis(
+            seh[sl], sel[sl], blh, bll, amps[sl], g, Q, L, chan0,
+            s_sky=s_sky[sl] if gradient else None, alpha=alpha, k2=k2)
+        sr[0] += out[0]
+        si[0] += out[1]
+        if gradient:
+            sr[1:] += out[2]
+            si[1:] += out[3]
+    res = torch.complex(sr.float(), si.float())[:, :, :nchan]
+    if gradient:
+        return res[0], res[1:]
+    return res[0]
 
 
-def nudft_reference_f64(s_eff, baselines, amps, freqs, src_chunk=2048):
-    """Direct float64 evaluation of the same sum, for golden checks.
+def nudft_reference_f64(s_eff, baselines, amps, freqs, s_sky=None,
+                        src_shape_sigma=None, gradient=False,
+                        src_chunk=2048):
+    """Direct float64 evaluation of the same sums, for golden checks (the
+    formulas of prisim_tpu.engine.nudft.nudft_reference_f64).
 
     Inputs are numpy arrays or tensors; the sum runs in float64 on the
     device of `s_eff` (the CPU for numpy input), in source chunks so the
-    (chunk, B, C) phase table stays bounded. Returns complex128 (B, C)."""
+    (chunk, B, C) phase table stays bounded. Returns complex128 (B, C),
+    and with `gradient` also the complex128 (3, B, C) moments."""
     dev = s_eff.device if isinstance(s_eff, torch.Tensor) else "cpu"
 
     def f64(x):
-        return torch.as_tensor(x, dtype=torch.float64, device=dev)
+        return None if x is None else torch.as_tensor(
+            x, dtype=torch.float64, device=dev)
 
-    s_eff, baselines, amps, freqs = (f64(s_eff), f64(baselines), f64(amps),
-                                     f64(freqs))
+    s_eff, baselines, amps, freqs, s_sky, sigma = (
+        f64(x) for x in (s_eff, baselines, amps, freqs, s_sky,
+                         src_shape_sigma))
     B, C = baselines.shape[0], freqs.shape[0]
-    vr = torch.zeros((B, C), dtype=torch.float64, device=dev)
+    vr = torch.zeros((4 if gradient else 1, B, C), dtype=torch.float64,
+                     device=dev)
     vi = torch.zeros_like(vr)
+    bl_len2 = (baselines ** 2).sum(dim=1)
     for s0 in range(0, s_eff.shape[0], int(src_chunk)):
-        tau = s_eff[s0:s0 + src_chunk] @ baselines.T / CNST.c    # (s, B)
+        sl = slice(s0, s0 + int(src_chunk))
+        tau = s_eff[sl] @ baselines.T / CNST.c                  # (s, B)
         phase = 2.0 * np.pi * tau[:, :, None] * freqs[None, None, :]
-        a = amps[s0:s0 + src_chunk]
-        vr += torch.einsum("sc,sbc->bc", a, torch.cos(phase))
-        vi -= torch.einsum("sc,sbc->bc", a, torch.sin(phase))
-    return torch.complex(vr, vi)
+        ar = amps[sl][:, None, :] * torch.cos(phase)            # (s, B, C)
+        ai = -amps[sl][:, None, :] * torch.sin(phase)
+        if sigma is not None:
+            ksky = s_sky[sl] @ baselines.T
+            proj = torch.sqrt(torch.clamp(bl_len2[None, :] - ksky ** 2,
+                                          min=0.0))
+            u = proj[:, :, None] * (freqs / CNST.c)[None, None, :]
+            w = torch.exp(-0.5 * (u / sigma[sl, None, None]) ** 2)
+            ar, ai = ar * w, ai * w
+        vr[0] += ar.sum(dim=0)
+        vi[0] += ai.sum(dim=0)
+        if gradient:
+            vr[1:] += torch.einsum("sk,sbc->kbc", s_sky[sl], ar)
+            vi[1:] += torch.einsum("sk,sbc->kbc", s_sky[sl], ai)
+    res = torch.complex(vr, vi)
+    if gradient:
+        return res[0], res[1:]
+    return res[0]

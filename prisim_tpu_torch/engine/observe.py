@@ -7,21 +7,24 @@ device rotates the source unit vectors in two-float, evaluates the beam
 in f32, weights the spectrum and runs the NUDFT. A Python loop over the
 accumulations takes the place of lax.scan.
 
-A snapshot whose tensors lie on a CUDA card runs kernel K1a
-(cuda_nudft.nudft_cuda); one whose tensors lie on the CPU runs the plain
-version (nudft.nudft_visibilities).
+A snapshot whose tensors lie on a CUDA card runs the NUDFT kernels
+(cuda_nudft.nudft_cuda: K1a, with the gradient moments K1b and the
+gaussian weights of extended sources K1c); one whose tensors lie on the
+CPU runs their plain version (nudft.nudft_visibilities).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Optional
+
 import numpy as np
 import torch
 
 from .. import geometry as geom
 from .. import twofloat as tf
 from .cuda_nudft import nudft_cuda
-from .nudft import check_point_sources, freq_grid_scalars, nudft_visibilities
+from .nudft import freq_grid_scalars, nudft_visibilities
 
 __all__ = ["Instrument", "Observation", "SkySources", "enu_rotation_from_eq",
            "df_rotate3", "snapshot_nudft_inputs", "direct_visibilities",
@@ -63,18 +66,21 @@ def df_rotate3(Mh, Ml, sh, sl):
 
 @dataclass
 class SkySources:
-    """Device sky: celestial unit vectors (two-float) and spectra."""
+    """Device sky: celestial unit vectors (two-float), spectra and the
+    gaussian widths of extended sources."""
     s_eq_hi: torch.Tensor     # (S, 3) float32
     s_eq_lo: torch.Tensor
     flux: torch.Tensor        # (S, C) float32, Jy
+    src_shape_sigma: Optional[torch.Tensor] = None   # (S,) uv sigma or None
 
     @classmethod
     def from_skymodel(cls, skymodel, freqs, device):
         """Unit vectors (host f64, split to two-float) and the (S, C)
         spectrum. Power-law spectra are evaluated on the device in f32
         from the per-source parameters, so only those cross to it.
-        Extended sources (a src_shape) need kernel K1c and raise."""
-        check_point_sources(src_shape_sigma=skymodel.src_shape)
+        A src_shape (major, minor, pa in degrees) gives each source the
+        uv-plane sigma of the gaussian of FWHM sqrt(major * minor), as
+        prisim_tpu does (inf, a point source, for a zero FWHM)."""
         ra = np.radians(skymodel.location[:, 0])
         dec = np.radians(skymodel.location[:, 1])
         s_eq = np.stack([np.cos(dec) * np.cos(ra),
@@ -97,7 +103,18 @@ class SkySources:
                     ** dev32(p["power-law-index"])[:, None])
         else:
             flux = dev32(skymodel.generate_spectrum(np.asarray(freqs)))
-        return cls(dev32(sh), dev32(sl), flux.contiguous())
+        sigma = None
+        if skymodel.src_shape is not None:
+            # sigma_uv = 1 / (sqrt(2 ln 2) fwhm_dc), fwhm_dc the FWHM as a
+            # chord in direction cosines
+            fwhm = np.sqrt(skymodel.src_shape[:, 0] * skymodel.src_shape[:, 1])
+            fwhm_dc = 2.0 * np.sin(0.5 * np.radians(fwhm))
+            with np.errstate(divide="ignore"):
+                sigma = dev32(np.where(
+                    fwhm_dc > 0, 1.0 / (np.sqrt(2 * np.log(2))
+                                        * np.maximum(fwhm_dc, 1e-12)),
+                    np.inf))
+        return cls(dev32(sh), dev32(sl), flux.contiguous(), sigma)
 
 
 @dataclass
@@ -172,35 +189,48 @@ def _beam_and_flux(s_enu_hi, flux, freqs_f32, beam_fn):
 
 
 def snapshot_nudft_inputs(instrument, sky, Mh, Ml, pch, pcl, beam_fn):
-    """(seh, sel, amps) of one accumulation: the rotated effective
-    direction cosines s - pc (two-float) and the beam-weighted fluxes.
-    Mh/Ml (3, 3) and pch/pcl (3,) are float32 tensors on the device."""
+    """(seh, sel, amps, sh) of one accumulation: the rotated effective
+    direction cosines s - pc (two-float), the beam-weighted fluxes and the
+    rotated sky directions s (the hi part, which the gradient moments and
+    the gaussian weights take). Mh/Ml (3, 3) and pch/pcl (3,) are float32
+    tensors on the device."""
     sh, sl = df_rotate3(Mh, Ml, sky.s_eq_hi, sky.s_eq_lo)
     seh, sel = tf.df_add(sh, sl, -pch[None, :], -pcl[None, :])
     freqs_f32 = torch.as_tensor(instrument.freqs, dtype=torch.float32,
                                 device=sh.device)
     amps = _beam_and_flux(sh, sky.flux, freqs_f32, beam_fn)
-    return seh.contiguous(), sel.contiguous(), amps.contiguous()
+    return (seh.contiguous(), sel.contiguous(), amps.contiguous(),
+            sh.contiguous())
 
 
-def direct_visibilities(seh, sel, instrument, amps, src_block=512):
-    """The direct engine on `instrument`'s baselines: kernel K1a for CUDA
-    tensors, the plain version (in blocks of src_block sources) for CPU
-    tensors. Returns (B, C) complex64."""
+def direct_visibilities(seh, sel, instrument, amps, src_block=512,
+                        s_sky=None, src_shape_sigma=None, gradient=False):
+    """The direct engine on `instrument`'s baselines: the NUDFT kernels for
+    CUDA tensors, the plain version (in blocks of src_block sources) for
+    CPU tensors. Returns (B, C) complex64, and with `gradient` also the
+    (3, B, C) complex64 moments; `src_shape_sigma` (S,) weights extended
+    sources. Both need s_sky (S, 3)."""
     args = (seh, sel, instrument.bl_hi, instrument.bl_lo, amps,
             instrument.grid_scalars(), instrument.nchan)
+    kw = dict(s_sky=s_sky, src_shape_sigma=src_shape_sigma,
+              gradient=gradient)
     if seh.is_cuda:
-        return nudft_cuda(*args)
-    return nudft_visibilities(*args, src_block=src_block)
+        return nudft_cuda(*args, **kw)
+    return nudft_visibilities(*args, src_block=src_block, **kw)
 
 
 def simulate_snapshot(instrument, sky, Mh, Ml, pch, pcl, beam_fn,
-                      src_block=512):
-    """One accumulation: (B, C) complex64 noiseless visibilities.
-    src_block sizes the plain version's source blocks (CPU tensors)."""
-    seh, sel, amps = snapshot_nudft_inputs(instrument, sky, Mh, Ml, pch,
-                                           pcl, beam_fn)
-    return direct_visibilities(seh, sel, instrument, amps, src_block)
+                      src_block=512, gradient=False):
+    """One accumulation: (B, C) complex64 noiseless visibilities, and with
+    `gradient` also the (3, B, C) moments. src_block sizes the plain
+    version's source blocks (CPU tensors)."""
+    seh, sel, amps, sh = snapshot_nudft_inputs(instrument, sky, Mh, Ml, pch,
+                                               pcl, beam_fn)
+    shaped = sky.src_shape_sigma is not None
+    return direct_visibilities(
+        seh, sel, instrument, amps, src_block,
+        s_sky=sh if (gradient or shaped) else None,
+        src_shape_sigma=sky.src_shape_sigma, gradient=gradient)
 
 
 def schedule_tensors(observation, latitude, device):
@@ -213,19 +243,26 @@ def schedule_tensors(observation, latitude, device):
 
 
 def simulate_drift_rotations(instrument, sky, Mh, Ml, pch, pcl, beam_fn,
-                             src_block=512):
+                             src_block=512, gradient=False):
     """Loop over per-accumulation rotations (T, 3, 3) and phase centers
-    (T, 3), float32 tensors. Returns (T, B, C) complex64 on the device."""
-    return torch.stack([simulate_snapshot(instrument, sky, Mh[t], Ml[t],
-                                          pch[t], pcl[t], beam_fn,
-                                          src_block=src_block)
-                        for t in range(Mh.shape[0])])
+    (T, 3), float32 tensors. Returns (T, B, C) complex64 on the device,
+    and with `gradient` also the (T, 3, B, C) moments."""
+    snaps = [simulate_snapshot(instrument, sky, Mh[t], Ml[t], pch[t],
+                               pcl[t], beam_fn, src_block=src_block,
+                               gradient=gradient)
+             for t in range(Mh.shape[0])]
+    if gradient:
+        return (torch.stack([v for v, _ in snaps]),
+                torch.stack([g for _, g in snaps]))
+    return torch.stack(snaps)
 
 
-def simulate_drift(instrument, sky, observation, beam_fn, src_block=512):
+def simulate_drift(instrument, sky, observation, beam_fn, src_block=512,
+                   gradient=False):
     """All accumulations of `observation`: (T, B, C) complex64 (transpose
-    to the reference's (nbl, nchan, n_acc) at IO time)."""
+    to the reference's (nbl, nchan, n_acc) at IO time), and with
+    `gradient` also the (T, 3, B, C) moments."""
     sched = schedule_tensors(observation, instrument.latitude,
                              instrument.device)
     return simulate_drift_rotations(instrument, sky, *sched, beam_fn,
-                                    src_block=src_block)
+                                    src_block=src_block, gradient=gradient)

@@ -3,8 +3,9 @@
 Counterpart of prisim_tpu/vis.py: ``VisibilitySet`` is a plain dataclass
 of host numpy arrays (complex cubes are (nbl, nchan, n_acc), the
 reference's on-disk order) with the same fields, so the port's products
-carry the same schema. ``phase_centering`` and ``project_baselines`` are
-host numpy; ``delay_transform`` runs on torch.fft.
+carry the same schema. ``phase_centering``, ``project_baselines`` and
+``apply_baseline_gradients`` are host numpy; ``delay_transform`` runs on
+torch.fft.
 
 IO (HDF5/NPZ) lives in prisim_tpu_torch.io.
 """
@@ -22,7 +23,7 @@ from . import geometry as geom
 from . import windows as win
 
 __all__ = ["VisibilitySet", "phase_centering", "project_baselines",
-           "delay_transform", "to_dircos"]
+           "delay_transform", "apply_baseline_gradients", "to_dircos"]
 
 
 @dataclass
@@ -220,3 +221,24 @@ def delay_transform(vs, pad=1.0, device="cpu"):
         updates[name + "_lag"] = _dt(np.asarray(arr))
     updates["lag_kernel"] = _dt(np.ones((vs.nbl, nchan, vs.n_acc)))
     return replace(vs, **updates)
+
+
+def apply_baseline_gradients(vs, delta_b):
+    """First-order perturbed visibilities from the stored baseline
+    gradients (PRISim's InterferometerArray.apply_gradients):
+
+      V'(b + db) ~ V(b) - 2 pi i (nu / c) sum_k db_k G_k
+
+    where G_k = sum_src s_k A w e^{-i phi} are the moments that
+    processing.gradient_mode: baseline stores. delta_b: (3,) or (nbl, 3)
+    meters. Returns the perturbed skyvis cube (nbl, nchan, n_acc)."""
+    if not vs.gradients or "baseline" not in vs.gradients:
+        raise ValueError("VisibilitySet carries no baseline gradients "
+                         "(run with processing.gradient_mode='baseline')")
+    grad = np.asarray(vs.gradients["baseline"])   # (3, nbl, nchan, n_acc)
+    db = np.asarray(delta_b, dtype=np.float64)
+    if db.ndim == 1:
+        db = np.broadcast_to(db, (vs.nbl, 3))
+    term = np.einsum("bk,kbct->bct", db, grad)
+    nu = np.asarray(vs.freqs).reshape(1, -1, 1)
+    return np.asarray(vs.skyvis) - 2j * np.pi * (nu / CNST.c) * term

@@ -1,7 +1,7 @@
-"""Kernels K1a and K2 on the card against their plain PyTorch versions (and
-K1a against the f64 golden). Every test here needs a CUDA card and skips
-without one; run them
-on the card, from the repo root, with
+"""Kernels K1a, K1b, K1c and K2 on the card against their plain PyTorch
+versions (and the NUDFT kernels against the f64 golden). Every test here
+needs a CUDA card and skips without one; run them on the card, from the
+repo root, with
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu \
         tests/test_torch_cuda.py
@@ -77,6 +77,66 @@ def test_k1a_matches_plain_and_golden(cuda, S, B, C, chan0, bl_scale):
     assert np.abs(got - gold).max() / scale < BAR
 
 
+# K1b/K1c against their plain version: both sum in float64 from the same
+# float32 weights (the kernel pins the plain version's roundings), so they
+# agree to the complex64 rounding of the output; an f32 sum would read
+# ~1e-6 (PERF.md). Against the golden: the bars of
+# tests/test_pallas_nudft.py.
+PLAIN_BAR = 1e-7
+GRAD_BAR = 5e-6
+EXT_BAR = 3e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["grad", "ext", "both"])
+@pytest.mark.parametrize("S,B,C,chan0,bl_scale", [
+    (53, 13, 24, 0, 200.0),        # ragged S, B and C
+    (100, 37, 48, 7, 200.0),       # chan0 != 0
+    (40, 8, 16, 0, 3000.0),        # long baselines: weights down to ~0
+    (2048, 24, 1024, 0, 300.0),    # full channel tiles, many tiles of S
+    (300, 5, 1500, 0, 200.0),      # ragged last channel tile
+])
+def test_k1b_k1c_match_plain_and_golden(cuda, mode, S, B, C, chan0,
+                                        bl_scale):
+    grad, ext = {"grad": (True, False), "ext": (False, True),
+                 "both": (True, True)}[mode]
+    se, bl, amps = _problem(S, B, C, seed=S + B + C, bl_scale=bl_scale)
+    rng = np.random.RandomState(S)
+    sigma = rng.uniform(20.0, 200.0, S).astype(np.float32)
+    sigma[::3] = np.inf
+    nu0, dnu = 150e6, 97656.25
+    freqs = nu0 + dnu * (chan0 + np.arange(C))
+    seh, sel = (torch.as_tensor(x, device=cuda) for x in tf.split_f64(se))
+    blh, bll = (torch.as_tensor(x, device=cuda) for x in tf.split_f64(bl))
+    kw = dict(s_sky=torch.as_tensor((se + [0.0, 0.0, 1.0]).astype(np.float32),
+                                    device=cuda),
+              src_shape_sigma=torch.as_tensor(sigma, device=cuda)
+              if ext else None, gradient=grad)
+    a = torch.as_tensor(amps, device=cuda)
+    gs = freq_grid_scalars(nu0, dnu)
+    n0 = (nudft_cuda.launches, nudft_cuda.launches_grad,
+          nudft_cuda.launches_ext)
+    got = nudft_cuda(seh, sel, blh, bll, a, gs, C, chan0=chan0, **kw)
+    torch.cuda.synchronize()
+    assert (nudft_cuda.launches, nudft_cuda.launches_grad,
+            nudft_cuda.launches_ext) == (n0[0], n0[1] + grad, n0[2] + ext)
+    plain = nudft_visibilities(seh, sel, blh, bll, a, gs, C, chan0=chan0,
+                               **kw)
+    gold = nudft_reference_f64(torch.as_tensor(se, device=cuda),
+                               torch.as_tensor(bl, device=cuda), a,
+                               torch.as_tensor(freqs, device=cuda), **kw)
+    if not grad:
+        got, plain, gold = (got,), (plain,), (gold,)
+    for i, (k, p, g) in enumerate(zip(got, plain, gold)):
+        k, p, g = (x.cpu().numpy() for x in (k, p, g))
+        assert k.shape == ((B, C) if i == 0 else (3, B, C))
+        assert np.isfinite(k).all()
+        scale = np.abs(g).max()
+        bar = GRAD_BAR if i else (EXT_BAR if ext else BAR)
+        assert np.abs(k - p).max() / scale < PLAIN_BAR
+        assert np.abs(k - g).max() / scale < bar
+
+
 @pytest.mark.gpu
 def test_k1a_rejects_bad_inputs(cuda):
     se, bl, amps = _problem(8, 3, 16, seed=0, bl_scale=100.0)
@@ -117,6 +177,54 @@ def test_run_simulation_cuda_matches_cpu(cuda, tmp_path):
     scale = np.abs(vs_cpu.skyvis).max()
     assert np.abs(vs_gpu.skyvis - vs_cpu.skyvis).max() / scale < BAR
     np.testing.assert_array_equal(vs_gpu.vis_noise, vs_cpu.vis_noise)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["gradient", "dsm_fits"])
+def test_shaped_and_gradient_runs_cuda_match_cpu(cuda, tmp_path, case):
+    """A gradient run (K1b) and a DSM FITS run (K1c), each with engine auto,
+    on the card against the same run on the CPU (plain versions): HERA-7,
+    32 channels, nside-8 sky, 2 accumulations; K2 never runs."""
+    from prisim_tpu_torch.catalogs import write_dsm_fits
+    from prisim_tpu_torch.config import load_parms
+    from prisim_tpu_torch.driver import run_simulation
+    from prisim_tpu_torch.engine.cuda_banded import banded_spread_cuda
+    sky, cat, proc = {"model": "usm", "nside": 8}, {}, {"engine": "auto"}
+    if case == "gradient":
+        proc["gradient_mode"] = "baseline"
+    else:
+        path = str(tmp_path / "dsm.fits")
+        write_dsm_fits(path, 100.0 + 10.0 * np.random.RandomState(0).rand(
+            12 * 8 * 8), -2.55)
+        sky, cat = {"model": "dsm", "nside": 8}, {"DSM_file_prefix": path}
+    parms = load_parms({
+        "dirstruct": {"rootdir": str(tmp_path)},
+        "telescope": {"id": "hera"},
+        "array": {"layout": "HERA-7", "redundant": False},
+        "bandpass": {"nchan": 32, "freq_resolution": 97656.25},
+        "obsparm": {"n_acc": 2, "t_acc": 60.0},
+        "skyparm": sky, "catalog": cat, "processing": proc,
+        "save_formats": {"fmt": "none", "npz": False}})
+    n0 = (nudft_cuda.launches, nudft_cuda.launches_grad,
+          nudft_cuda.launches_ext, banded_spread_cuda.launches)
+    vs_gpu, _ = run_simulation(parms, verbose=False, save=False,
+                               device="cuda")
+    grad = case == "gradient"
+    assert (nudft_cuda.launches, nudft_cuda.launches_grad,
+            nudft_cuda.launches_ext, banded_spread_cuda.launches) == (
+                n0[0], n0[1] + 2 * grad, n0[2] + 2 * (not grad), n0[3])
+    vs_cpu, _ = run_simulation(parms, verbose=False, save=False,
+                               device="cpu")
+    # the f32 beam (and the weights' expf) round differently on the card
+    # and on the CPU, so the runs agree at the engines' bars, not bit for
+    # bit (as test_run_simulation_cuda_matches_cpu)
+    scale = np.abs(vs_cpu.skyvis).max()
+    assert np.abs(vs_gpu.skyvis - vs_cpu.skyvis).max() / scale < (
+        BAR if grad else EXT_BAR)
+    if grad:
+        g, c = vs_gpu.gradients["baseline"], vs_cpu.gradients["baseline"]
+        assert g.shape == (3, 21, 32, 2)
+        assert np.abs(g - c).max() / np.abs(c).max() < GRAD_BAR
 
 
 def _banded_problem(bl, C, r, S, T_s, seed, cuda, dtype=torch.float64):

@@ -1,5 +1,7 @@
 """The port's run_simulation against prisim_tpu.driver.run_simulation on
-the small HERA-19 example (shrunk as tests/test_driver.py shrinks it)."""
+the small HERA-19 example (shrunk as tests/test_driver.py shrinks it), on
+HERA-7 gradient and extended-source runs (a 7-column custom catalog, a DSM
+FITS map, an NVSS catalog), and on the banded NUFFT engine's example."""
 
 import dataclasses
 import os
@@ -135,7 +137,6 @@ def test_delay_transform_matches_jax(runs):
 
 @pytest.mark.parametrize("over", [
     {"processing.engine": "nufft", "processing.nufft_spread": "sorted"},
-    {"processing.gradient_mode": "baseline"},
     {"processing.n_sky_sectors": 2},
     {"beam.pol": "XY"},
     {"beam.use_external": True},
@@ -143,7 +144,7 @@ def test_delay_transform_matches_jax(runs):
     {"save_formats.uvfits": True},
     {"save_formats.fmt": "FITS"},
     {"pp.n_chunks": 2},
-    {"skyparm.model": "csm"},
+    {"skyparm.model": "hi_cube", "catalog.spectrum_file": "cube.fits"},
     {"bandpass.pfb_method": "theoretical", "bandpass.pfb_file": "pfb.fits"},
     {"telescope.id": "mwa"},
     {"telescope.id": "custom", "antenna.shape": "dipole"},
@@ -355,3 +356,215 @@ def test_engine_auto_on_cpu_is_direct(monkeypatch):
     np.testing.assert_array_equal(vs.skyvis, vs2.skyvis)
     assert drv_t._resolve_engine(p, torch.device("cuda")) == "nufft"
     assert drv_t._resolve_engine(p, torch.device("cpu")) == "direct"
+
+
+# --------------------------------------------------------------------------
+# gradient runs (kernel K1b) and skies with source shapes (kernel K1c)
+# --------------------------------------------------------------------------
+
+# The port's skyvis and gradients against JAX's on HERA-7: JAX's direct
+# engine on the CPU is its f32 XLA path, whose own error on these small
+# sums reads up to 4.2e-6 of max|V| against the port (2.7e-6 on the
+# gradient planes, CPU), while the port sits within 1.1e-7 of the f64
+# golden (test_shaped_snapshot_matches_f64_golden). So the bar is 1e-5 of
+# the max of the JAX cube; a wrong weight or moment reads O(1).
+JAX_F32_BAR = 1e-5
+
+
+def _write_custom7(path):
+    """RA DEC FLUX SPINDEX MAJAX MINAX PA, every fourth source a point
+    source (zero axes)."""
+    rng = np.random.RandomState(4)
+    n = 40
+    cat = np.c_[rng.uniform(0, 360, n), rng.uniform(-70, 10, n),
+                rng.uniform(1, 10, n), rng.uniform(-1, -0.5, n),
+                rng.uniform(0, 1.0, n), rng.uniform(0, 0.5, n),
+                rng.uniform(0, 180, n)]
+    cat[::4, 4:6] = 0.0
+    np.savetxt(path, cat)
+
+
+@pytest.fixture(scope="module")
+def shaped_files(tmp_path_factory):
+    from test_torch_catalogs import write_dsm, write_nvss
+    root = tmp_path_factory.mktemp("shaped")
+    files = {k: str(root / f) for k, f in (("custom", "cat7.txt"),
+                                           ("dsm", "dsm8.fits"),
+                                           ("nvss", "nvss.fits"))}
+    _write_custom7(files["custom"])
+    write_dsm(files["dsm"], nside=8)
+    write_nvss(files["nvss"], n=30)
+    return files
+
+
+SHAPED = {
+    "gradient": {"skyparm": {"model": "random", "nsrc": 32, "seed": 3},
+                 "processing": {"gradient_mode": "baseline"}},
+    "custom7": {"skyparm": {"model": "custom", "flux_min": None},
+                "catalog": {"custom_file": "custom"}},
+    "dsm_fits": {"skyparm": {"model": "dsm", "nside": 8},
+                 "catalog": {"DSM_file_prefix": "dsm"}},
+    "dsm_fits_gradient": {"skyparm": {"model": "dsm", "nside": 8},
+                          "catalog": {"DSM_file_prefix": "dsm"},
+                          "processing": {"gradient_mode": "baseline"}},
+    "nvss": {"skyparm": {"model": "nvss", "flux_min": None},
+             "catalog": {"NVSS_file": "nvss"}},
+}
+
+
+def _hera7(files, case, **processing):
+    """HERA-7 non-redundant, 16 ch, 2 accumulations, no products."""
+    p = {"telescope": {"id": "hera"},
+         "array": {"layout": "HERA-7", "redundant": False},
+         "bandpass": {"nchan": 16, "freq_resolution": 97656.25},
+         "obsparm": {"n_acc": 2, "t_acc": 60.0},
+         "save_formats": {"fmt": "none", "npz": False}}
+    for sec, val in SHAPED[case].items():
+        val = {k: files.get(v, v) if sec == "catalog" else v
+               for k, v in val.items()}
+        p[sec] = dict(p.get(sec, {}), **val)
+    p["processing"] = dict(p.get("processing", {}), **processing)
+    return cfg_jax.load_parms(p)
+
+
+@pytest.fixture(scope="module", params=sorted(SHAPED))
+def shaped_runs(request, shaped_files):
+    case = request.param
+    vj, _ = drv_jax.run_simulation(_hera7(shaped_files, case), verbose=False,
+                                   save=False)
+    vt, _ = drv_t.run_simulation(_hera7(shaped_files, case), verbose=False,
+                                 save=False, device="cpu")
+    return dict(case=case, vj=vj, vt=vt, files=shaped_files)
+
+
+def test_shaped_skyvis_matches_jax(shaped_runs):
+    vj, vt = shaped_runs["vj"], shaped_runs["vt"]
+    assert vt.skyvis.shape == vj.skyvis.shape == (21, 16, 2)
+    assert vt.skyvis.dtype == np.complex64
+    scale = np.abs(vj.skyvis).max()
+    assert scale > 0
+    assert np.abs(vt.skyvis - vj.skyvis).max() / scale < JAX_F32_BAR
+
+
+def test_gradients_match_jax(shaped_runs):
+    vj, vt = shaped_runs["vj"], shaped_runs["vt"]
+    if "gradient" not in shaped_runs["case"]:
+        assert vt.gradients is None and vj.gradients is None
+        return
+    gj, gt = vj.gradients["baseline"], vt.gradients["baseline"]
+    assert gt.shape == gj.shape == (3, 21, 16, 2)
+    assert gt.dtype == np.complex64
+    scale = np.abs(gj).max()
+    assert np.abs(gt - gj).max() / scale < JAX_F32_BAR
+
+
+def test_shaped_snapshot_matches_f64_golden(shaped_runs):
+    """Each snapshot of the port's direct engine, with the moments and the
+    weights on, against the f64 golden on the same inputs: 2e-6 of max|V|
+    (3e-6 with shapes) and 5e-6 of max|G|, the bars of
+    tests/test_pallas_nudft.py."""
+    from prisim_tpu_torch import twofloat as tf
+    from prisim_tpu_torch.engine import observe
+    from prisim_tpu_torch.engine.nudft import nudft_reference_f64
+    parms = _hera7(shaped_runs["files"], shaped_runs["case"])
+    sim = drv_t.prepare_simulation(parms, torch.device("cpu"))
+    sig = sim.sky.src_shape_sigma
+    assert (sig is None) == (shaped_runs["case"] == "gradient")
+    Mh, Ml, pch, pcl = observe.schedule_tensors(sim.obs, sim.inst.latitude,
+                                                "cpu")
+    for t in range(sim.obs.n_acc):
+        seh, sel, amps, sh = observe.snapshot_nudft_inputs(
+            sim.inst, sim.sky, Mh[t], Ml[t], pch[t], pcl[t], sim.beam_fn)
+        v, g = observe.direct_visibilities(seh, sel, sim.inst, amps, s_sky=sh,
+                                           src_shape_sigma=sig,
+                                           gradient=True)
+        gv, gg = nudft_reference_f64(
+            tf.join_f64(seh, sel), tf.join_f64(sim.inst.bl_hi, sim.inst.bl_lo),
+            amps, sim.inst.freqs, s_sky=sh, src_shape_sigma=sig,
+            gradient=True)
+        bar = 2e-6 if sig is None else 3e-6
+        assert (v - gv).abs().max() / gv.abs().max() < bar
+        assert (g - gg).abs().max() / gg.abs().max() < 5e-6
+        np.testing.assert_array_equal(v.numpy(), shaped_runs["vt"].skyvis[
+            :, :, t])
+
+
+@pytest.mark.parametrize("case", ["gradient", "dsm_fits"])
+def test_gradient_and_shapes_run_direct_engine(shaped_files, monkeypatch,
+                                               capsys, case):
+    """engine nufft (what auto is on a card) runs the direct engine for a
+    gradient run or a shaped sky, says why, and never builds the banded
+    engine."""
+    def no_banded(*a, **k):
+        raise AssertionError("banded engine built")
+    monkeypatch.setattr(drv_t, "banded_engine", no_banded)
+    vs, _ = drv_t.run_simulation(_hera7(shaped_files, case, engine="nufft"),
+                                 verbose=False, save=False, device="cpu")
+    out = capsys.readouterr().out
+    why = "gradient_mode" if case == "gradient" else "source shapes"
+    assert why in out and "running the direct engine" in out
+    monkeypatch.undo()
+    vd, _ = drv_t.run_simulation(_hera7(shaped_files, case, engine="direct"),
+                                 verbose=False, save=False, device="cpu")
+    np.testing.assert_array_equal(vs.skyvis, vd.skyvis)
+
+
+def test_gradient_products_hdf5_not_npz(shaped_files, tmp_path):
+    """The gradients go into the HDF5 'gradients' group, which the JAX
+    reader loads; the NPZ does not carry them (as in prisim_tpu)."""
+    parms = _hera7(shaped_files, "gradient")
+    parms["save_formats"].update(fmt="HDF5", npz=True)
+    vs, out = drv_t.run_simulation(parms, outdir=str(tmp_path), verbose=False,
+                                   device="cpu")
+    base = os.path.join(out, "simdata", "simvis")
+    back = io_jax.load_hdf5(base + ".hdf5")
+    np.testing.assert_array_equal(back.gradients["baseline"],
+                                  vs.gradients["baseline"])
+    with np.load(base + ".npz") as d:
+        assert not any("grad" in k for k in d.files)
+
+
+@pytest.mark.parametrize("db", [[0.01, -0.005, 0.0], "per_baseline"])
+def test_apply_baseline_gradients_matches_jax(shaped_runs, db):
+    from prisim_tpu_torch.vis import apply_baseline_gradients
+    vt = shaped_runs["vt"]
+    if vt.gradients is None:
+        with pytest.raises(ValueError, match="gradient"):
+            apply_baseline_gradients(vt, [0.01, 0.0, 0.0])
+        return
+    if db == "per_baseline":
+        db = np.random.RandomState(1).randn(vt.nbl, 3) * 0.01
+    vj = vis_jax.VisibilitySet(**{f.name: getattr(vt, f.name)
+                                  for f in dataclasses.fields(vt)})
+    got = apply_baseline_gradients(vt, db)
+    np.testing.assert_array_equal(got, vis_jax.apply_baseline_gradients(vj,
+                                                                        db))
+    assert np.abs(got - vt.skyvis).max() > 0
+
+
+def test_apply_baseline_gradients_first_order(shaped_files):
+    """As tests/test_vis_io.py:201 checks JAX's formula, but end to end:
+    the port's stored gradients predict the visibilities re-simulated on
+    baselines shifted by 1 cm to first order (HERA-7, 8 ch, 16 random
+    sources; phasing to the zenith pointing leaves skyvis unphased)."""
+    from prisim_tpu_torch.engine.observe import Instrument, simulate_drift
+    from prisim_tpu_torch.vis import apply_baseline_gradients
+    parms = cfg_t.load_parms({
+        "bandpass": {"nchan": 8, "freq": 150e6, "freq_resolution": 97656.25},
+        "array": {"layout": "HERA-7"}, "obsparm": {"n_acc": 1, "t_acc": 10.0},
+        "skyparm": {"model": "random", "nsrc": 16, "seed": 9},
+        "processing": {"gradient_mode": "baseline"},
+        "save_formats": {"fmt": "none", "npz": False}})
+    vs, _ = drv_t.run_simulation(parms, verbose=False, save=False,
+                                 device="cpu")
+    db = np.asarray([0.01, -0.005, 0.0])
+    dv_pred = apply_baseline_gradients(vs, db) - vs.skyvis
+    sim = drv_t.prepare_simulation(parms, torch.device("cpu"))
+    moved = Instrument.build(np.asarray(sim.bls.vectors) + db, sim.freqs,
+                             "cpu", latitude=sim.inst.latitude)
+    v0 = simulate_drift(sim.inst, sim.sky, sim.obs, sim.beam_fn).numpy()
+    v1 = simulate_drift(moved, sim.sky, sim.obs, sim.beam_fn).numpy()
+    np.testing.assert_array_equal(vs.skyvis, np.transpose(v0, (1, 2, 0)))
+    dv_true = np.transpose(v1 - v0, (1, 2, 0))
+    assert np.abs(dv_true).max() > 0
+    assert np.abs(dv_pred - dv_true).max() / np.abs(dv_true).max() < 0.02

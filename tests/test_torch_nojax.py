@@ -1,7 +1,8 @@
 """The port runs with jax, yaml and h5py all unavailable, as on a card
 machine that has none of them: a subprocess blocks the three imports,
 imports prisim_tpu_torch and runs a small simulation to NPZ, with the
-direct engine and with the banded NUFFT engine."""
+direct engine, with the banded NUFFT engine, as a gradient run, and on a
+DSM FITS map that the port itself writes (extended sources)."""
 
 import os
 import subprocess
@@ -16,19 +17,36 @@ SCRIPT = textwrap.dedent("""
     import sys
     for name in ("jax", "yaml", "h5py"):
         sys.modules[name] = None
+    import numpy as np
     import prisim_tpu_torch
     from prisim_tpu_torch import driver
+    from prisim_tpu_torch.catalogs import write_dsm_fits
     from prisim_tpu_torch.config import load_parms
+    root, mode = sys.argv[1], sys.argv[2]
+    proc = {"engine": mode if mode in ("direct", "nufft") else "auto"}
+    sky = {"model": "usm", "nside": 4}
+    cat = {}
+    if mode == "gradient":
+        proc["gradient_mode"] = "baseline"
+    if mode == "dsm":
+        path = root + "/dsm.fits"
+        write_dsm_fits(path, np.ones(12 * 4 * 4), -2.55)
+        sky = {"model": "dsm", "nside": 4}
+        cat = {"DSM_file_prefix": path}
     parms = load_parms({
-        "dirstruct": {"rootdir": sys.argv[1], "simid": "nojax"},
+        "dirstruct": {"rootdir": root, "simid": "nojax"},
         "telescope": {"id": "hera"},
         "array": {"layout": "HERA-7", "redundant": False},
         "bandpass": {"nchan": 8, "freq_resolution": 97656.25},
         "obsparm": {"n_acc": 2, "t_acc": 60.0},
-        "skyparm": {"model": "usm", "nside": 4},
-        "processing": {"engine": sys.argv[2]},
+        "skyparm": sky, "catalog": cat, "processing": proc,
         "save_formats": {"fmt": "none", "npz": True}})
     vs, out = driver.run_simulation(parms, verbose=False, device="cpu")
+    if mode == "gradient":
+        print("GRAD", vs.gradients["baseline"].shape)
+    if mode == "dsm":
+        sim = driver.prepare_simulation(parms, "cpu")
+        print("SIGMA", sim.sky.src_shape_sigma.min().item())
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "yaml", "h5py")
                     and sys.modules[m] is not None)
@@ -37,14 +55,17 @@ SCRIPT = textwrap.dedent("""
 """)
 
 
-def _run_blocked(tmp_path, engine):
+def _run_blocked(tmp_path, mode, lines_out=None):
     env = dict(os.environ, PYTHONPATH=ROOT)
+    tmp_path.mkdir(parents=True, exist_ok=True)
     proc = subprocess.run([sys.executable, "-c", SCRIPT, str(tmp_path),
-                           engine], capture_output=True, text=True, env=env,
+                           mode], capture_output=True, text=True, env=env,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     lines = dict(line.split(" ", 1) for line in proc.stdout.splitlines()
-                 if line.startswith(("LOADED", "OUT")))
+                 if line.startswith(("LOADED", "OUT", "GRAD", "SIGMA")))
+    if lines_out is not None:
+        lines_out.update(lines)
     assert lines["LOADED"] == "[]"
     out = lines["OUT"]
     with np.load(os.path.join(out, "simdata", "simvis.npz")) as d:
@@ -67,3 +88,26 @@ def test_port_runs_banded_engine_without_jax_yaml_h5py(tmp_path):
     sky = _run_blocked(tmp_path / "nufft", "nufft")
     direct = _run_blocked(tmp_path / "direct", "direct")
     assert np.abs(sky - direct).max() / np.abs(direct).max() < 1e-4
+
+
+def test_port_runs_gradient_without_jax_yaml_h5py(tmp_path):
+    """processing.gradient_mode: the plain moments (the CPU path of K1b);
+    the visibilities are the direct run's, bit for bit."""
+    lines = {}
+    sky = _run_blocked(tmp_path / "grad", "gradient", lines)
+    assert lines["GRAD"] == "(3, 21, 8, 2)"
+    np.testing.assert_array_equal(sky, _run_blocked(tmp_path / "direct",
+                                                    "direct"))
+
+
+def test_port_runs_dsm_fits_without_jax_yaml_h5py(tmp_path):
+    """A DSM FITS map written and read by the port's jax-free FITS IO: every
+    pixel gets the nside-4 pixel-resolution shape (sigma_uv ~ 3.4), so the
+    run takes the plain gaussian weights (the CPU path of K1c), whatever
+    the engine, and differs from the same sky without shapes."""
+    lines = {}
+    sky = _run_blocked(tmp_path / "dsm", "dsm", lines)
+    sigma = float(lines["SIGMA"])
+    assert 3.0 < sigma < 4.0
+    usm = _run_blocked(tmp_path / "usm", "direct")
+    assert np.abs(sky - usm).max() > 1e-3 * np.abs(usm).max()

@@ -1,12 +1,15 @@
-"""The plain PyTorch NUDFT (the CPU path of kernel K1a) against the JAX
-engines: the XLA path nudft_visibilities, the Pallas kernel in interpret
-mode (as tests/test_pallas_nudft.py runs it) and the float64 golden."""
+"""The plain PyTorch NUDFT (the CPU path of kernels K1a, K1b and K1c)
+against the JAX engines: the XLA path nudft_visibilities, the Pallas
+kernel in interpret mode (as tests/test_pallas_nudft.py runs it) and the
+float64 golden; point sources, the gradient moments, extended sources
+(a mix of finite and infinite sigma) and both at once."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from prisim_tpu import constants as CNST
 from prisim_tpu.engine import nudft as nj
 from prisim_tpu.engine.pallas_nudft import nudft_pallas
 
@@ -133,10 +136,177 @@ def test_wrapper_rejects_bad_inputs(bad):
     assert nudft_cuda.launches == 0
 
 
+# --------------------------------------------------------------------------
+# gradient moments (K1b) and extended sources (K1c)
+# --------------------------------------------------------------------------
+
+GRAD_BAR = 5e-6     # max|dG| / max|G| (tests/test_pallas_nudft.py:144)
+EXT_BAR = 3e-6      # max|dV| / max|V| with gaussian weights (:179)
+MODES = {"grad": (True, False), "ext": (False, True), "both": (True, True)}
+
+
+@pytest.fixture(scope="module", params=sorted(MODES))
+def mode_case(request):
+    """S=60, B=11, C=32, chan0=3, 150 m baselines; sigma in [20, 200] with
+    every third source a point source (inf)."""
+    grad, ext = MODES[request.param]
+    S, B, C, chan0 = 60, 11, 32, 3
+    se, bl, amps, freqs = _problem(S, B, C, chan0, 150.0, seed=5)
+    s_sky = (se + np.asarray([0.0, 0.0, 1.0])).astype(np.float32)
+    rng = np.random.RandomState(6)
+    sigma = rng.uniform(20.0, 200.0, S).astype(np.float32)
+    sigma[::3] = np.inf
+    sigma = sigma if ext else None
+    seh, sel = tft.split_f64(se)
+    blh, bll = tft.split_f64(bl)
+    got = nt.nudft_visibilities(
+        *(torch.as_tensor(x) for x in (seh, sel, blh, bll, amps)),
+        nt.freq_grid_scalars(NU0, DNU), C, chan0=chan0,
+        s_sky=torch.as_tensor(s_sky), gradient=grad, src_block=16,
+        src_shape_sigma=None if sigma is None else torch.as_tensor(sigma))
+    gold = nj.nudft_reference_f64(se, bl, amps, freqs, s_sky=s_sky,
+                                  src_shape_sigma=sigma, gradient=grad)
+    if not grad:
+        got, gold = (got, None), (gold, None)
+    jx = tuple(jnp.asarray(x) for x in (seh, sel, blh, bll, amps))
+    return dict(got=tuple(None if x is None else x.numpy() for x in got),
+                gold=gold, grad=grad, ext=ext, jx=jx, C=C, chan0=chan0,
+                se=se, bl=bl, amps=amps, freqs=freqs, s_sky=s_sky,
+                sigma=sigma)
+
+
+def _check_modes(case, want):
+    """The port's (vis, moments) against `want` at the bars of
+    tests/test_pallas_nudft.py, both scaled by the f64 golden."""
+    if not case["grad"]:
+        want = (want, None)
+    vbar = EXT_BAR if case["ext"] else BAR
+    vg, gg = case["gold"]
+    assert _rel(case["got"][0], want[0], np.abs(vg).max()) < vbar
+    if case["grad"]:
+        assert case["got"][1].shape == (3,) + vg.shape
+        assert case["got"][1].dtype == np.complex64
+        assert _rel(case["got"][1], want[1], np.abs(gg).max()) < GRAD_BAR
+
+
+def test_modes_match_f64_golden(mode_case):
+    _check_modes(mode_case, mode_case["gold"] if mode_case["grad"]
+                 else mode_case["gold"][0])
+
+
+def test_modes_match_xla_engine(mode_case):
+    c = mode_case
+    kw = dict(s_sky=jnp.asarray(c["s_sky"]), gradient=c["grad"])
+    if c["ext"]:
+        kw.update(src_shape_sigma=jnp.asarray(c["sigma"]),
+                  inv_wl=jnp.asarray(c["freqs"] / CNST.c, jnp.float32))
+    want = nj.nudft_visibilities(*c["jx"], nj.freq_grid_scalars(NU0, DNU),
+                                 c["C"], chan0=c["chan0"], src_block=16,
+                                 **kw)
+    _check_modes(c, tuple(np.asarray(x) for x in want) if c["grad"]
+                 else np.asarray(want))
+
+
+def test_modes_match_pallas_interpret(mode_case):
+    c = mode_case
+    want = nudft_pallas(
+        *c["jx"], nj.freq_grid_scalars(NU0, DNU), c["C"], chan0=c["chan0"],
+        src_tile=16, bl_tile=8, interpret=True,
+        s_sky=jnp.asarray(c["s_sky"]), gradient=c["grad"],
+        src_shape_sigma=None if c["sigma"] is None
+        else jnp.asarray(c["sigma"]))
+    _check_modes(c, tuple(np.asarray(x) for x in want) if c["grad"]
+                 else np.asarray(want))
+
+
+def test_modes_torch_golden_matches_numpy_golden(mode_case):
+    c = mode_case
+    got = nt.nudft_reference_f64(c["se"], c["bl"], c["amps"], c["freqs"],
+                                 s_sky=c["s_sky"], src_shape_sigma=c["sigma"],
+                                 gradient=c["grad"], src_chunk=16)
+    want = c["gold"] if c["grad"] else (c["gold"][0],)
+    got = got if c["grad"] else (got,)
+    for g, w in zip(got, want):
+        assert _rel(g.numpy(), w, np.abs(w).max()) < 1e-12
+
+
+def test_point_sigma_is_unweighted():
+    """sigma = inf everywhere (a catalog of point sources with shapes
+    given) is the point-source sum, and alpha is 0."""
+    seh, sel, blh, bll, amps = _cpu_inputs()
+    s_sky = torch.randn(8, 3)
+    gs = nt.freq_grid_scalars(NU0, DNU)
+    inf = torch.full((8,), float("inf"))
+    assert torch.equal(nt.ext_alpha(s_sky, inf, blh, bll),
+                       torch.zeros((8, 3)))
+    got = nt.nudft_visibilities(seh, sel, blh, bll, amps, gs, 16,
+                                s_sky=s_sky, src_shape_sigma=inf)
+    assert torch.equal(got, nt.nudft_visibilities(seh, sel, blh, bll, amps,
+                                                  gs, 16))
+
+
+def test_ext_terms_match_pallas_formula():
+    """alpha and (nu_c/c)^2 against the f32 formulas of the Pallas kernel
+    (pallas_nudft.py:149-157, :290-291): the port takes them in float64
+    and rounds once, so they agree to a few float32 ulps."""
+    rng = np.random.RandomState(2)
+    s = rng.randn(50, 3).astype(np.float32)
+    blh, bll = (torch.as_tensor(x)
+                for x in tft.split_f64(rng.randn(7, 3) * 300.0))
+    sigma = rng.uniform(20.0, 200.0, 50).astype(np.float32)
+    got = nt.ext_alpha(torch.as_tensor(s), torch.as_tensor(sigma), blh,
+                       bll).numpy()
+    blf = (blh + bll).numpy()
+    ksky = s @ blf.T
+    proj2 = np.maximum((blf * blf).sum(1)[None, :] - ksky * ksky, 0.0)
+    want = 0.5 * proj2 / (sigma * sigma)[:, None]
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6 * want.max())
+    gs = nt.freq_grid_scalars(NU0, DNU)
+    k2 = nt.ext_chan_scale(gs, 40, chan0=5).numpy()
+    x = (np.float32(gs[0]) + np.float32(gs[1])) + (
+        np.float32(gs[2]) + np.float32(gs[3])) * (5 + np.arange(40,
+                                                                dtype=np.float32))
+    np.testing.assert_allclose(k2, x * x, rtol=1e-6)
+
+
+def test_wrapper_on_cpu_runs_plain_modes_and_does_not_count():
+    seh, sel, blh, bll, amps = _cpu_inputs()
+    gs = nt.freq_grid_scalars(NU0, DNU)
+    s_sky = torch.rand(8, 3)
+    sigma = torch.full((8,), 40.0)
+    counts = (nudft_cuda.launches, nudft_cuda.launches_grad,
+              nudft_cuda.launches_ext)
+    kw = dict(s_sky=s_sky, src_shape_sigma=sigma, gradient=True)
+    got = nudft_cuda(seh, sel, blh, bll, amps, gs, 16, **kw)
+    want = nt.nudft_visibilities(seh, sel, blh, bll, amps, gs, 16, **kw)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert (nudft_cuda.launches, nudft_cuda.launches_grad,
+            nudft_cuda.launches_ext) == counts == (0, 0, 0)
+
+
+@pytest.mark.parametrize("bad", ["no_s_sky", "s_sky_shape", "sigma_dtype",
+                                 "sigma_shape"])
+def test_wrapper_rejects_bad_mode_inputs(bad):
+    seh, sel, blh, bll, amps = _cpu_inputs()
+    kw = dict(s_sky=torch.rand(8, 3), src_shape_sigma=torch.full((8,), 40.0))
+    err = ValueError
+    if bad == "no_s_sky":
+        kw["s_sky"] = None
+    elif bad == "s_sky_shape":
+        kw["s_sky"] = kw["s_sky"][:5]
+    elif bad == "sigma_dtype":
+        kw["src_shape_sigma"], err = kw["src_shape_sigma"].double(), TypeError
+    else:
+        kw["src_shape_sigma"] = kw["src_shape_sigma"][:, None]
+    with pytest.raises(err):
+        nudft_cuda(seh, sel, blh, bll, amps, nt.freq_grid_scalars(NU0, DNU),
+                   16, gradient=True, **kw)
+
+
 @pytest.mark.parametrize("kw", [dict(gradient=True),
                                 dict(src_shape_sigma=torch.ones(8))])
-@pytest.mark.parametrize("fn", [nudft_cuda, nt.nudft_visibilities])
-def test_unported_modes_raise(fn, kw):
+def test_plain_modes_need_s_sky(kw):
     seh, sel, blh, bll, amps = _cpu_inputs()
-    with pytest.raises(NotImplementedError):
-        fn(seh, sel, blh, bll, amps, nt.freq_grid_scalars(NU0, DNU), 16, **kw)
+    with pytest.raises(ValueError, match="s_sky"):
+        nt.nudft_visibilities(seh, sel, blh, bll, amps,
+                              nt.freq_grid_scalars(NU0, DNU), 16, **kw)

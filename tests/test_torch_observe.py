@@ -67,7 +67,7 @@ def test_drift_matches_f64_golden(drift):
     inst, sky, obs = drift["inst"], drift["sky"], drift["obs"]
     Mh, Ml, pch, pcl = obs_t.schedule_tensors(obs, inst.latitude, "cpu")
     for t in range(obs.n_acc):
-        seh, sel, amps = obs_t.snapshot_nudft_inputs(
+        seh, sel, amps, _ = obs_t.snapshot_nudft_inputs(
             inst, sky, Mh[t], Ml[t], pch[t], pcl[t], drift["beam"])
         gold = nudft_reference_f64(
             tf.join_f64(seh, sel), tf.join_f64(inst.bl_hi, inst.bl_lo),
@@ -93,3 +93,45 @@ def test_beam_and_rotation_match_jax(drift):
     pb_j = np.asarray(airy_jax(sh_j, jnp.asarray(f32), 14.0))
     pb_t = airy_beam(sh_t, torch.as_tensor(f32), 14.0).numpy()
     np.testing.assert_allclose(pb_t, pb_j, rtol=0, atol=2e-6)
+
+
+def test_shaped_gradient_drift_matches_jax():
+    """The drift scan with shapes (every pixel the nside-8 pixel gaussian,
+    every fifth one a point source) and with the gradient moments, in both
+    packages on the same inputs. The port's sigma equals JAX's, and JAX's
+    SkySources carries across with sky_from_numpy."""
+    import dataclasses
+    bls = build_baselines(preset_layout("HERA-7"), redundant=False)
+    freqs = 150e6 + 97656.25 * (np.arange(16) - 8)
+    npix = hp.nside2npix(8)
+    res = np.degrees(np.sqrt(hp.nside2pixarea(8)))
+    shape = np.tile([res, res, 0.0], (npix, 1))
+    shape[::5, :2] = 0.0
+    sky = dataclasses.replace(healpix_diffuse_model(
+        1.0 + 0.1 * np.random.RandomState(3).rand(npix),
+        freqs_model=np.asarray([150e6])), src_shape=shape)
+    inst_j = obs_jax.Instrument.build(bls.vectors, freqs, latitude=LAT)
+    sky_j = obs_jax.SkySources.from_skymodel(sky, freqs)
+    obs = obs_jax.Observation(
+        lst_deg=np.asarray([30.0]), jd=np.asarray([2457000.1]),
+        t_acc=np.asarray([60.0]), pointing_altaz=np.asarray([[90.0, 270.0]]))
+    vj, gj = (np.asarray(x) for x in obs_jax.simulate_drift(
+        inst_j, sky_j, obs, lambda s, f: airy_jax(s, f, 14.0),
+        src_block=128, gradient=True))
+    sig_j = np.asarray(sky_j.src_shape_sigma)
+    np.testing.assert_array_equal(obs_t.SkySources.from_skymodel(
+        sky, freqs, "cpu").src_shape_sigma.numpy(), sig_j)
+    assert np.isinf(sig_j[::5]).all() and np.isfinite(sig_j[1::5]).all()
+    inst_t = instrument_from_numpy(np.asarray(inst_j.bl_hi),
+                                   np.asarray(inst_j.bl_lo), freqs,
+                                   latitude=LAT)
+    sky_t = sky_from_numpy(np.asarray(sky_j.s_eq_hi),
+                           np.asarray(sky_j.s_eq_lo), np.asarray(sky_j.flux),
+                           src_shape_sigma=sig_j)
+    vt, gt = obs_t.simulate_drift(
+        inst_t, sky_t, obs_t.Observation(obs.lst_deg, obs.jd, obs.t_acc,
+                                         obs.pointing_altaz),
+        lambda s, f: airy_beam(s, f, 14.0), src_block=128, gradient=True)
+    assert vt.shape == (1, 21, 16) and gt.shape == (1, 3, 21, 16)
+    assert np.abs(vt.numpy() - vj).max() / np.abs(vj).max() < 3e-6
+    assert np.abs(gt.numpy() - gj).max() / np.abs(gj).max() < 5e-6
