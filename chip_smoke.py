@@ -11,8 +11,8 @@ then:
    49,152 nside-64 sources, the inputs of snapshot 0), and the float64
    golden on 16 baselines from the shortest to the longest. Prints both
    error normalizations (max|V| and the coherent flux scale
-   max_c sum_s |A|) and the times (CUDA events, warmed up, mean of 3 runs,
-   plain and kernel alternated).
+   max_c sum_s |A|), the times (CUDA events, warmed up, mean of 3 runs,
+   plain and kernel alternated) and K1a's bound on these inputs.
 2. Direct slice phase: run_simulation(parms, device="cuda", save=True)
    with processing.engine: direct and 4 accumulations; checks the output
    and that K1a ran once per accumulation.
@@ -20,7 +20,9 @@ then:
    builds it (truth amps, rank 32): K2 against its plain version on the
    same prep outputs of snapshot 0, the banded snapshot against K1a
    through the engine's gate (both normalizations and the amps-space
-   residual), and the times of K2 and its plain version.
+   residual), the times of K2 and its plain version, K2's work items
+   (live (baseline, 64-row block) items and (item, tile) entries of its
+   worklist), the valid (baseline, source) pairs and K2's bound.
 4. Banded slice phase: run_simulation with processing.engine: auto, which
    is the banded engine on a card; checks that the gate passed with no
    demotion, the K2 and K1a launch counts, the output, and that snapshot 0
@@ -30,8 +32,9 @@ then:
    telescope and band of prisim_tpu/examples/simparms/hera331_northstar.yaml,
    cut to one accumulation and no products: the gate against K1a over
    630 x 1024 x 786,432; K2 against its plain version on the first source
-   chunk, and both times; the K2 time per snapshot; K1a against the f64
-   golden on 16 baselines over all 786,432 sources.
+   chunk, and both times; each chunk's work items and valid pairs; the K2
+   time and bound per snapshot; K1a over all 630 baselines as the gate
+   runs it (time and bound), and against the f64 golden on 16 of them.
 6. K1b phase: the gradient moments at the slice shape on snapshot 0's
    inputs, K1b against its plain version (all baselines) and against the
    f64 golden (16 baselines) for the visibilities (both normalizations)
@@ -52,6 +55,13 @@ then:
    band on a DSM FITS map at nside 256 (786,432 shaped sources), one
    accumulation: K1c's time over 630 x 1024 x 786,432, and K1c against
    its plain version and the golden on 16 baselines over all sources.
+
+After the phases it prints the card's name and power limit, the roofline
+share (bound / time, against the H100 data-sheet peaks) of K1a and K2 at
+the slice and the north star, and the kernels line: each kernel's
+launches in its slice run, error against its plain version, time, plain
+time, bound (from this run's inputs) and library time (null: no single
+PyTorch call computes any of them).
 
 Exits non-zero on any failure, and without a CUDA card. The last line is
 {"ok": true, "device": {...}}; the line before it lists the kernels.
@@ -83,6 +93,65 @@ EXT_BAR = 3e-6        # K1c vs the golden, max|dV| / max|V|
 PLAIN_BAR = 1e-7
 N_GOLDEN_BL = 16
 N_TIMED = 3
+# Data-sheet peaks of the H100 SXM (NVIDIA, at 700 W): HBM3 bytes/s, and
+# float64 FLOP/s outside the tensor cores and on them (DMMA)
+HBM_BPS = 3.35e12
+FP64_FLOPS = 34e12
+FP64_TC_FLOPS = 67e12
+# float64 operations per (source, baseline, channel) term, an FMA as 2:
+# K1a A w (2 multiplies) and 4 FMAs into the accumulators; K1b 3 moments
+# of 2 FMAs more each; K1c one multiply by the weight more
+K1A_FLOPS, K1B_FLOPS, K1C_FLOPS = 10, 22, 11
+
+
+def bound(flops, nbytes, peak):
+    """The least time of `flops` operations at `peak` and `nbytes` moved
+    at HBM_BPS: {"bound_ms", "bound_by"}."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BPS * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def nudft_bound(amps, B, flops_per_term, out_planes=1, extra_bytes=0):
+    """A NUDFT kernel's bound on these amplitudes (S, C): the terms of the
+    sources whose amplitudes are not all zero (the others add nothing and
+    are not needed), each amplitude row of theirs read once, the float32
+    two-float source and baseline vectors read once, the complex64
+    outputs written once. Also returns the live source count."""
+    S, C = amps.shape
+    live = int((amps != 0).any(dim=1).sum())
+    nbytes = live * C * 4 + S * 24 + B * 24 + out_planes * B * C * 8
+    return dict(bound(float(flops_per_term) * live * B * C,
+                      nbytes + extra_bytes, FP64_FLOPS), live=live)
+
+
+def k2_bound(plan, u_h, P_r, pairs):
+    """K2's bound for one launch: 2r (2K + 1) float64 operations per valid
+    (baseline, source) pair (the K taps' product, an FMA as 2, and the
+    carrier), at the FP64 tensor-core peak (the least time); the u streams
+    and the payload read once, the (B, R_max, 2r) float64 rows written
+    once."""
+    r, K = plan.rank, plan.K
+    nbytes = (2 * u_h.numel() * 4 + P_r.numel() * P_r.element_size()
+              + plan.nbl * plan.R_max * 2 * r * 8)
+    return bound(float(pairs) * 2 * r * (2 * K + 1), nbytes, FP64_TC_FLOPS)
+
+
+def worklist_line(label, pairs):
+    """Print K2's live work items of its last launch, the splits of their
+    lists, and the valid pairs."""
+    from prisim_tpu_torch.engine.cuda_banded import banded_spread_cuda
+    from prisim_tpu_torch.engine.nufft_banded import K2_ROWS
+    counts = banded_spread_cuda.last_counts
+    n = counts.numel()
+    live = int((counts > 0).sum())
+    total = int(counts.sum())
+    print("%s K2 work items: %d (baseline, %d-row block) items, %d live "
+          "(%.4f), %d (item, tile) entries (%.4f tiles per live item, "
+          "longest %d), lists split %d ways; valid (baseline, source) pairs "
+          "%d" % (label, n, K2_ROWS, live, live / n, total,
+                  total / max(live, 1), int(counts.max()),
+                  banded_spread_cuda.last_splits, pairs))
 
 
 def slice_parms(rootdir, have_h5py, engine, simid, **sections):
@@ -250,8 +319,12 @@ def kernel_phase(sim, cuda):
           % (ms_k, t_k, t_k2, ms_k / 1e3, macs / (ms_k / 1e3)))
     print("plain time: %.4f ms (runs %.4f, %.4f) = %.4e s, %.4e complex MAC/s"
           % (ms_p, t_plain, t_plain2, ms_p / 1e3, macs / (ms_p / 1e3)))
+    bd = nudft_bound(amps, B, K1A_FLOPS)
+    print("K1a bound: %.4f ms (%s; %d of %d sources above the horizon)"
+          % (bd["bound_ms"], bd["bound_by"], bd["live"], S))
     return dict(v0=v_k.cpu().numpy(), max_abs_err=max_abs, ms=ms_k,
-                plain_ms=ms_p)
+                plain_ms=ms_p, bound_ms=bd["bound_ms"],
+                bound_by=bd["bound_by"], golden_rel=g_rel_v)
 
 
 def phased_snapshot0(vs, parms, v0):
@@ -298,7 +371,8 @@ def k2_phase(parms, cuda):
     gate, and the times, at the slice shape."""
     from prisim_tpu_torch.driver import banded_engine, prepare_simulation
     from prisim_tpu_torch.engine.cuda_banded import banded_spread_cuda
-    from prisim_tpu_torch.engine.nufft_banded import banded_spread_plain
+    from prisim_tpu_torch.engine.nufft_banded import (banded_pair_count,
+                                                      banded_spread_plain)
     from prisim_tpu_torch.engine.observe import schedule_tensors
     sim = prepare_simulation(parms, cuda)
     plan, run = banded_engine(parms, sim)
@@ -315,11 +389,17 @@ def k2_phase(parms, cuda):
     rows_p = banded_spread_plain(plan, u_h, u_l, P_r)
     torch.cuda.synchronize()
     assert bool(ok) and bool(torch.isfinite(rows_k).all())
+    if not torch.equal(rows_k, banded_spread_cuda(plan, u_h, u_l, P_r)):
+        raise SystemExit("K2 is not deterministic: two launches differ")
+    print("K2 twice on the same inputs: bit-identical")
     max_abs = float((rows_k - rows_p).abs().max())
     rel = max_abs / float(rows_p.abs().max())
     print("K2 vs plain: max|d rows|=%.4e  /max|rows|=%.4e" % (max_abs, rel))
     if not rel <= ROWS_BAR:
         raise SystemExit("K2 disagrees with its plain version: %.3e" % rel)
+    pairs = banded_pair_count(plan, u_h, u_l, P_r)
+    worklist_line("slice", pairs)
+    bd = k2_bound(plan, u_h, P_r, pairs)
     gate_report("slice", run.gate_fn(Mh, Ml, pch, pcl))
     t_plain = cuda_time_ms(lambda: banded_spread_plain(plan, u_h, u_l, P_r))
     t_k = cuda_time_ms(lambda: banded_spread_cuda(plan, u_h, u_l, P_r))
@@ -332,7 +412,8 @@ def k2_phase(parms, cuda):
     print("plain time: %.4f ms (runs %.4f, %.4f) per snapshot"
           % (ms_p, t_plain, t_plain2))
     print("banded snapshot (prep + K2 + post): %.4f ms" % t_snap)
-    return dict(max_abs_err=max_abs, ms=ms_k, plain_ms=ms_p)
+    print("K2 bound: %.4f ms (%s)" % (bd["bound_ms"], bd["bound_by"]))
+    return dict(max_abs_err=max_abs, ms=ms_k, plain_ms=ms_p, **bd)
 
 
 def northstar_phase(cuda):
@@ -341,7 +422,8 @@ def northstar_phase(cuda):
     the f64 golden on N_GOLDEN_BL baselines, at this shape."""
     from prisim_tpu_torch.driver import banded_engine, prepare_simulation
     from prisim_tpu_torch.engine import cuda_banded, cuda_nudft
-    from prisim_tpu_torch.engine.nufft_banded import banded_spread_plain
+    from prisim_tpu_torch.engine.nufft_banded import (banded_pair_count,
+                                                      banded_spread_plain)
     from prisim_tpu_torch.engine.observe import (schedule_tensors,
                                                  snapshot_nudft_inputs)
     parms = northstar_parms()
@@ -397,6 +479,15 @@ def northstar_phase(cuda):
         raise SystemExit("north-star K2 disagrees with its plain version: "
                          "%.3e" % k2_rel)
     del rows_k, rows_p
+    pairs = []
+    for c, (u_h, u_l, P_r, _) in enumerate(preps):
+        cuda_banded.banded_spread_cuda(plan, u_h, u_l, P_r)
+        pairs.append(banded_pair_count(plan, u_h, u_l, P_r))
+        worklist_line("north-star chunk %d:" % c, pairs[-1])
+    bds = [k2_bound(plan, u_h, P_r, n)
+           for (u_h, _, P_r, _), n in zip(preps, pairs)]
+    k2_bd = dict(bound_ms=sum(b["bound_ms"] for b in bds),
+                 bound_by="/".join(sorted({b["bound_by"] for b in bds})))
 
     def spreads():
         for u_h, u_l, P_r, _ in preps:
@@ -416,29 +507,42 @@ def northstar_phase(cuda):
           % (t_k0, 0.5 * (t_p + t_p2), t_p, t_p2))
     print("north-star K2 time: %.4f ms per snapshot (%d chunks); banded "
           "snapshot (prep + K2 + post): %.4f ms" % (t_k, run.n_chunks, t_snap))
+    print("north-star K2 bound: %.4f ms per snapshot (%s; %d valid pairs)"
+          % (k2_bd["bound_ms"], k2_bd["bound_by"], sum(pairs)))
     del preps
     torch.cuda.empty_cache()
 
-    # K1a against the f64 golden on the direct engine's inputs
+    # K1a over all baselines and sources, as the gate runs it, and against
+    # the f64 golden on N_GOLDEN_BL baselines
     inst = sim.inst
     seh, sel, amps, _ = snapshot_nudft_inputs(inst, sim.sky, Mh, Ml, pch,
                                               pcl, sim.beam_fn)
+    args = (seh, sel, inst.bl_hi, inst.bl_lo, amps, inst.grid_scalars(),
+            inst.nchan)
+    t0 = time.time()
+    v_k = cuda_nudft.nudft_cuda(*args)
+    torch.cuda.synchronize()
+    print("north-star K1a first launch (%d bl x %d ch x %d sources): %.2f s"
+          % (inst.nbl, inst.nchan, seh.shape[0], time.time() - t0))
+    assert v_k.shape == (inst.nbl, inst.nchan)
+    assert bool(torch.isfinite(v_k).all())
+    k1a_ms = cuda_time_ms(lambda: cuda_nudft.nudft_cuda(*args), n=2,
+                          warm=False)
+    k1a_bd = nudft_bound(amps, inst.nbl, K1A_FLOPS)
+    print("north-star K1a time: %.4f ms per launch = %.4e complex MAC/s; "
+          "bound %.4f ms (%s; %d of %d sources above the horizon)"
+          % (k1a_ms, float(seh.shape[0]) * inst.nbl * inst.nchan
+             / (k1a_ms / 1e3), k1a_bd["bound_ms"], k1a_bd["bound_by"],
+             k1a_bd["live"], seh.shape[0]))
     pick, lens = golden_pick(inst)
     pk = torch.as_tensor(pick, device=cuda)
-    t0 = time.time()
-    v_k = cuda_nudft.nudft_cuda(seh, sel, inst.bl_hi[pk].contiguous(),
-                                inst.bl_lo[pk].contiguous(), amps,
-                                inst.grid_scalars(), inst.nchan)
-    torch.cuda.synchronize()
-    print("north-star K1a on %d bl x %d ch x %d sources: %.2f s"
-          % (len(pick), inst.nchan, seh.shape[0], time.time() - t0))
-    assert bool(torch.isfinite(v_k).all())
     coherent = float(amps.abs().sum(dim=0).max())
-    _, g_rel_v = k1a_vs_golden("north-star K1a", inst, seh, sel, amps, v_k,
-                               pick, lens, coherent)
+    _, g_rel_v = k1a_vs_golden("north-star K1a", inst, seh, sel, amps,
+                               v_k[pk], pick, lens, coherent)
     if not g_rel_v < BAR:
         raise SystemExit("north-star K1a disagrees with the golden: %.3e "
                          "(bar %.0e)" % (g_rel_v, BAR))
+    return dict(k2_ms=t_k, k2_bound=k2_bd, k1a_ms=k1a_ms, k1a_bound=k1a_bd)
 
 
 def joined(hi, lo):
@@ -551,8 +655,14 @@ def mode_phase(label, sim, cuda, gradient, shaped):
     print("%s   time: %.4f ms (runs %.4f, %.4f) = %.4e complex MAC/s"
           % (label, ms_k, runs[1], runs[2], macs / (ms_k / 1e3)))
     print("plain time: %.4f ms (runs %.4f, %.4f)" % (ms_p, runs[0], runs[3]))
+    bd = (nudft_bound(amps, B, K1B_FLOPS, out_planes=4, extra_bytes=S * 12)
+          if gradient else nudft_bound(amps, B, K1C_FLOPS,
+                                       extra_bytes=S * 16))
+    print("%s bound: %.4f ms (%s; %d of %d sources above the horizon)"
+          % (label, bd["bound_ms"], bd["bound_by"], bd["live"], S))
     return dict(out=[x.cpu().numpy() for x in out_k], max_abs_err=max_abs,
-                ms=ms_k, plain_ms=ms_p)
+                ms=ms_k, plain_ms=ms_p, bound_ms=bd["bound_ms"],
+                bound_by=bd["bound_by"])
 
 
 def both_modes_small(sim, cuda, n_src=4096, n_bl=32):
@@ -675,8 +785,11 @@ def northstar_k1c_phase(prefix, cuda):
     ms = cuda_time_ms(lambda: cuda_nudft.nudft_cuda(*args, **kw), n=1,
                       warm=False)
     S = seh.shape[0]
-    print("north-star K1c time: %.4f ms per snapshot = %.4e complex MAC/s"
-          % (ms, float(S) * inst.nbl * inst.nchan / (ms / 1e3)))
+    bd = nudft_bound(amps, inst.nbl, K1C_FLOPS, extra_bytes=S * 16)
+    print("north-star K1c time: %.4f ms per snapshot = %.4e complex MAC/s; "
+          "bound %.4f ms (%s; %d of %d sources above the horizon)"
+          % (ms, float(S) * inst.nbl * inst.nchan / (ms / 1e3),
+             bd["bound_ms"], bd["bound_by"], bd["live"], S))
     pick, lens = golden_pick(inst)
     pk = torch.as_tensor(pick, device=cuda)
     blh, bll = inst.bl_hi[pk].contiguous(), inst.bl_lo[pk].contiguous()
@@ -812,7 +925,7 @@ def main():
     print("[banded slice phase: %.2f s]" % (time.time() - t0))
 
     t0 = time.time()
-    northstar_phase(cuda)
+    ns = northstar_phase(cuda)
     print("[north-star phase: %.2f s]" % (time.time() - t0))
 
     grad = slice_parms(out_root, have_h5py, "auto", "hera37_usm64_gradient",
@@ -862,27 +975,34 @@ def main():
     print("[north-star K1c phase: %.2f s]" % (time.time() - t0))
 
     print(smi)
+    for label, ms, bd in (
+            ("K1a, slice snapshot", k["ms"], k),
+            ("K1a, north-star launch", ns["k1a_ms"], ns["k1a_bound"]),
+            ("K2, slice snapshot", k2["ms"], k2),
+            ("K2, north-star snapshot", ns["k2_ms"], ns["k2_bound"])):
+        print("roofline share of %s: bound %.4f ms (%s) / %.4f ms = %.4f, "
+              "against the data-sheet peaks (FP64 %.0f TFLOP/s, FP64 tensor "
+              "%.0f TFLOP/s, HBM %.2f TB/s), on %s"
+              % (label, bd["bound_ms"], bd["bound_by"], ms,
+                 bd["bound_ms"] / ms, FP64_FLOPS / 1e12, FP64_TC_FLOPS / 1e12,
+                 HBM_BPS / 1e12, smi))
+
+    def row(name, source, replaces, launches, nums):
+        return dict(name=name, route="cuda", source=source, replaces=replaces,
+                    launches=launches, max_abs_err=nums["max_abs_err"],
+                    ms=nums["ms"], plain_ms=nums["plain_ms"],
+                    bound_ms=nums["bound_ms"], bound_by=nums["bound_by"],
+                    library_ms=None)
+
     print(json.dumps({"kernels": [
-        {"name": "nudft_k1a", "route": "cuda",
-         "source": cuda_nudft.KERNEL_SOURCE,
-         "replaces": cuda_nudft.TPU_KERNEL, "launches": k1a_launches,
-         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-         "plain_ms": k["plain_ms"]},
-        {"name": "nudft_k1b", "route": "cuda",
-         "source": cuda_nudft.KERNEL_SOURCE,
-         "replaces": cuda_nudft.TPU_KERNEL_GRAD, "launches": k1b_launches,
-         "max_abs_err": k1b["max_abs_err"], "ms": k1b["ms"],
-         "plain_ms": k1b["plain_ms"]},
-        {"name": "nudft_k1c", "route": "cuda",
-         "source": cuda_nudft.KERNEL_SOURCE,
-         "replaces": cuda_nudft.TPU_KERNEL_EXT, "launches": k1c_launches,
-         "max_abs_err": k1c["max_abs_err"], "ms": k1c["ms"],
-         "plain_ms": k1c["plain_ms"]},
-        {"name": "banded_k2", "route": "cuda",
-         "source": cuda_banded.KERNEL_SOURCE,
-         "replaces": cuda_banded.TPU_KERNEL, "launches": k2_launches,
-         "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
-         "plain_ms": k2["plain_ms"]}]}))
+        row("nudft_k1a", cuda_nudft.KERNEL_SOURCE, cuda_nudft.TPU_KERNEL,
+            k1a_launches, k),
+        row("nudft_k1b", cuda_nudft.KERNEL_SOURCE, cuda_nudft.TPU_KERNEL_GRAD,
+            k1b_launches, k1b),
+        row("nudft_k1c", cuda_nudft.KERNEL_SOURCE, cuda_nudft.TPU_KERNEL_EXT,
+            k1c_launches, k1c),
+        row("banded_k2", cuda_banded.KERNEL_SOURCE, cuda_banded.TPU_KERNEL,
+            k2_launches, k2)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

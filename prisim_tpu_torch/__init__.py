@@ -3,9 +3,9 @@
 The simulator's direct-engine drift-scan path on torch tensors, with the
 NUDFT kernel written by hand in CUDA C++ for the NVIDIA H100 (sm_90a).
 The JAX package prisim_tpu is the reference it is held against; this
-package never imports jax, and imports only prisim_tpu's jax-free host
-modules (constants, layouts, baselines, healpix, ephemeris, skymodel,
-gains).
+package imports neither jax nor anything of prisim_tpu: it keeps its own
+copies of the numpy host modules (constants, layouts, baselines, healpix,
+ephemeris, skymodel, gains). Only the tests import both packages.
 
 Entry points (lazy: importing the package imports nothing heavy):
 

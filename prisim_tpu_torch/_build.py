@@ -8,8 +8,11 @@ into a shared library with a plain C interface that ctypes loads:
 
 The library is cached in build/kernels/ (at the repository root) under a
 hash of every csrc/ source and the flags, so a changed source rebuilds
-and an unchanged one loads at once. The ptxas report (registers, shared
-memory, spills) is kept beside the library. There is no fallback: a
+and an unchanged one loads at once. The environment variable
+PRISIM_KERNEL_DEFINES (comma-separated names, read at the first load)
+adds a -D flag for each, and so a library of its own: profile_banded.py
+--phase-clocks sets PRISIM_PHASE_CLOCKS. The ptxas report (registers,
+shared memory, spills) is kept beside the library. There is no fallback: a
 missing nvcc or a failed build raises.
 """
 
@@ -44,8 +47,13 @@ def _nvcc():
     return path
 
 
-def _source_hash():
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _flags():
+    defines = os.environ.get("PRISIM_KERNEL_DEFINES", "")
+    return NVCC_FLAGS + ["-D" + d for d in defines.split(",") if d]
+
+
+def _source_hash(flags):
+    h = hashlib.sha256(" ".join(flags).encode())
     for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -59,15 +67,16 @@ def load_kernel_library(name):
     src = CSRC / (name + ".cu")
     if not src.exists():
         raise FileNotFoundError(src)
+    flags = _flags()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib_path = BUILD_DIR / ("%s-%s.so" % (name, _source_hash()))
+    lib_path = BUILD_DIR / ("%s-%s.so" % (name, _source_hash(flags)))
     log_path = lib_path.with_suffix(".log")
     built = False
     t0 = time.time()
     if not lib_path.exists():
         tmp = lib_path.with_name("%s.%d.tmp" % (lib_path.name, os.getpid()))
-        cmd = [_nvcc()] + NVCC_FLAGS + ["-I", str(CSRC), "-o", str(tmp),
-                                        str(src)]
+        cmd = [_nvcc()] + flags + ["-I", str(CSRC), "-o", str(tmp),
+                                   str(src)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError("nvcc failed (%d) for %s:\n%s%s"

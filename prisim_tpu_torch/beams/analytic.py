@@ -16,7 +16,7 @@ import functools
 import numpy as np
 import torch
 
-from prisim_tpu import constants as CNST
+from .. import constants as CNST
 
 __all__ = ["bessel_j1", "airy_beam", "airy_beam_df", "airy_df_available",
            "gaussian_beam"]

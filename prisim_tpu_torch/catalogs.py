@@ -1,14 +1,12 @@
 """Survey catalog readers: SUMSS, NVSS, GLEAM, MWACS and DSM/GSM per-pixel
 FITS tables.
 
-Counterpart of prisim_tpu/catalogs.py, which is jax-free at module level
-but whose FITS readers import prisim_tpu.io.fitsio, and with it
-prisim_tpu/io/__init__.py, which imports jax. The text readers (SUMSS,
-MWACS), the flux cut and the power-law model builder need no FITS and are
-prisim_tpu's own; the FITS readers are rewritten here on the port's
-jax-free io.fitsio, with the same formats and results. Each reader
-returns a prisim_tpu SkyModel (power-law spectra, extended-source shapes
-where cataloged)."""
+Counterpart of prisim_tpu/catalogs.py. The text readers (SUMSS, MWACS),
+the flux cut and the power-law model builder are copies of its own; the
+FITS readers are rewritten on the port's jax-free io.fitsio, with the
+same formats and results. The port imports nothing of prisim_tpu. Each
+reader returns the port's SkyModel (power-law spectra, extended-source
+shapes where cataloged)."""
 
 from __future__ import annotations
 
@@ -16,15 +14,106 @@ import os
 
 import numpy as np
 
-from prisim_tpu import constants as CNST
-from prisim_tpu import healpix as hp
-from prisim_tpu.catalogs import (_draw_spindex, _powerlaw_model, flux_cut,
-                                 read_mwacs, read_sumss)
-
+from . import constants as CNST
+from . import healpix as hp
 from .io import fitsio
+from .skymodel import SkyModel
 
 __all__ = ["read_sumss", "read_nvss", "read_gleam", "read_mwacs",
            "read_dsm_fits", "write_dsm_fits", "flux_cut"]
+
+
+def _powerlaw_model(ra, dec, flux, freq_ref, spindex, src_shape=None,
+                    name="catalog"):
+    n = np.asarray(ra).size
+    return SkyModel(
+        location=np.stack([np.asarray(ra, dtype=np.float64),
+                           np.asarray(dec, dtype=np.float64)], axis=-1),
+        spec_kind="power-law",
+        spec_parms={"flux-scale": np.asarray(flux, dtype=np.float64),
+                    "freq-ref": np.broadcast_to(
+                        np.asarray(freq_ref, dtype=np.float64), (n,)
+                    ).copy(),
+                    "power-law-index": np.asarray(spindex,
+                                                  dtype=np.float64)},
+        src_shape=src_shape, name=name)
+
+
+def _draw_spindex(n, mean=-0.83, rms=0.0, seed=None):
+    if rms <= 0:
+        return np.full(n, mean)
+    rng = np.random.RandomState(seed)
+    return mean + rms * rng.randn(n)
+
+
+def flux_cut(sm, flux_min=None, flux_max=None, cut_freq=None):
+    """Flux-density cuts evaluated at cut_freq (Hz) via each source's
+    power law (the fluxcut_min/max/fluxcut_reffreq logic,
+    run_prisim.py:1129-1210)."""
+    p = sm.spec_parms
+    flux = np.asarray(p["flux-scale"], dtype=np.float64)
+    fref = np.asarray(p["freq-ref"], dtype=np.float64)
+    alpha = np.asarray(p["power-law-index"], dtype=np.float64)
+    if cut_freq is None:
+        s_at = flux
+    else:
+        s_at = flux * (float(cut_freq) / fref) ** alpha
+    keep = np.ones(flux.size, dtype=bool)
+    if flux_min is not None:
+        keep &= s_at >= float(flux_min)
+    if flux_max is not None:
+        keep &= s_at <= float(flux_max)
+    if not keep.any():
+        raise IndexError("no sources satisfy the flux threshold criteria")
+    return sm.subset(np.where(keep)[0])
+
+
+def read_sumss(path, spindex_mean=-0.83, spindex_rms=0.0,
+               spindex_seed=None, point_sources_only=True):
+    """SUMSS text catalog (sumsscat.*.txt): sexagesimal RA/dec in cols
+    0-5, integrated flux (mJy) in col 10, fitted/deconvolved axes in
+    cols 12-16; 843 MHz (run_prisim.py:1113-1166)."""
+    cat = np.loadtxt(path, usecols=(0, 1, 2, 3, 4, 5, 10, 12, 13, 14,
+                                    15, 16))
+    cat = np.atleast_2d(cat)
+    ra = 15.0 * (cat[:, 0] + cat[:, 1] / 60.0 + cat[:, 2] / 3600.0)
+    dec_dd = np.loadtxt(path, usecols=(3,), dtype=str, ndmin=1)
+    sgn = np.where(np.char.startswith(dec_dd, "-"), -1.0, 1.0)
+    dec = sgn * (np.abs(cat[:, 3]) + cat[:, 4] / 60.0
+                 + cat[:, 5] / 3600.0)
+    flux = cat[:, 6] * 1e-3                       # mJy -> Jy
+    dmaj, dmin = cat[:, 10], cat[:, 11]
+    if point_sources_only:
+        keep = (dmaj == 0.0) & (dmin == 0.0)
+        ra, dec, flux = ra[keep], dec[keep], flux[keep]
+    spindex = _draw_spindex(flux.size, spindex_mean, spindex_rms,
+                            spindex_seed)
+    return _powerlaw_model(ra, dec, flux, 0.843e9, spindex, name="SUMSS")
+
+
+def read_mwacs(path, spindex_mean=-0.83, spindex_rms=0.0,
+               spindex_seed=None):
+    """MWACS csv catalog (mwacs_b1_131016.csv): comma/pipe-separated
+    columns with RA/dec (deg) and S_180 flux (run_prisim.py MWACS
+    branch). Accepts 'ra,dec,flux[,spindex]' ordering."""
+    rows = []
+    with open(path) as f:
+        for ln in f:
+            ln = ln.strip()
+            if not ln or ln.startswith("#") or ln[0].isalpha():
+                continue
+            parts = ln.replace("|", ",").split(",")
+            try:
+                rows.append([float(x) if x.strip() else np.nan
+                             for x in parts[:4]])
+            except ValueError:
+                continue
+    data = np.asarray([r + [np.nan] * (4 - len(r)) for r in rows])
+    ra, dec, flux = data[:, 0], data[:, 1], data[:, 2]
+    spindex = np.where(np.isfinite(data[:, 3]), data[:, 3],
+                       _draw_spindex(ra.size, spindex_mean, spindex_rms,
+                                     spindex_seed))
+    return _powerlaw_model(ra, dec, flux, 180e6, spindex, name="MWACS")
 
 
 def _fits_table_columns(path):

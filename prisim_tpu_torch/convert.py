@@ -21,7 +21,7 @@ def _f32(x, device):
                            device=device)
 
 
-def instrument_from_numpy(bl_hi, bl_lo, freqs, device="cpu", **meta):
+def instrument_from_numpy(bl_hi, bl_lo, freqs, device="cuda", **meta):
     """Instrument from two-float baselines (B, 3) and host freqs (C,);
     `meta` takes the remaining Instrument fields (telescope, latitude,
     longitude, altitude, A_eff, eff_Q)."""
@@ -29,7 +29,7 @@ def instrument_from_numpy(bl_hi, bl_lo, freqs, device="cpu", **meta):
                       np.asarray(freqs, dtype=np.float64), **meta)
 
 
-def sky_from_numpy(s_eq_hi, s_eq_lo, flux, device="cpu",
+def sky_from_numpy(s_eq_hi, s_eq_lo, flux, device="cuda",
                    src_shape_sigma=None):
     """SkySources from two-float unit vectors (S, 3), the (S, C) spectrum
     and, for extended sources, the (S,) uv-plane gaussian sigmas (inf for

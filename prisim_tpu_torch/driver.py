@@ -35,16 +35,14 @@ import time
 import numpy as np
 import torch
 
-from prisim_tpu import healpix as hp
-from prisim_tpu.baselines import build_baselines
-from prisim_tpu.gains import GainInfo, apply_gains
-from prisim_tpu.layouts import ArrayLayout, parse_layout_file, preset_layout
-from prisim_tpu.skymodel import (SkyModel, healpix_diffuse_model,
-                                 random_point_source_model,
-                                 tanh_eor_spectrum,
-                                 temperature_to_jy_per_pixel)
-
 from . import __version__
+from . import healpix as hp
+from .baselines import build_baselines
+from .gains import GainInfo, apply_gains
+from .layouts import ArrayLayout, parse_layout_file, preset_layout
+from .skymodel import (SkyModel, healpix_diffuse_model,
+                       random_point_source_model, tanh_eor_spectrum,
+                       temperature_to_jy_per_pixel)
 from . import catalogs as CATS
 from . import geometry as geom
 from . import windows as win
@@ -143,7 +141,7 @@ def _jd_init_from_obs_date(parms, lst_init_deg, longitude):
     obsparm.obs_date (UT, 'YYYY/MM/DD') at which the local sidereal time
     equals lst_init (the reference's julian_date_from_LAST flow,
     run_prisim.py:661-667)."""
-    from prisim_tpu import ephemeris as eph
+    from . import ephemeris as eph
     date = str(parms["obsparm"].get("obs_date") or "2015/11/23")
     y, m, d = [int(x) for x in date.replace("-", "/").split("/")[:3]]
     jd0 = eph.julian_date(y, m, d)                       # midnight UT
@@ -448,7 +446,7 @@ def precess_sky_to_obs_epoch(sky, parms, obs):
     sky model to the obs epoch once (run_prisim.py:1690-1692) and
     transforms FK5->AltAz per snapshot (interferometry.py:6174-6180).
     J2000->2015 is ~0.2 deg, far outside the 1e-6 visibility budget."""
-    from prisim_tpu import ephemeris as eph
+    from . import ephemeris as eph
     ep = parms["skyparm"].get("epoch")
     if ep is None:
         return sky
@@ -709,7 +707,7 @@ def _make_beam_fn(parms, telescope, freqs):
 class Simulation:
     """Everything a drift scan needs, built from parms on one device."""
     layout: ArrayLayout
-    bls: object                  # prisim_tpu.baselines.BaselineSet
+    bls: object                  # baselines.BaselineSet
     freqs: np.ndarray
     obs: Observation
     telescope: dict

@@ -1,16 +1,21 @@
 """Wrapper of kernel K2, the hand-written CUDA banded spread (csrc/banded.cu).
 
 K2 replaces the TPU kernel prisim_tpu/engine/nufft_banded.py::_sweep_kernel.
-It is output-stationary: each block owns 32 rows x 64 columns of one
-baseline's (R_max, 2r) delay rows and walks that baseline's source stream,
-skipping tiles whose sources cannot reach its rows; sums are float64 (see
-the note at the top of csrc/banded.cu).
+A worklist built on the card lists, for each item (baseline, block of 64
+delay rows), the tiles of 128 sources that can reach it; one block per
+item walks its list, staging each tile's u streams and payload slab in
+shared memory by bulk asynchronous copies, and sums the taps' products on
+the FP64 tensor cores (mma.sync m16n8k8) in float64, one writer per output
+value (see the note at the top of csrc/banded.cu). Sources whose payload
+is all zero (below the horizon) add nothing and are skipped.
 
 `banded_spread_cuda` takes the arguments of
 nufft_banded.banded_spread_plain. A CUDA tensor launches the kernel (or
 raises); a CPU tensor runs the plain version, and only because it lies on
-the CPU. `banded_spread_cuda.launches` counts kernel launches and nothing
-else.
+the CPU. `banded_spread_cuda.launches` counts spread launches and nothing
+else; `banded_spread_cuda.last_counts` keeps the per-item tile counts of
+the last launch. `banded_worklist_cuda` is the worklist alone, held
+against nufft_banded.banded_worklist_plain.
 """
 
 from __future__ import annotations
@@ -23,22 +28,40 @@ import torch
 from .._build import load_kernel_library
 from . import nufft_banded as _nb
 
-__all__ = ["banded_spread_cuda", "KERNEL_SOURCE", "TPU_KERNEL"]
+__all__ = ["banded_spread_cuda", "banded_worklist_cuda", "KERNEL_SOURCE",
+           "TPU_KERNEL"]
 
 KERNEL_SOURCE = "prisim_tpu_torch/csrc/banded.cu"
 TPU_KERNEL = "prisim_tpu/engine/nufft_banded.py:319"
 
-_TILE = 128            # sources per tile in the kernel (kST)
+_P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
+_MAX_SPLIT = 8         # most splits of an item's tile list
+_PITCH = _nb.K2_TILE + 2   # doubles per payload row of a tile (kPitch)
 
 
 @functools.cache
 def _library():
     """The K2 library, built or loaded, with its argument types bound."""
     lib = load_kernel_library("banded")
-    fn = lib.prisim_banded_k2
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
-                   + [ctypes.c_float] * 4 + [ctypes.c_double, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    lib.prisim_banded_k2_count.argtypes = ([_P] * 9 + [_I] * 6
+                                           + [_D, _P])
+    lib.prisim_banded_k2_fill.argtypes = [_P] * 8 + [_I] * 5 + [_D, _P]
+    lib.prisim_banded_k2.argtypes = ([_P] * 15 + [_I] * 7 + [_F] * 4
+                                     + [_I, _P])
+    lib.prisim_banded_k2_blocks_per_sm.argtypes = [_I, _I]
+    lib.prisim_banded_k2_blocks_per_sm.restype = ctypes.c_int
+    for fn in (lib.prisim_banded_k2_count, lib.prisim_banded_k2_fill,
+               lib.prisim_banded_k2):
+        fn.restype = ctypes.c_int
+    for fn in (lib.prisim_banded_k2_rows_per_item, lib.prisim_banded_k2_tile,
+               lib.prisim_banded_k2_pitch):
+        fn.argtypes = []
+        fn.restype = ctypes.c_int
+    if (lib.prisim_banded_k2_rows_per_item() != _nb.K2_ROWS
+            or lib.prisim_banded_k2_tile() != _nb.K2_TILE
+            or lib.prisim_banded_k2_pitch() != _PITCH):
+        raise RuntimeError("csrc/banded.cu and the wrapper disagree on "
+                           "K2_ROWS/K2_TILE/the payload pitch")
     return lib
 
 
@@ -64,10 +87,100 @@ def _check_inputs(plan, u_h, u_l, P_r):
                              % (name, t.device, P_r.device))
 
 
-# K2's per-baseline tables and tap polynomials, in its argument order
-_TABLES = (("blen_hi", torch.float32), ("blen_lo", torch.float32),
-           ("d_of_b", torch.int32), ("blk_lo", torch.int32),
-           ("n_blk", torch.int32), ("tap_w", torch.float64))
+def _tiled(plan, u_h, u_l, P_r):
+    """Streams padded to whole tiles (u = 3 and zero payload past S; a
+    no-op for _prep's output, whose S_pad is a multiple of the tile), the
+    payload in float64, and the live flags (S_t,) uint8 of the sources
+    whose payload is not all zero. Each is contiguous and 16-byte
+    aligned, as the kernel's bulk copies need."""
+    D, S = plan.ndir, P_r.shape[1]
+    S_t = -(-S // _nb.K2_TILE) * _nb.K2_TILE
+    P64 = P_r.to(torch.float64)
+    uh, ul = u_h.reshape(D, S), u_l.reshape(D, S)
+    if S_t != S:
+        uh = torch.nn.functional.pad(uh, (0, S_t - S), value=_nb._PAD_U)
+        ul = torch.nn.functional.pad(ul, (0, S_t - S))
+        P64 = torch.nn.functional.pad(P64, (0, S_t - S))
+    live = (P64 != 0).any(dim=0).to(torch.uint8)
+
+    def aligned(t):
+        t = t.contiguous()
+        return t if t.data_ptr() % 16 == 0 else t.clone()
+
+    return aligned(uh), aligned(ul), aligned(P64), live, S_t
+
+
+def _tile_major(P64):
+    """The payload (r, S_t) as K2 copies it: (S_t / K2_TILE, r, _PITCH)
+    float64, tile by tile, each row padded with zeros to _PITCH."""
+    r, S_t = P64.shape
+    n_t = S_t // _nb.K2_TILE
+    P_t = torch.zeros((n_t, r, _PITCH), dtype=torch.float64, device=P64.device)
+    P_t[:, :, :_nb.K2_TILE] = P64.reshape(r, n_t, _nb.K2_TILE).transpose(0, 1)
+    return P_t
+
+
+def _tables(plan, dev):
+    return [plan.tensor(name, dev, dt) for name, dt in (
+        ("blen_hi", torch.float32), ("blen_lo", torch.float32),
+        ("d_of_b", torch.int32), ("blk_lo", torch.int32),
+        ("n_blk", torch.int32))]
+
+
+def spread_splits(n_live, longest, slots, max_split=_MAX_SPLIT):
+    """How many blocks share each item's tile list: the n <= max_split
+    whose estimated time, the waves of n_live * n blocks over the card's
+    `slots` (SMs x blocks per SM) times the longest share ceil(longest /
+    n) in tiles, beats every smaller n's by more than 10%; 1 when the
+    live items fill the card."""
+    best, best_t = 1, -(-n_live // slots) * longest
+    for n in range(2, max_split + 1):
+        t = -(-n_live * n // slots) * -(-longest // n)
+        if t < 0.9 * best_t:
+            best, best_t = n, t
+    return best
+
+
+def _worklist(lib, plan, uh, live, S_t, stream):
+    """Passes 1-3 on the card: (urange, counts, offsets, tiles) and the
+    host ints (live items, longest list)."""
+    dev = uh.device
+    B, D, K = plan.nbl, plan.ndir, plan.K
+    n_rb = -(-plan.R_max // _nb.K2_ROWS)
+    inv_ch = float(plan.consts["inv_ch"])
+    tabs = [t.data_ptr() for t in _tables(plan, dev)]
+    urange = torch.empty((D, S_t // _nb.K2_TILE, 2), dtype=torch.float32,
+                         device=dev)
+    counts = torch.empty((B * n_rb,), dtype=torch.int32, device=dev)
+    err = lib.prisim_banded_k2_count(
+        uh.data_ptr(), live.data_ptr(), *tabs, urange.data_ptr(),
+        counts.data_ptr(), D, S_t, B, n_rb, K, plan.G_blk, inv_ch, stream)
+    if err != 0:
+        raise RuntimeError("K2 worklist count failed with cudaError_t %d"
+                           % err)
+    offsets = (torch.cumsum(counts, 0) - counts).to(torch.int32)
+    total, n_live, longest = torch.stack(
+        [counts.sum(), (counts > 0).sum(), counts.max()]).tolist()
+    tiles = torch.empty((max(total, 1),), dtype=torch.int32, device=dev)
+    err = lib.prisim_banded_k2_fill(
+        urange.data_ptr(), *tabs, offsets.data_ptr(), tiles.data_ptr(), S_t,
+        B, n_rb, K, plan.G_blk, inv_ch, stream)
+    if err != 0:
+        raise RuntimeError("K2 worklist fill failed with cudaError_t %d" % err)
+    return urange, counts, offsets, tiles[:total], (n_live, longest)
+
+
+def banded_worklist_cuda(plan, u_h, u_l, P_r):
+    """K2's worklist of these inputs: (urange, counts, offsets, tiles) as
+    nufft_banded.banded_worklist_plain returns them; the plain version on
+    CPU tensors."""
+    _check_inputs(plan, u_h, u_l, P_r)
+    uh, _, _, live, S_t = _tiled(plan, u_h, u_l, P_r)
+    if P_r.device.type == "cpu":
+        return _nb.banded_worklist_plain(plan, uh.reshape(-1), live)
+    with torch.cuda.device(P_r.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        return _worklist(_library(), plan, uh, live, S_t, stream)[:4]
 
 
 def banded_spread_cuda(plan, u_h, u_l, P_r):
@@ -83,29 +196,47 @@ def banded_spread_cuda(plan, u_h, u_l, P_r):
         raise ValueError("banded_spread_cuda runs on CUDA or CPU tensors, "
                          "got %s" % P_r.device)
     dev = P_r.device
-    B, r, R, D = plan.nbl, plan.rank, plan.R_max, plan.ndir
-    S = P_r.shape[1]
-    tables = [plan.tensor(name, dev, dt) for name, dt in _TABLES]
-    P64 = P_r.to(torch.float64).contiguous()
-    urange = torch.empty((D, -(-S // _TILE), 2), dtype=torch.float32,
-                         device=dev)
-    out = torch.empty((B, R, 2 * r), dtype=torch.float64, device=dev)
+    B, r, R = plan.nbl, plan.rank, plan.R_max
+    uh, ul, P64, live, S_t = _tiled(plan, u_h, u_l, P_r)
     ivh, ivl = _nb._split(plan.consts["inv_ch"])
     nmh, nml = _nb._split(plan.consts["numid_c"])
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
+        _, counts, offsets, tiles, (n_live, longest) = _worklist(
+            lib, plan, uh, live, S_t, stream)
+        per_sm = lib.prisim_banded_k2_blocks_per_sm(r, plan.K)
+        if per_sm < 1:
+            raise RuntimeError("K2 does not fit on an SM (r=%d, K=%d)"
+                               % (r, plan.K))
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        n_cols = -(-2 * r // 64)
+        n_split = spread_splits(max(n_live, 1) * n_cols, max(longest, 1),
+                                n_sm * per_sm)
+        part = torch.empty((n_split, B, R, 2 * r), dtype=torch.float64,
+                           device=dev)
+        # the items with the longest lists first, so that the tail is short
+        order = torch.argsort(counts, descending=True, stable=True).to(
+            torch.int32)
+        tabs = [t.data_ptr() for t in _tables(plan, dev)]
+        tap_w = plan.tensor("tap_w", dev, torch.float64)
+        P_t = _tile_major(P64)
         err = lib.prisim_banded_k2(
-            u_h.data_ptr(), u_l.data_ptr(), P64.data_ptr(),
-            *(t.data_ptr() for t in tables), urange.data_ptr(),
-            out.data_ptr(), D, S, B, R, r, plan.K, plan.tap_w.shape[1],
-            plan.G_blk,
-            float(ivh), float(ivl), float(nmh), float(nml),
-            float(plan.consts["inv_ch"]), stream)
-    if err != 0:
-        raise RuntimeError("K2 launch failed with cudaError_t %d" % err)
+            uh.data_ptr(), ul.data_ptr(), P_t.data_ptr(), live.data_ptr(),
+            *tabs, tap_w.data_ptr(), order.data_ptr(), counts.data_ptr(),
+            offsets.data_ptr(), tiles.data_ptr(), part.data_ptr(), S_t, B, R,
+            r, plan.K, tap_w.shape[1], plan.G_blk,
+            float(ivh), float(ivl), float(nmh), float(nml), n_split, stream)
+        if err != 0:
+            raise RuntimeError("K2 launch failed with cudaError_t %d" % err)
+        # the splits' partial rows, added in split order
+        out = part[0] if n_split == 1 else part.sum(dim=0)
     banded_spread_cuda.launches += 1
+    banded_spread_cuda.last_counts = counts
+    banded_spread_cuda.last_splits = n_split
     return out
 
 
 banded_spread_cuda.launches = 0
+banded_spread_cuda.last_counts = None
+banded_spread_cuda.last_splits = None

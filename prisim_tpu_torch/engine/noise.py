@@ -17,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from prisim_tpu import constants as CNST
+from .. import constants as CNST
 
 __all__ = ["thermal_noise_rms", "generate_noise"]
 

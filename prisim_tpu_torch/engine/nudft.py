@@ -15,7 +15,10 @@ structure is that of prisim_tpu/engine/nudft.py:
 * the cycle count nu (s.b)/c is two-float (see ../twofloat.py), reduced
   mod 1 exactly;
 * U.W factorization: with c = q L + r, the phasor is U[s,b,q] W[s,b,r],
-  so only S B (Q + L) phasors are evaluated;
+  so only S B (Q + L) phasors are evaluated; for point sources (K1a)
+  they come from float64 anchored rotations, as in kernel K1a: along
+  chains of `anchor` steps only the first phasor and the step phasor are
+  evaluated, the others are products by the step (`_phasors_rot`);
 * sources stream in blocks of `src_block`; the weights and the gradient
   moments are taken per coarse group q, so no (src_block, B, C) table is
   built.
@@ -40,11 +43,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from prisim_tpu import constants as CNST
+from .. import constants as CNST
 from .. import twofloat as tf
 
 __all__ = ["nudft_visibilities", "nudft_reference_f64", "freq_grid_scalars",
-           "choose_ql", "ext_alpha", "ext_chan_scale"]
+           "choose_ql", "ext_alpha", "ext_chan_scale", "ANCHOR"]
+
+# K1a's phasor chain length (anchor period), set by measurement
+# (profile_banded.py --k1a-anchors, PERF.md): at 4, 8, 16 and 32 the
+# error against the f64 golden is the same, and 16 is the fastest. In
+# float64 a chain of 16 products drifts by ~1e-15.
+ANCHOR = 16
 
 
 def freq_grid_scalars(nu0, dnu):
@@ -110,8 +119,32 @@ def _phasors(p0h, p0l, dh, dl, steps):
     return torch.cos(ang), -torch.sin(ang)
 
 
+def _phasors_rot(p0h, p0l, dh, dl, n, stride, start, anchor):
+    """Phasors e^{-2 pi i frac(p0 + (start + m stride) d)} for m < n by
+    anchored rotations: the anchors m = 0, anchor, 2 anchor, ... and the
+    step e^{-2 pi i stride d} by _phasors, the phasors between them by
+    complex products with the step in float64, each product rounded as
+    kernel K1a rounds it ((x.re y.re - x.im y.im, x.re y.im + x.im y.re)).
+    Returns float64 (cos, -sin), each (S, B, n)."""
+    dev = p0h.device
+    steps = (torch.arange(0, n, anchor, dtype=torch.float32, device=dev)
+             * float(stride) + float(start))
+    xc, xs = _phasors(p0h, p0l, dh, dl, steps)                 # (S, B, nA)
+    zero = torch.zeros_like(p0h)
+    rc, rs = _phasors(zero, zero, dh, dl, torch.tensor(
+        [float(stride)], dtype=torch.float32, device=dev))     # (S, B, 1)
+    cs, ss = [xc], [xs]
+    for _ in range(1, min(anchor, n)):
+        xc, xs = xc * rc - xs * rs, xc * rs + xs * rc
+        cs.append(xc)
+        ss.append(xs)
+    S, B = p0h.shape
+    return tuple(torch.stack(v, dim=-1).reshape(S, B, -1)[..., :n]
+                 for v in (cs, ss))
+
+
 def _source_block_vis(seh, sel, blh, bll, amps, g, Q, L, chan0, s_sky=None,
-                      alpha=None, k2=None):
+                      alpha=None, k2=None, anchor=None):
     """Visibility contribution of one source block: float64 (re, im),
     each (B, Q*L), and when s_sky is given the moments (re, im), each
     (3, B, Q*L).
@@ -122,7 +155,9 @@ def _source_block_vis(seh, sel, blh, bll, amps, g, Q, L, chan0, s_sky=None,
     g:       (g0h, g0l, gdh, gdl) float32 0-d tensors
     s_sky:   (S, 3) float32 sky directions, for the gradient moments
     alpha:   (S, B) float32 ext_alpha, with k2 (Q*L,) float32
-             ext_chan_scale: the gaussian weight exp(-alpha k2)"""
+             ext_chan_scale: the gaussian weight exp(-alpha k2)
+    anchor:  chain length of anchored rotations for U and W (None: every
+             phasor evaluated)"""
     g0h, g0l, gdh, gdl = g
     kh, kl = tf.df_dot3(seh[:, None, :], sel[:, None, :],
                         blh[None, :, :], bll[None, :, :])      # (S, B) m
@@ -130,12 +165,16 @@ def _source_block_vis(seh, sel, blh, bll, amps, g, Q, L, chan0, s_sky=None,
     dh, dl = tf.df_frac(*tf.df_mul(kh, kl, gdh, gdl))
     S, B = kh.shape
     dev = seh.device
-    q_steps = (torch.arange(Q, dtype=torch.float32, device=dev) * float(L)
-               + float(chan0))
-    r_steps = torch.arange(L, dtype=torch.float32, device=dev)
-    Uc, Us = _phasors(p0h, p0l, dh, dl, q_steps)                # (S, B, Q)
     zero = torch.zeros_like(p0h)
-    Wc, Ws = _phasors(zero, zero, dh, dl, r_steps)              # (S, B, L)
+    if anchor:
+        Uc, Us = _phasors_rot(p0h, p0l, dh, dl, Q, L, chan0, anchor)
+        Wc, Ws = _phasors_rot(zero, zero, dh, dl, L, 1, 0, anchor)
+    else:
+        q_steps = (torch.arange(Q, dtype=torch.float32, device=dev)
+                   * float(L) + float(chan0))
+        r_steps = torch.arange(L, dtype=torch.float32, device=dev)
+        Uc, Us = _phasors(p0h, p0l, dh, dl, q_steps)            # (S, B, Q)
+        Wc, Ws = _phasors(zero, zero, dh, dl, r_steps)          # (S, B, L)
     A = amps.double().reshape(S, Q, L)
     gradient = s_sky is not None
     nrow = 8 if gradient else 2
@@ -164,7 +203,7 @@ def _source_block_vis(seh, sel, blh, bll, amps, g, Q, L, chan0, s_sky=None,
 
 def nudft_visibilities(seh, sel, blh, bll, amps, grid_scalars, nchan,
                        chan0=0, src_shape_sigma=None, s_sky=None,
-                       src_block=512, gradient=False):
+                       src_block=512, gradient=False, anchor=ANCHOR):
     """Full NUDFT over all sources, streamed in source blocks.
 
     seh/sel : (S, 3) float32 two-float effective dircos (s_hat - pc_hat)
@@ -176,6 +215,9 @@ def nudft_visibilities(seh, sel, blh, bll, amps, grid_scalars, nchan,
     s_sky   : (S, 3) float32 rotated sky directions (ENU)
     gradient: also return the moments G_k = sum_s s_sky,k A w E; needs
         s_sky
+    anchor  : for point sources (no sigma, no moments), the chain length
+        of K1a's anchored rotations (None or 0: every phasor evaluated,
+        as K1b and K1c do)
     Returns complex64 (B, nchan) on the device of the inputs, and with
     `gradient` also the complex64 (3, B, nchan) moments."""
     if (gradient or src_shape_sigma is not None) and s_sky is None:
@@ -194,6 +236,8 @@ def nudft_visibilities(seh, sel, blh, bll, amps, grid_scalars, nchan,
     S = seh.shape[0]
     B = blh.shape[0]
     nout = 4 if gradient else 1
+    if gradient or src_shape_sigma is not None:
+        anchor = None
     sr = torch.zeros((nout, B, C_pad), dtype=torch.float64, device=dev)
     si = torch.zeros_like(sr)
     for s0 in range(0, S, int(src_block)):
@@ -203,7 +247,8 @@ def nudft_visibilities(seh, sel, blh, bll, amps, grid_scalars, nchan,
             alpha = ext_alpha(s_sky[sl], src_shape_sigma[sl], blh, bll)
         out = _source_block_vis(
             seh[sl], sel[sl], blh, bll, amps[sl], g, Q, L, chan0,
-            s_sky=s_sky[sl] if gradient else None, alpha=alpha, k2=k2)
+            s_sky=s_sky[sl] if gradient else None, alpha=alpha, k2=k2,
+            anchor=anchor)
         sr[0] += out[0]
         si[0] += out[1]
         if gradient:

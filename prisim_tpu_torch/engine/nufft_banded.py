@@ -40,9 +40,8 @@ from dataclasses import dataclass, field, replace
 import numpy as np
 import torch
 
-from prisim_tpu import constants as CNST
-from prisim_tpu import healpix as hp
-
+from .. import constants as CNST
+from .. import healpix as hp
 from .. import twofloat as tf
 from .nufft_delay import (chebyshev_node_model, kb_fourier, kb_tap_coeffs,
                           spectral_project)
@@ -51,13 +50,19 @@ from .observe import _beam_and_flux, df_rotate3, direct_visibilities
 __all__ = ["make_banded_plan", "BandedPlan", "PlanRejected",
            "group_directions",
            "spatial_permutation", "reorder_sources", "banded_spread_plain",
+           "banded_worklist_plain", "banded_pair_count", "K2_ROWS",
+           "K2_TILE",
            "make_coeff_fn", "make_coeff_fn_truth", "make_banded_snapshot_fns"]
 
 _PAD_U = 3.0            # outside any physical u (|s_eff . b_hat| <= 2)
 _VALID_U = 2.5          # u below this is a source, at or above it a pad
-# Kernel K2 runs one block per 32 output rows of a baseline on grid.y,
-# which holds at most 65535 blocks.
+# Longest per-baseline row range a plan takes (R_max); the port's arrays
+# stay far below it (HERA-331: 840 rows).
 _MAX_ROWS = 65535 * 32
+# Kernel K2's worklist: items of K2_ROWS output rows of one baseline, and
+# tiles of K2_TILE consecutive sources.
+K2_ROWS = 64
+K2_TILE = 128
 
 
 # --------------------------------------------------------------------------
@@ -387,6 +392,86 @@ def banded_spread_plain(plan, u_h, u_l, P_r):
             out.index_add_(0, (first + j).reshape(-1),
                            (w[..., None] * X).reshape(-1, 2 * r))
     return out.reshape(B, R, 2 * r)
+
+
+def banded_worklist_plain(plan, u_h, live):
+    """The plain version of kernel K2's worklist: which source tiles may
+    reach which items (baseline b, block rb of K2_ROWS rows).
+
+    u_h (D*S,) float32 u streams, live (S,) the sources with a nonzero
+    payload; S a multiple of K2_TILE. A tile's first-tap rows are bounded
+    from [min, max] of u over its live sources (u < 2.5), in float64 as
+    the kernel does: floor(|b| u_min / (c h)) - 2 - K//2 - blk_lo G_blk
+    to ceil(|b| u_max / (c h)) + 2 - K//2 - blk_lo G_blk; phi is monotone
+    in u, and rint and the two-float lo part move a row by less than 2.
+    The tile is listed for item (b, rb) when that range meets the first-tap
+    rows [R0 - K + 1, R0 + K2_ROWS - 1] that can put a tap in rows
+    R0 = rb K2_ROWS .. R0 + K2_ROWS - 1, and R0 < n_blk G_blk + K - 1.
+    Returns (urange (D, n_tiles, 2) float32, counts (B n_rb,) int32,
+    offsets (B n_rb,) int32 exclusive scan, tiles int32: item by item, each
+    item's tiles in increasing order)."""
+    dev = u_h.device
+    S = live.numel()
+    D, B, K = plan.ndir, plan.nbl, plan.K
+    n_tiles = S // K2_TILE
+    n_rb = -(-plan.R_max // K2_ROWS)
+    uh = u_h.reshape(D, n_tiles, K2_TILE)
+    ok = live.reshape(1, n_tiles, K2_TILE).bool() & (uh < float(
+        np.float32(_VALID_U)))
+    inf = torch.tensor(float("inf"), dtype=torch.float32, device=dev)
+    lo = torch.where(ok, uh, inf).amin(dim=2)
+    hi = torch.where(ok, uh, -inf).amax(dim=2)
+    dofb = plan.tensor("d_of_b", dev, torch.long)
+    blen = (plan.tensor("blen_hi", dev).double()
+            + plan.tensor("blen_lo", dev).double())[:, None]
+    inv_ch = float(plan.consts["inv_ch"])
+    off = (plan.tensor("blk_lo", dev, torch.float64) * plan.G_blk
+           + K // 2)[:, None]
+    row_lo = torch.floor(blen * lo[dofb].double() * inv_ch) - 2.0 - off
+    row_hi = torch.ceil(blen * hi[dofb].double() * inv_ch) + 2.0 - off
+    valid = (lo <= hi)[dofb]                                   # (B, n_tiles)
+    R0 = torch.arange(n_rb, device=dev, dtype=torch.float64)[None, :] * K2_ROWS
+    own_hi = (plan.tensor("n_blk", dev, torch.float64) * plan.G_blk)[:, None]
+    item_live = R0 < own_hi + K - 1                            # (B, n_rb)
+    reach = (valid[:, None, :] & item_live[:, :, None]
+             & (row_hi[:, None, :] >= R0[:, :, None] - K + 1)
+             & (row_lo[:, None, :] <= R0[:, :, None] + K2_ROWS - 1))
+    reach = reach.reshape(B * n_rb, n_tiles)
+    counts = reach.sum(dim=1).to(torch.int32)
+    offsets = (torch.cumsum(counts, 0) - counts).to(torch.int32)
+    tiles = torch.nonzero(reach)[:, 1].to(torch.int32)
+    urange = torch.stack([lo, hi], dim=-1)
+    return urange, counts, offsets, tiles
+
+
+def banded_pair_count(plan, u_h, u_l, P_r):
+    """The (baseline, source) pairs that kernel K2 spreads for these
+    inputs: a valid source (u_hi < 2.5) with a nonzero payload whose
+    first-tap row, binned as banded_spread_plain bins it, is owned by the
+    baseline. The work K2's bound counts. Returns an int."""
+    dev = P_r.device
+    B, S = plan.nbl, P_r.shape[1]
+    uh = u_h.reshape(plan.ndir, S)
+    ul = u_l.reshape(plan.ndir, S)
+    live = (P_r != 0).any(dim=0)
+    dofb = plan.tensor("d_of_b", dev, torch.long)
+    blh = plan.tensor("blen_hi", dev)[:, None]
+    bll = plan.tensor("blen_lo", dev)[:, None]
+    ivh, ivl = (_f32(v, dev) for v in _split(plan.consts["inv_ch"]))
+    base = (plan.tensor("blk_lo", dev, torch.long) * plan.G_blk
+            + plan.K // 2)[:, None]
+    own_hi = (plan.tensor("n_blk", dev, torch.long) * plan.G_blk)[:, None]
+    n = 0
+    step = max(256, (1 << 26) // max(1, B))
+    for s0 in range(0, S, step):
+        s1 = min(S, s0 + step)
+        uhb = uh[dofb, s0:s1]
+        th, tl = tf.df_mul(blh, bll, uhb, ul[dofb, s0:s1])
+        mown = torch.round(tf.df_mul(th, tl, ivh, ivl)[0]).long() - base
+        keep = (live[None, s0:s1] & (uhb < _VALID_U) & (mown >= 0)
+                & (mown < own_hi))
+        n += int(keep.sum())
+    return n
 
 
 def _spread(plan, u_h, u_l, P_r):

@@ -18,7 +18,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from prisim_tpu import constants as CNST
+from . import constants as CNST
 from . import geometry as geom
 from . import windows as win
 
@@ -202,7 +202,7 @@ def project_baselines(vs, ref_location=None, ref_coords=None):
 
 
 
-def delay_transform(vs, pad=1.0, device="cpu"):
+def delay_transform(vs, pad=1.0, device="cuda"):
     """Windowed IFFT along the frequency axis with zero-padding and
     Fourier downsampling back to nchan lag bins (torch.fft on `device`).
     Returns a new VisibilitySet with lags / *_lag / lag_kernel filled."""

@@ -1,6 +1,8 @@
 """Where the time goes in the banded engine on one CUDA card.
 
     python3 profile_banded.py
+    python3 profile_banded.py --phase-clocks
+    python3 profile_banded.py --k1a-anchors
 
 Runs chip_smoke.py's banded slice (HERA-37, 1024 channels, nside-64 sky,
 4 accumulations, engine: auto, products saved) three times: a warm-up, an
@@ -13,7 +15,22 @@ Only device events (kernels, copies, fills) are counted. key_averages()
 also lists every kernel under the aten op that launched it, so summing
 its self device times counts a kernel twice. The busy time is the union
 of the device events' intervals, and the idle share is 1 - busy / wall.
+
+With --phase-clocks the kernels are built with PRISIM_PHASE_CLOCKS (a
+library of their own): thread 0 of every block of K2 and K1a adds the
+clock64() cycles of each phase of its block into a device counter. The
+script runs K2 on the banded slice's snapshot 0 and on each north-star
+source chunk, and K1a on the slice's snapshot 0, and prints each phase's
+share of the cycles. The counters cost time themselves: the shares say
+where a block spends its time, not what the kernel takes.
+
+With --k1a-anchors it times K1a (CUDA events, mean of 3 runs after a
+warm-up) on the slice's snapshot 0 at each phasor chain length of
+ANCHORS, and prints each one's error against the float64 golden on
+chip_smoke.py's 16 baselines: the measurement that sets nudft.ANCHOR.
 """
+
+import ctypes
 
 import os
 import sys
@@ -78,11 +95,116 @@ def timed(fn):
     return out, time.time() - t0
 
 
+K2_PHASES = ("set-up and first copies", "wait for the tile's copies",
+             "bin and compact the hits", "taps", "products (DMMA) and barrier",
+             "write the rows")
+K1A_PHASES = ("first tile's phasors", "next tile's phasors", "MACs",
+              "barrier", "write the partial sums")
+
+
+def clock_report(label, lib, phases, fn, n=3):
+    """Run fn() once, zero the counters, run it n times and print each
+    phase's share of the summed block cycles."""
+    buf = (ctypes.c_ulonglong * 8)()
+    lib.prisim_phase_clocks.argtypes = [ctypes.c_void_p]
+    lib.prisim_phase_clocks.restype = ctypes.c_int
+    fn()
+    torch.cuda.synchronize()
+    if lib.prisim_phase_clocks(buf) != 0:
+        raise SystemExit("reading the phase clocks failed")
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    if lib.prisim_phase_clocks(buf) != 0:
+        raise SystemExit("reading the phase clocks failed")
+    total = sum(buf[i] for i in range(len(phases)))
+    if total == 0:
+        raise SystemExit("%s: no phase cycles counted" % label)
+    print("%s: %.4e block cycles over %d launches" % (label, total, n))
+    for i, name in enumerate(phases):
+        print("  %6.2f%%  %s" % (100.0 * buf[i] / total, name))
+
+
+ANCHORS = (4, 8, 16, 32)
+
+
+def k1a_anchors(cs, cuda):
+    from prisim_tpu_torch.driver import prepare_simulation
+    from prisim_tpu_torch.engine import cuda_nudft, observe
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "profile_banded")
+    sim = prepare_simulation(cs.slice_parms(root, False, "direct", "anchors"),
+                             cuda)
+    inst = sim.inst
+    Mh, Ml, pch, pcl = (x[0] for x in observe.schedule_tensors(
+        sim.obs, inst.latitude, cuda))
+    seh, sel, amps, _ = observe.snapshot_nudft_inputs(
+        inst, sim.sky, Mh, Ml, pch, pcl, sim.beam_fn)
+    args = (seh, sel, inst.bl_hi, inst.bl_lo, amps, inst.grid_scalars(),
+            inst.nchan)
+    pick, lens = cs.golden_pick(inst)
+    pk = torch.as_tensor(pick, device=cuda)
+    coherent = float(amps.abs().sum(dim=0).max())
+    for anchor in ANCHORS:
+        ms = cs.cuda_time_ms(
+            lambda: cuda_nudft.nudft_cuda(*args, anchor=anchor))
+        v = cuda_nudft.nudft_cuda(*args, anchor=anchor)
+        print("K1a anchor %d: %.4f ms" % (anchor, ms))
+        cs.k1a_vs_golden("  anchor %d" % anchor, inst, seh, sel, amps, v[pk],
+                         pick, lens, coherent)
+    return 0
+
+
+def phase_clocks(cs, cuda):
+    from prisim_tpu_torch.driver import banded_engine, prepare_simulation
+    from prisim_tpu_torch.engine import cuda_banded, cuda_nudft, observe
+    from prisim_tpu_torch.engine.observe import schedule_tensors
+    lib2, lib1 = cuda_banded._library(), cuda_nudft._library()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "profile_banded")
+    parms = cs.slice_parms(root, False, "auto", "clocks")
+    sim = prepare_simulation(parms, cuda)
+    plan, run = banded_engine(parms, sim)
+    sched = schedule_tensors(sim.obs, sim.inst.latitude, cuda)
+    Mh, Ml, pch, pcl = (x[0] for x in sched)
+    prep = run.prep_chunk(0, Mh, Ml, pch, pcl)[:3]
+    clock_report("K2, banded slice snapshot 0", lib2, K2_PHASES,
+                 lambda: cuda_banded.banded_spread_cuda(plan, *prep))
+    seh, sel, amps, _ = observe.snapshot_nudft_inputs(
+        sim.inst, sim.sky, Mh, Ml, pch, pcl, sim.beam_fn)
+    inst = sim.inst
+    clock_report("K1a, slice snapshot 0", lib1, K1A_PHASES,
+                 lambda: cuda_nudft.nudft_cuda(
+                     seh, sel, inst.bl_hi, inst.bl_lo, amps,
+                     inst.grid_scalars(), inst.nchan))
+    del sim, prep, seh, sel, amps
+    ns = cs.northstar_parms()
+    sim = prepare_simulation(ns, cuda)
+    plan, run = banded_engine(ns, sim)
+    Mh, Ml, pch, pcl = (x[0] for x in schedule_tensors(
+        sim.obs, sim.inst.latitude, cuda))
+    preps = [run.prep_chunk(c, Mh, Ml, pch, pcl)[:3]
+             for c in range(run.n_chunks)]
+
+    def spreads():
+        for prep in preps:
+            cuda_banded.banded_spread_cuda(plan, *prep)
+
+    clock_report("K2, north-star snapshot (%d chunks)" % run.n_chunks, lib2,
+                 K2_PHASES, spreads, n=1)
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("profile_banded: no CUDA card", file=sys.stderr)
         return 1
     import chip_smoke as cs
+    if "--k1a-anchors" in sys.argv[1:]:
+        return k1a_anchors(cs, torch.device("cuda", 0))
+    if "--phase-clocks" in sys.argv[1:]:
+        os.environ["PRISIM_KERNEL_DEFINES"] = "PRISIM_PHASE_CLOCKS"
+        return phase_clocks(cs, torch.device("cuda", 0))
     from prisim_tpu_torch.driver import (banded_engine, prepare_simulation,
                                          run_simulation)
     from prisim_tpu_torch.engine.observe import schedule_tensors

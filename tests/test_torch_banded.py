@@ -29,7 +29,8 @@ from prisim_tpu.skymodel import SkyModel
 from prisim_tpu_torch.beams import analytic as ab_t
 from prisim_tpu_torch.engine import nufft_banded as nb_t
 from prisim_tpu_torch.engine import nufft_delay as nd_t
-from prisim_tpu_torch.engine.cuda_banded import banded_spread_cuda
+from prisim_tpu_torch.engine.cuda_banded import (banded_spread_cuda,
+                                                banded_worklist_cuda)
 from prisim_tpu_torch.engine.observe import Instrument as InstT, \
     SkySources as SkyT
 
@@ -236,6 +237,77 @@ def test_wrapper_runs_plain_on_cpu(rows):
         banded_spread_cuda(pt, u_h.double(), u_l, P_r)
     with pytest.raises(ValueError):
         banded_spread_cuda(pt, u_h, u_l, P_r[:, :-1])
+
+
+def _tap_items(pt, u_h, u_l, live):
+    """Brute force: the (item, tile) pairs whose live sources put a tap in
+    the item's rows, from each (baseline, source)'s first-tap row as
+    banded_spread_plain bins it; and the number of such valid pairs."""
+    from prisim_tpu_torch import twofloat as tft
+    D, S = pt.ndir, live.numel()
+    uh, ul = u_h.reshape(D, S), u_l.reshape(D, S)
+    n_rb = -(-pt.R_max // nb_t.K2_ROWS)
+    ivh, ivl = (torch.tensor(float(v)) for v in nb_t._split(
+        pt.consts["inv_ch"]))
+    need = set()
+    n_pairs = 0
+    for b in range(pt.nbl):
+        d = int(pt.d_of_b[b])
+        th, tl = tft.df_mul(torch.tensor(pt.blen_hi[b]),
+                            torch.tensor(pt.blen_lo[b]), uh[d], ul[d])
+        first = (torch.round(tft.df_mul(th, tl, ivh, ivl)[0]).long()
+                 - pt.K // 2 - int(pt.blk_lo[b]) * pt.G_blk)
+        ok = (live.bool() & (uh[d] < 2.5) & (first >= 0)
+              & (first < int(pt.n_blk[b]) * pt.G_blk))
+        n_pairs += int(ok.sum())
+        for s in torch.nonzero(ok)[:, 0].tolist():
+            for row in range(int(first[s]), int(first[s]) + pt.K):
+                if row < pt.R_max:
+                    need.add((b * n_rb + row // nb_t.K2_ROWS,
+                              s // nb_t.K2_TILE))
+    return need, n_pairs
+
+
+def test_worklist_lists_every_tile_that_reaches(rows):
+    """K2's worklist (plain version, what the CPU runs): every tile whose
+    live sources put a tap in an item's rows is on the item's list, the
+    lists are in tile order at their offsets, and a source with an all-zero
+    payload (a third of them here) makes no tile live."""
+    pt, (u_h, u_l, P_r, _) = rows["pt"], rows["out_t"]
+    P = P_r.clone()
+    P[:, np.random.RandomState(3).rand(P.shape[1]) < 0.33] = 0.0
+    urange, counts, offsets, tiles = banded_worklist_cuda(pt, u_h, u_l, P)
+    n_rb = -(-pt.R_max // nb_t.K2_ROWS)
+    assert counts.shape == offsets.shape == (pt.nbl * n_rb,)
+    assert int(counts.sum()) == tiles.numel()
+    assert torch.equal(offsets, torch.cumsum(counts, 0) - counts)
+    listed = set()
+    for item in range(pt.nbl * n_rb):
+        mine = tiles[offsets[item]:offsets[item] + counts[item]].tolist()
+        assert mine == sorted(set(mine))
+        listed.update((item, t) for t in mine)
+    live = (P != 0).any(dim=0)
+    need, n_pairs = _tap_items(pt, u_h, u_l, live)
+    assert need and need <= listed
+    assert nb_t.banded_pair_count(pt, u_h, u_l, P) == n_pairs > 0
+    # the span of every listed tile holds a live source
+    tile_live = live.reshape(-1, nb_t.K2_TILE).any(dim=1)
+    assert all(bool(tile_live[t]) for _, t in listed)
+    assert urange.shape == (pt.ndir, P.shape[1] // nb_t.K2_TILE, 2)
+
+
+def test_spread_splits_fill_the_card():
+    """K2 splits the item lists only where the live items leave the card
+    idle: the HERA-37 slice's 156 live items (longest list ~150 tiles) on
+    132 SMs x 2 blocks go 3 ways; a north-star chunk's 2,275 items fill
+    the card and stay whole."""
+    from prisim_tpu_torch.engine.cuda_banded import spread_splits
+    assert spread_splits(156, 150, 264) == 3
+    assert spread_splits(2275, 900, 264) == 1
+    assert spread_splits(1, 1, 264) == 1
+    for n_live in (1, 7, 64, 300, 5000):
+        for longest in (1, 10, 1000):
+            assert 1 <= spread_splits(n_live, longest, 264) <= 8
 
 
 def test_banded_matches_f64_nufft_reference():

@@ -146,10 +146,16 @@ def test_write_dsm_fits_reads_as_the_reference_file(tmp_path, map_freq):
 
 
 def test_flux_cut_is_the_reference_one():
-    assert cat_t.flux_cut is cat_jax.flux_cut
-    sm = cat_jax._powerlaw_model([0, 10, 20], [-30, -30, -30],
-                                 [1.0, 5.0, 20.0], 150e6, [-0.8] * 3)
-    assert cat_t.flux_cut(sm, flux_min=2.0, cut_freq=100e6).nsrc == 2
+    """The port's copy of flux_cut keeps the reference's sources: the same
+    power-law models, the same cut, the same SkyModel fields."""
+    args = ([0, 10, 20], [-30, -30, -30], [1.0, 5.0, 20.0], 150e6,
+            [-0.8] * 3)
+    got = cat_t.flux_cut(cat_t._powerlaw_model(*args), flux_min=2.0,
+                         cut_freq=100e6)
+    want = cat_jax.flux_cut(cat_jax._powerlaw_model(*args), flux_min=2.0,
+                            cut_freq=100e6)
+    assert got.nsrc == 2
+    assert_same_skymodel(got, want)
 
 
 TABLE = [("NAME", "8A", np.asarray(["a", "bb", "a long name"])),

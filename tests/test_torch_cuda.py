@@ -16,7 +16,8 @@ import torch
 
 from prisim_tpu_torch import twofloat as tf
 from prisim_tpu_torch.engine import nufft_banded as nb
-from prisim_tpu_torch.engine.cuda_banded import banded_spread_cuda
+from prisim_tpu_torch.engine.cuda_banded import (banded_spread_cuda,
+                                                banded_worklist_cuda)
 from prisim_tpu_torch.engine.cuda_nudft import nudft_cuda
 from prisim_tpu_torch.engine.nudft import (freq_grid_scalars,
                                            nudft_reference_f64,
@@ -72,6 +73,35 @@ def test_k1a_matches_plain_and_golden(cuda, S, B, C, chan0, bl_scale):
                                torch.as_tensor(freqs, device=cuda))
     got, plain, gold = (x.cpu().numpy() for x in (got, plain, gold))
     assert got.shape == (B, C) and np.isfinite(got).all()
+    scale = np.abs(gold).max()
+    assert np.abs(got - plain).max() / scale < BAR
+    assert np.abs(got - gold).max() / scale < BAR
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("anchor", [1, 4, 16, 32])
+def test_k1a_anchor_periods_match_plain_and_golden(cuda, anchor):
+    """K1a at other phasor chain lengths against the plain version on the
+    same chains and the f64 golden; and rows of zero amplitude (a third of
+    the sources, as below the horizon), which K1a does not visit, change
+    nothing beyond the bar."""
+    S, B, C = 3000, 50, 1024
+    se, bl, amps = _problem(S, B, C, seed=anchor, bl_scale=300.0)
+    amps[np.random.RandomState(anchor).rand(S) < 0.33] = 0.0
+    nu0, dnu = 150e6, 97656.25
+    seh, sel = (torch.as_tensor(x, device=cuda) for x in tf.split_f64(se))
+    blh, bll = (torch.as_tensor(x, device=cuda) for x in tf.split_f64(bl))
+    a = torch.as_tensor(amps, device=cuda)
+    gs = freq_grid_scalars(nu0, dnu)
+    got = nudft_cuda(seh, sel, blh, bll, a, gs, C, anchor=anchor)
+    again = nudft_cuda(seh, sel, blh, bll, a, gs, C, anchor=anchor)
+    plain = nudft_visibilities(seh, sel, blh, bll, a, gs, C, anchor=anchor)
+    gold = nudft_reference_f64(torch.as_tensor(se, device=cuda),
+                               torch.as_tensor(bl, device=cuda), a,
+                               torch.as_tensor(nu0 + dnu * np.arange(C),
+                                               device=cuda))
+    assert torch.equal(got, again)
+    got, plain, gold = (x.cpu().numpy() for x in (got, plain, gold))
     scale = np.abs(gold).max()
     assert np.abs(got - plain).max() / scale < BAR
     assert np.abs(got - gold).max() / scale < BAR
@@ -274,6 +304,33 @@ def test_k2_matches_plain(cuda, case):
     scale = float(want.abs().max())
     assert scale > 0
     assert float((got - want).abs().max()) / scale < 1e-12
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["north_star_like", "dead_sources"])
+def test_k2_worklist_matches_plain(cuda, case):
+    """K2's worklist passes on the card against banded_worklist_plain:
+    urange, counts, offsets and tiles equal; the spread over it agrees with
+    the plain rows to 1e-12. dead_sources: payload columns of zero (a
+    third of the sources) make no tile live and change no row."""
+    rng = np.random.RandomState(1)
+    bl = np.concatenate([rng.uniform(-300, 300, (30, 3)) * [1, 1, 0.01],
+                         [[14.6, 0.0, 0.0]]])
+    plan, (u_h, u_l, P_r, _) = _banded_problem(bl, 1024, 32, 20000, 2048,
+                                               seed=2, cuda=cuda)
+    if case == "dead_sources":
+        P_r[:, torch.as_tensor(rng.rand(P_r.shape[1]) < 0.33,
+                               device=cuda)] = 0.0
+    got = banded_worklist_cuda(plan, u_h, u_l, P_r)
+    live = (P_r != 0).any(dim=0).to(torch.uint8)
+    want = nb.banded_worklist_plain(plan, u_h.reshape(-1), live)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(g, w)
+    rows = banded_spread_cuda(plan, u_h, u_l, P_r)
+    assert torch.equal(banded_spread_cuda.last_counts, want[1])
+    plain = nb.banded_spread_plain(plan, u_h, u_l, P_r)
+    scale = float(plain.abs().max())
+    assert float((rows - plain).abs().max()) / scale < 1e-12
 
 
 @pytest.mark.gpu

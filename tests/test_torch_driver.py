@@ -126,7 +126,7 @@ def test_delay_transform_matches_jax(runs):
     vt = runs["vt"]
     vj = vis_jax.VisibilitySet(**{f.name: getattr(vt, f.name)
                                   for f in dataclasses.fields(vt)})
-    dt_t = delay_transform(vt, pad=1.0)
+    dt_t = delay_transform(vt, pad=1.0, device="cpu")
     dt_j = vis_jax.delay_transform(vj, pad=1.0)
     np.testing.assert_array_equal(dt_t.lags, dt_j.lags)
     for name in ("skyvis_lag", "vis_lag", "vis_noise_lag", "lag_kernel"):

@@ -1,8 +1,9 @@
-"""The port runs with jax, yaml and h5py all unavailable, as on a card
-machine that has none of them: a subprocess blocks the three imports,
-imports prisim_tpu_torch and runs a small simulation to NPZ, with the
-direct engine, with the banded NUFFT engine, as a gradient run, and on a
-DSM FITS map that the port itself writes (extended sources)."""
+"""The port runs with jax, yaml, h5py and the JAX package prisim_tpu all
+unavailable, as on a card machine that has none of the first three: a
+subprocess blocks the four imports, imports every module of
+prisim_tpu_torch and runs a small simulation to NPZ, with the direct
+engine, with the banded NUFFT engine, as a gradient run, and on a DSM FITS
+map that the port itself writes (extended sources)."""
 
 import os
 import subprocess
@@ -13,9 +14,11 @@ import numpy as np
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 
+BLOCKED = ("jax", "yaml", "h5py", "prisim_tpu")
+
 SCRIPT = textwrap.dedent("""
     import sys
-    for name in ("jax", "yaml", "h5py"):
+    for name in %r:
         sys.modules[name] = None
     import numpy as np
     import prisim_tpu_torch
@@ -48,11 +51,11 @@ SCRIPT = textwrap.dedent("""
         sim = driver.prepare_simulation(parms, "cpu")
         print("SIGMA", sim.sky.src_shape_sigma.min().item())
     loaded = sorted(m for m in sys.modules
-                    if m.split(".")[0] in ("jax", "jaxlib", "yaml", "h5py")
+                    if m.split(".")[0] in ("jax", "jaxlib") + %r
                     and sys.modules[m] is not None)
     print("LOADED", loaded)
     print("OUT", out)
-""")
+""" % (BLOCKED, BLOCKED))
 
 
 def _run_blocked(tmp_path, mode, lines_out=None):
@@ -111,3 +114,34 @@ def test_port_runs_dsm_fits_without_jax_yaml_h5py(tmp_path):
     assert 3.0 < sigma < 4.0
     usm = _run_blocked(tmp_path / "usm", "direct")
     assert np.abs(sky - usm).max() > 1e-3 * np.abs(usm).max()
+
+
+IMPORT_ALL = textwrap.dedent("""
+    import importlib, pkgutil, sys
+    for name in %r:
+        sys.modules[name] = None
+    import prisim_tpu_torch
+    names = sorted(m.name for m in pkgutil.walk_packages(
+        prisim_tpu_torch.__path__, "prisim_tpu_torch."))
+    for name in names:
+        importlib.import_module(name)
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib") + %r
+                    and sys.modules[m] is not None)
+    print("MODULES", len(names))
+    print("LOADED", leaked)
+""" % (BLOCKED, BLOCKED))
+
+
+def test_every_port_module_imports_without_prisim_tpu():
+    """Every module of the port (the kernel wrappers and the copied host
+    modules included) imports with jax and every prisim_tpu module
+    blocked, and none of them is loaded afterwards."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", IMPORT_ALL],
+                          capture_output=True, text=True, env=env,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = dict(line.split(" ", 1) for line in proc.stdout.splitlines())
+    assert lines["LOADED"] == "[]"
+    assert int(lines["MODULES"]) >= 30

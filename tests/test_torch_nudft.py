@@ -82,6 +82,51 @@ def test_plain_matches_pallas_interpret(case):
     assert _rel(case["got"], want, np.abs(want).max()) < BAR
 
 
+@pytest.mark.parametrize("anchor", [None, 1, 4, 16, 32])
+def test_plain_anchor_periods_match_golden_and_pallas(case, anchor):
+    """K1a's plain version at every chain length, against the f64 golden
+    and the Pallas kernel in interpret mode, within the 2e-6 bar (the
+    default, ANCHOR, is the fixture's own run)."""
+    got = nt.nudft_visibilities(
+        *(torch.as_tensor(np.asarray(x)) for x in case["jx"]),
+        nt.freq_grid_scalars(NU0, DNU), case["C"], chan0=case["chan0"],
+        src_block=32, anchor=anchor).numpy()
+    gold = case["gold"]
+    assert _rel(got, gold, np.abs(gold).max()) < BAR
+    want = np.asarray(nudft_pallas(
+        *case["jx"], nj.freq_grid_scalars(NU0, DNU), case["C"],
+        chan0=case["chan0"], src_tile=16, bl_tile=8, interpret=True))
+    assert _rel(got, want, np.abs(want).max()) < BAR
+
+
+@pytest.mark.parametrize("anchor", [4, 8, 32])
+def test_anchored_rotations_drift_in_float64(anchor):
+    """The float64 phasor chains of K1a against the float64 phase of the
+    same two-float cycle counts, over 32 steps at ~2000 cycles (3 km
+    baselines): no further from it than every phasor evaluated (whose
+    two-float products round at ~1e-11 there), and both under 2e-11,
+    three orders below the complex64 output's rounding."""
+    se, bl, _, _ = _problem(40, 8, 16, 0, 3000.0, seed=5)
+    kh, kl = tft.df_dot3(*(torch.as_tensor(x)[:, None, :] for x in
+                           tft.split_f64(se)),
+                         *(torch.as_tensor(x)[None, :, :] for x in
+                           tft.split_f64(bl)))
+    g0h, g0l, gdh, gdl = (torch.tensor(v, dtype=torch.float32)
+                          for v in nt.freq_grid_scalars(NU0, DNU))
+    p0h, p0l = tft.df_frac(*tft.df_mul(kh, kl, g0h, g0l))
+    dh, dl = tft.df_frac(*tft.df_mul(kh, kl, gdh, gdl))
+    steps = torch.arange(32, dtype=torch.float32) * 32.0 + 7.0
+    exact = nt._phasors(p0h, p0l, dh, dl, steps)
+    rot = nt._phasors_rot(p0h, p0l, dh, dl, 32, 32, 7, anchor)
+    ang = 2.0 * np.pi * ((p0h.double() + p0l.double())[..., None]
+                         + (dh.double() + dl.double())[..., None]
+                         * steps.double())
+    for x, y, t in zip(exact, rot, (torch.cos(ang), -torch.sin(ang))):
+        assert x.shape == y.shape == (40, 8, 32)
+        e_rot, e_all = (float((v - t).abs().max()) for v in (y, x))
+        assert e_rot <= e_all + 1e-15 and e_all < 2e-11
+
+
 def test_torch_golden_matches_numpy_golden(case):
     got = nt.nudft_reference_f64(case["se"], case["bl"], case["amps"],
                                  case["freqs"], src_chunk=16).numpy()

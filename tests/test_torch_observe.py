@@ -41,9 +41,10 @@ def drift():
         src_block=128))
     inst_t = instrument_from_numpy(np.asarray(inst_j.bl_hi),
                                    np.asarray(inst_j.bl_lo), freqs,
-                                   latitude=LAT)
+                                   device="cpu", latitude=LAT)
     sky_t = sky_from_numpy(np.asarray(sky_j.s_eq_hi),
-                           np.asarray(sky_j.s_eq_lo), np.asarray(sky_j.flux))
+                           np.asarray(sky_j.s_eq_lo), np.asarray(sky_j.flux),
+                           device="cpu")
     obs_port = obs_t.Observation(obs.lst_deg, obs.jd, obs.t_acc,
                                  obs.pointing_altaz)
     beam = lambda s, f: airy_beam(s, f, 14.0)        # noqa: E731
@@ -124,10 +125,10 @@ def test_shaped_gradient_drift_matches_jax():
     assert np.isinf(sig_j[::5]).all() and np.isfinite(sig_j[1::5]).all()
     inst_t = instrument_from_numpy(np.asarray(inst_j.bl_hi),
                                    np.asarray(inst_j.bl_lo), freqs,
-                                   latitude=LAT)
+                                   device="cpu", latitude=LAT)
     sky_t = sky_from_numpy(np.asarray(sky_j.s_eq_hi),
                            np.asarray(sky_j.s_eq_lo), np.asarray(sky_j.flux),
-                           src_shape_sigma=sig_j)
+                           device="cpu", src_shape_sigma=sig_j)
     vt, gt = obs_t.simulate_drift(
         inst_t, sky_t, obs_t.Observation(obs.lst_deg, obs.jd, obs.t_acc,
                                          obs.pointing_altaz),
