@@ -2,9 +2,9 @@
 
     python3 chip_smoke.py
 
-Builds the NUDFT kernels K1a, K1b and K1c (csrc/nudft.cu) and K2
-(csrc/banded.cu) with nvcc (sm_90a), the two builds started together,
-then:
+Builds the NUDFT kernels K1a, K1b and K1c (csrc/nudft.cu, instances of
+one kernel) and K2 (csrc/banded.cu) with nvcc (sm_90a), the two builds
+started together, then:
 
 1. K1a phase: K1a and its plain PyTorch version on the card at the slice's
    snapshot shape (HERA-37 non-redundant: 666 baselines x 1024 channels x
@@ -38,12 +38,15 @@ then:
 6. K1b phase: the gradient moments at the slice shape on snapshot 0's
    inputs, K1b against its plain version (all baselines) and against the
    f64 golden (16 baselines) for the visibilities (both normalizations)
-   and the three planes (max|dG| / max|G|), and both times.
+   and the three planes (max|dG| / max|G|), two launches bit-identical,
+   and both times.
 7. K1c phase: the same shape on a DSM FITS map that this script writes
    with the port's write_bintable (nside 64, every pixel given the
    pixel-resolution gaussian shape of the DSM reader, sigma_uv ~ 53): K1c
-   against its plain version and the golden, the weight's range, both
-   times; and one K1b + K1c launch on a few thousand of those sources.
+   against its plain version and the golden, the weight's range, two
+   launches bit-identical, both times; and one K1b + K1c launch on a few
+   thousand of those sources, against its plain version and the golden,
+   twice bit-identical.
 8. Gradient slice phase: run_simulation with processing.gradient_mode:
    baseline and engine: auto, 4 accumulations, products saved; checks that
    the run took the direct engine (K1b 4 launches, K2 none), the gradient
@@ -53,15 +56,21 @@ then:
    none, snapshot 0 equals the K1c phase's.
 10. North-star K1c phase: hera331_northstar.yaml's telescope, array and
    band on a DSM FITS map at nside 256 (786,432 shaped sources), one
-   accumulation: K1c's time over 630 x 1024 x 786,432, and K1c against
-   its plain version and the golden on 16 baselines over all sources.
+   accumulation: K1c's time over 630 x 1024 x 786,432 and its bound, two
+   launches bit-identical, and K1c against its plain version and the
+   golden on 16 baselines over all sources.
+11. North-star K1b phase: the same array and band on the nside-256
+   uniform sky with processing.gradient_mode: baseline, one snapshot:
+   K1b's time over 630 x 1024 x 786,432 and its bound, two launches
+   bit-identical, and K1b (visibilities and planes) against its plain
+   version and the golden on 16 baselines over all sources.
 
 After the phases it prints the card's name and power limit, the roofline
-share (bound / time, against the H100 data-sheet peaks) of K1a and K2 at
-the slice and the north star, and the kernels line: each kernel's
-launches in its slice run, error against its plain version, time, plain
-time, bound (from this run's inputs) and library time (null: no single
-PyTorch call computes any of them).
+share (bound / time, against the H100 data-sheet peaks) of K1a, K1b, K1c
+and K2 at the slice and the north star, and the kernels line: each
+kernel's launches in its slice run, error against its plain version,
+time, plain time, bound (from this run's inputs) and library time (null:
+no single PyTorch call computes any of them).
 
 Exits non-zero on any failure, and without a CUDA card. The last line is
 {"ok": true, "device": {...}}; the line before it lists the kernels.
@@ -601,13 +610,19 @@ def mode_phase(label, sim, cuda, gradient, shaped):
                   float(torch.exp(-alpha.max() * k2.max())),
                   float(torch.exp(-alpha.min() * k2.min()))))
     out_k = cuda_nudft.nudft_cuda(*args, **kw)
+    again = cuda_nudft.nudft_cuda(*args, **kw)
     torch.cuda.synchronize()
     out_p = nudft_visibilities(*args, **kw)
     torch.cuda.synchronize()
     if not gradient:
-        out_k, out_p = (out_k,), (out_p,)
+        out_k, again, out_p = (out_k,), (again,), (out_p,)
     assert out_k[0].shape == (B, C)
     assert all(bool(torch.isfinite(x).all()) for x in out_k)
+    if not all(torch.equal(x, y) for x, y in zip(out_k, again)):
+        raise SystemExit("%s is not deterministic: two launches differ"
+                         % label)
+    print("%s twice on the same inputs: bit-identical (%d source splits)"
+          % (label, cuda_nudft.nudft_cuda.last_splits))
     coherent = float(amps.abs().sum(dim=0).max())
     vmax = float(out_p[0].abs().max())
     rel_v, max_abs = rel_err(out_k[0], out_p[0], vmax)
@@ -685,6 +700,9 @@ def both_modes_small(sim, cuda, n_src=4096, n_bl=32):
               gradient=True)
     (vk, gk) = cuda_nudft.nudft_cuda(*args, **kw)
     torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(
+            (vk, gk), cuda_nudft.nudft_cuda(*args, **kw))):
+        raise SystemExit("K1b+K1c is not deterministic: two launches differ")
     (vp, gp) = nudft_visibilities(*args, **kw)
     gv, gg = nudft_reference_f64(joined(args[0], args[1]),
                                  joined(args[2], args[3]), args[4],
@@ -693,8 +711,9 @@ def both_modes_small(sim, cuda, n_src=4096, n_bl=32):
     rg = rel_err(gk, gp, float(gg.abs().max()))[0]
     gv_r = rel_err(vk, gv, float(gv.abs().max()))[0]
     gg_r = rel_err(gk, gg, float(gg.abs().max()))[0]
-    print("K1b+K1c (%d sources x %d bl x %d ch): vs plain /max|V|=%.4e "
-          "/max|G|=%.4e; vs f64 golden /max|V|=%.4e /max|G|=%.4e"
+    print("K1b+K1c (%d sources x %d bl x %d ch, two launches "
+          "bit-identical): vs plain /max|V|=%.4e /max|G|=%.4e; vs f64 "
+          "golden /max|V|=%.4e /max|G|=%.4e"
           % (len(up), n_bl, inst.nchan, rv, rg, gv_r, gg_r))
     if not (rv < PLAIN_BAR and rg < PLAIN_BAR and gv_r < EXT_BAR
             and gg_r < GRAD_BAR):
@@ -749,18 +768,18 @@ def direct_mode_slice(label, parms, have_h5py, cuda, v0, want):
     return vs, got
 
 
-def northstar_k1c_phase(prefix, cuda):
-    """One north-star snapshot of K1c on a DSM FITS map at nside 256: its
-    time over all 630 baselines, and K1c against its plain version and
-    the f64 golden on N_GOLDEN_BL baselines over all sources."""
+def northstar_mode_phase(label, parms, cuda, gradient):
+    """One north-star snapshot of K1b (`gradient`) or K1c (a sky with
+    shapes) over all 630 baselines: its time and bound, a second launch
+    bit-identical, and the kernel against its plain version and the f64
+    golden on N_GOLDEN_BL baselines over all sources. Returns the time
+    and the bound."""
     from prisim_tpu_torch.driver import prepare_simulation
     from prisim_tpu_torch.engine import cuda_nudft
     from prisim_tpu_torch.engine.nudft import (nudft_reference_f64,
                                                nudft_visibilities)
     from prisim_tpu_torch.engine.observe import (schedule_tensors,
                                                  snapshot_nudft_inputs)
-    parms = northstar_parms(skyparm={"model": "dsm", "nside": 256},
-                            catalog={"DSM_file_prefix": prefix})
     t0 = time.time()
     sim = prepare_simulation(parms, cuda)
     inst, sky = sim.inst, sim.sky
@@ -769,50 +788,70 @@ def northstar_k1c_phase(prefix, cuda):
     seh, sel, amps, sh = snapshot_nudft_inputs(inst, sky, Mh, Ml, pch, pcl,
                                                sim.beam_fn)
     torch.cuda.synchronize()
-    print("north-star K1c phase: %d bl x %d ch x %d DSM sources, sigma_uv "
-          "%.4f (set-up %.2f s)" % (inst.nbl, inst.nchan, seh.shape[0],
-                                    float(sky.src_shape_sigma.min()),
-                                    time.time() - t0))
-    kw = dict(s_sky=sh, src_shape_sigma=sky.src_shape_sigma)
+    sigma = sky.src_shape_sigma
+    S = seh.shape[0]
+    print("%s phase: %d bl x %d ch x %d %s sources%s (set-up %.2f s)"
+          % (label, inst.nbl, inst.nchan, S, parms["skyparm"]["model"],
+             "" if sigma is None else
+             ", sigma_uv %.4f" % float(sigma.min()), time.time() - t0))
+    kw = dict(s_sky=sh, src_shape_sigma=sigma, gradient=gradient)
     args = (seh, sel, inst.bl_hi, inst.bl_lo, amps, inst.grid_scalars(),
             inst.nchan)
+
+    def launch():
+        out = cuda_nudft.nudft_cuda(*args, **kw)
+        return out if gradient else (out,)
+
     t0 = time.time()
-    v_k = cuda_nudft.nudft_cuda(*args, **kw)
+    out_k = launch()
     torch.cuda.synchronize()
-    print("north-star K1c first launch: %.2f s" % (time.time() - t0))
-    assert v_k.shape == (inst.nbl, inst.nchan)
-    assert bool(torch.isfinite(v_k).all())
-    ms = cuda_time_ms(lambda: cuda_nudft.nudft_cuda(*args, **kw), n=1,
-                      warm=False)
-    S = seh.shape[0]
-    bd = nudft_bound(amps, inst.nbl, K1C_FLOPS, extra_bytes=S * 16)
-    print("north-star K1c time: %.4f ms per snapshot = %.4e complex MAC/s; "
-          "bound %.4f ms (%s; %d of %d sources above the horizon)"
-          % (ms, float(S) * inst.nbl * inst.nchan / (ms / 1e3),
-             bd["bound_ms"], bd["bound_by"], bd["live"], S))
+    print("%s first launch: %.2f s, %d source splits"
+          % (label, time.time() - t0, cuda_nudft.nudft_cuda.last_splits))
+    assert out_k[0].shape == (inst.nbl, inst.nchan)
+    assert all(bool(torch.isfinite(x).all()) for x in out_k)
+    if not all(torch.equal(x, y) for x, y in zip(out_k, launch())):
+        raise SystemExit("%s is not deterministic: two launches differ"
+                         % label)
+    ms = cuda_time_ms(launch, n=2, warm=False)
+    bd = (nudft_bound(amps, inst.nbl, K1B_FLOPS, out_planes=4,
+                      extra_bytes=S * 12) if gradient else
+          nudft_bound(amps, inst.nbl, K1C_FLOPS, extra_bytes=S * 16))
+    print("%s time: %.4f ms per snapshot = %.4e complex MAC/s; bound "
+          "%.4f ms (%s; %d of %d sources above the horizon); two launches "
+          "bit-identical" % (label, ms, float(S) * inst.nbl * inst.nchan
+                             / (ms / 1e3), bd["bound_ms"], bd["bound_by"],
+                             bd["live"], S))
     pick, lens = golden_pick(inst)
     pk = torch.as_tensor(pick, device=cuda)
     blh, bll = inst.bl_hi[pk].contiguous(), inst.bl_lo[pk].contiguous()
     t0 = time.time()
-    v_p = nudft_visibilities(seh, sel, blh, bll, amps, inst.grid_scalars(),
-                             inst.nchan, src_block=4096, **kw)
+    out_p = nudft_visibilities(seh, sel, blh, bll, amps, inst.grid_scalars(),
+                               inst.nchan, src_block=4096, **kw)
     torch.cuda.synchronize()
     t_p = time.time() - t0
     gold = nudft_reference_f64(joined(seh, sel), joined(blh, bll), amps,
                                inst.freqs, **kw)
-    gv = float(gold.abs().max())
+    if not gradient:
+        out_p, gold = (out_p,), (gold,)
     coherent = float(amps.abs().sum(dim=0).max())
-    r_p, _ = rel_err(v_k[pk], v_p, gv)
-    r_g, d_g = rel_err(v_k[pk], gold, gv)
-    print("north-star K1c vs plain (%d bl, plain %.2f s): /max|V|=%.4e; vs "
-          "f64 golden (%.1f-%.1f m): max|dV|=%.4e  /max|V|=%.4e  "
-          "/max_c sum_s|A|=%.4e" % (len(pick), t_p, r_p, lens[pick[0]],
-                                     lens[pick[-1]], d_g, r_g,
-                                     d_g / coherent))
-    if not (r_p < PLAIN_BAR and r_g < EXT_BAR):
-        raise SystemExit("north-star K1c disagrees: vs plain %.3e, vs "
-                         "golden %.3e" % (r_p, r_g))
-    return ms
+    gv = float(gold[0].abs().max())
+    r_p, _ = rel_err(out_k[0][pk], out_p[0], gv)
+    r_g, d_g = rel_err(out_k[0][pk], gold[0], gv)
+    print("%s vs plain (%d bl, plain %.2f s): /max|V|=%.4e; vs f64 golden "
+          "(%.1f-%.1f m): max|dV|=%.4e  /max|V|=%.4e  /max_c sum_s|A|=%.4e"
+          % (label, len(pick), t_p, r_p, lens[pick[0]], lens[pick[-1]], d_g,
+             r_g, d_g / coherent))
+    rels = [(r_p, PLAIN_BAR), (r_g, BAR if sigma is None else EXT_BAR)]
+    if gradient:
+        gg = float(gold[1].abs().max())
+        rg_p, _ = rel_err(out_k[1][:, pk], out_p[1], gg)
+        rg_g, _ = rel_err(out_k[1][:, pk], gold[1], gg)
+        print("%s planes vs plain: /max|G|=%.4e; vs f64 golden: "
+              "/max|G|=%.4e" % (label, rg_p, rg_g))
+        rels += [(rg_p, PLAIN_BAR), (rg_g, GRAD_BAR)]
+    if not all(r < bar for r, bar in rels):
+        raise SystemExit("%s disagrees: %s" % (label, rels))
+    return dict(ms=ms, **bd)
 
 
 def main():
@@ -970,14 +1009,29 @@ def main():
     torch.cuda.empty_cache()
 
     t0 = time.time()
-    northstar_k1c_phase(prefix, cuda)
+    ns_k1c = northstar_mode_phase(
+        "north-star K1c", northstar_parms(
+            skyparm={"model": "dsm", "nside": 256},
+            catalog={"DSM_file_prefix": prefix}), cuda, gradient=False)
     torch.cuda.empty_cache()
     print("[north-star K1c phase: %.2f s]" % (time.time() - t0))
+
+    t0 = time.time()
+    ns_k1b = northstar_mode_phase(
+        "north-star K1b", northstar_parms(
+            processing={"engine": "auto", "gradient_mode": "baseline"}),
+        cuda, gradient=True)
+    torch.cuda.empty_cache()
+    print("[north-star K1b phase: %.2f s]" % (time.time() - t0))
 
     print(smi)
     for label, ms, bd in (
             ("K1a, slice snapshot", k["ms"], k),
             ("K1a, north-star launch", ns["k1a_ms"], ns["k1a_bound"]),
+            ("K1b, slice snapshot", k1b["ms"], k1b),
+            ("K1b, north-star snapshot", ns_k1b["ms"], ns_k1b),
+            ("K1c, slice snapshot", k1c["ms"], k1c),
+            ("K1c, north-star DSM snapshot", ns_k1c["ms"], ns_k1c),
             ("K2, slice snapshot", k2["ms"], k2),
             ("K2, north-star snapshot", ns["k2_ms"], ns["k2_bound"])):
         print("roofline share of %s: bound %.4f ms (%s) / %.4f ms = %.4f, "

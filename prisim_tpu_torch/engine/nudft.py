@@ -15,10 +15,10 @@ structure is that of prisim_tpu/engine/nudft.py:
 * the cycle count nu (s.b)/c is two-float (see ../twofloat.py), reduced
   mod 1 exactly;
 * U.W factorization: with c = q L + r, the phasor is U[s,b,q] W[s,b,r],
-  so only S B (Q + L) phasors are evaluated; for point sources (K1a)
-  they come from float64 anchored rotations, as in kernel K1a: along
-  chains of `anchor` steps only the first phasor and the step phasor are
-  evaluated, the others are products by the step (`_phasors_rot`);
+  so only S B (Q + L) phasors are formed, by float64 anchored rotations
+  as in the kernels (every mode): along chains of `anchor` steps only the
+  first phasor and the step phasor are evaluated, the others are products
+  by the step (`_phasors_rot`);
 * sources stream in blocks of `src_block`; the weights and the gradient
   moments are taken per coarse group q, so no (src_block, B, C) table is
   built.
@@ -49,10 +49,11 @@ from .. import twofloat as tf
 __all__ = ["nudft_visibilities", "nudft_reference_f64", "freq_grid_scalars",
            "choose_ql", "ext_alpha", "ext_chan_scale", "ANCHOR"]
 
-# K1a's phasor chain length (anchor period), set by measurement
-# (profile_banded.py --k1a-anchors, PERF.md): at 4, 8, 16 and 32 the
-# error against the f64 golden is the same, and 16 is the fastest. In
-# float64 a chain of 16 products drifts by ~1e-15.
+# The phasor chain length (anchor period) of every mode, set by
+# measurement (profile_banded.py --k1-anchors, PERF.md): at 4, 8, 16 and
+# 32 the error against the f64 golden is the same, and 16 is the fastest
+# for K1a and K1c and within 3% of the fastest (32) for K1b. In float64 a
+# chain of 16 products drifts by ~1e-15.
 ANCHOR = 16
 
 
@@ -215,11 +216,23 @@ def nudft_visibilities(seh, sel, blh, bll, amps, grid_scalars, nchan,
     s_sky   : (S, 3) float32 rotated sky directions (ENU)
     gradient: also return the moments G_k = sum_s s_sky,k A w E; needs
         s_sky
-    anchor  : for point sources (no sigma, no moments), the chain length
-        of K1a's anchored rotations (None or 0: every phasor evaluated,
-        as K1b and K1c do)
+    anchor  : the chain length of the anchored rotations, as the kernels
+        take them in every mode (None or 0: every phasor evaluated)
     Returns complex64 (B, nchan) on the device of the inputs, and with
     `gradient` also the complex64 (3, B, nchan) moments."""
+    sr, si = _nudft_sums(seh, sel, blh, bll, amps, grid_scalars, nchan,
+                         chan0, src_shape_sigma, s_sky, src_block, gradient,
+                         anchor)
+    res = torch.complex(sr.float(), si.float())
+    if gradient:
+        return res[0], res[1:]
+    return res[0]
+
+
+def _nudft_sums(seh, sel, blh, bll, amps, grid_scalars, nchan, chan0,
+                src_shape_sigma, s_sky, src_block, gradient, anchor):
+    """The float64 sums of nudft_visibilities before their complex64
+    rounding: (re, im), each (1 or 4, B, nchan)."""
     if (gradient or src_shape_sigma is not None) and s_sky is None:
         raise ValueError("s_sky is required for gradient/extended mode")
     nchan = int(nchan)
@@ -236,8 +249,6 @@ def nudft_visibilities(seh, sel, blh, bll, amps, grid_scalars, nchan,
     S = seh.shape[0]
     B = blh.shape[0]
     nout = 4 if gradient else 1
-    if gradient or src_shape_sigma is not None:
-        anchor = None
     sr = torch.zeros((nout, B, C_pad), dtype=torch.float64, device=dev)
     si = torch.zeros_like(sr)
     for s0 in range(0, S, int(src_block)):
@@ -254,10 +265,7 @@ def nudft_visibilities(seh, sel, blh, bll, amps, grid_scalars, nchan,
         if gradient:
             sr[1:] += out[2]
             si[1:] += out[3]
-    res = torch.complex(sr.float(), si.float())[:, :, :nchan]
-    if gradient:
-        return res[0], res[1:]
-    return res[0]
+    return sr[:, :, :nchan], si[:, :, :nchan]
 
 
 def nudft_reference_f64(s_eff, baselines, amps, freqs, s_sky=None,

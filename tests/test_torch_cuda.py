@@ -118,6 +118,7 @@ EXT_BAR = 3e-6
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("anchor", [4, 16, 32])
 @pytest.mark.parametrize("mode", ["grad", "ext", "both"])
 @pytest.mark.parametrize("S,B,C,chan0,bl_scale", [
     (53, 13, 24, 0, 200.0),        # ragged S, B and C
@@ -125,15 +126,23 @@ EXT_BAR = 3e-6
     (40, 8, 16, 0, 3000.0),        # long baselines: weights down to ~0
     (2048, 24, 1024, 0, 300.0),    # full channel tiles, many tiles of S
     (300, 5, 1500, 0, 200.0),      # ragged last channel tile
+    (40000, 6, 1024, 0, 300.0),    # many sources, few baselines: splits
 ])
 def test_k1b_k1c_match_plain_and_golden(cuda, mode, S, B, C, chan0,
-                                        bl_scale):
+                                        bl_scale, anchor):
+    """K1b, K1c and both at once against the plain version on the same
+    phasor chains and the f64 golden, at chain lengths 4, 16 and 32, with
+    a third of the sources given zero amplitudes (as below the horizon;
+    the kernels do not visit them, and must read s_sky and sigma of the
+    sources they do visit through the same order); two launches are
+    bit-identical."""
     grad, ext = {"grad": (True, False), "ext": (False, True),
                  "both": (True, True)}[mode]
     se, bl, amps = _problem(S, B, C, seed=S + B + C, bl_scale=bl_scale)
     rng = np.random.RandomState(S)
     sigma = rng.uniform(20.0, 200.0, S).astype(np.float32)
     sigma[::3] = np.inf
+    amps[rng.rand(S) < 0.33] = 0.0
     nu0, dnu = 150e6, 97656.25
     freqs = nu0 + dnu * (chan0 + np.arange(C))
     seh, sel = (torch.as_tensor(x, device=cuda) for x in tf.split_f64(se))
@@ -141,7 +150,7 @@ def test_k1b_k1c_match_plain_and_golden(cuda, mode, S, B, C, chan0,
     kw = dict(s_sky=torch.as_tensor((se + [0.0, 0.0, 1.0]).astype(np.float32),
                                     device=cuda),
               src_shape_sigma=torch.as_tensor(sigma, device=cuda)
-              if ext else None, gradient=grad)
+              if ext else None, gradient=grad, anchor=anchor)
     a = torch.as_tensor(amps, device=cuda)
     gs = freq_grid_scalars(nu0, dnu)
     n0 = (nudft_cuda.launches, nudft_cuda.launches_grad,
@@ -150,14 +159,19 @@ def test_k1b_k1c_match_plain_and_golden(cuda, mode, S, B, C, chan0,
     torch.cuda.synchronize()
     assert (nudft_cuda.launches, nudft_cuda.launches_grad,
             nudft_cuda.launches_ext) == (n0[0], n0[1] + grad, n0[2] + ext)
+    if S == 40000:
+        assert nudft_cuda.last_splits > 1
+    again = nudft_cuda(seh, sel, blh, bll, a, gs, C, chan0=chan0, **kw)
     plain = nudft_visibilities(seh, sel, blh, bll, a, gs, C, chan0=chan0,
                                **kw)
+    del kw["anchor"]
     gold = nudft_reference_f64(torch.as_tensor(se, device=cuda),
                                torch.as_tensor(bl, device=cuda), a,
                                torch.as_tensor(freqs, device=cuda), **kw)
     if not grad:
-        got, plain, gold = (got,), (plain,), (gold,)
-    for i, (k, p, g) in enumerate(zip(got, plain, gold)):
+        got, again, plain, gold = (got,), (again,), (plain,), (gold,)
+    for i, (k, k2, p, g) in enumerate(zip(got, again, plain, gold)):
+        assert torch.equal(k, k2)
         k, p, g = (x.cpu().numpy() for x in (k, p, g))
         assert k.shape == ((B, C) if i == 0 else (3, B, C))
         assert np.isfinite(k).all()

@@ -15,7 +15,8 @@ from prisim_tpu.engine.pallas_nudft import nudft_pallas
 
 from prisim_tpu_torch import twofloat as tft
 from prisim_tpu_torch.engine import nudft as nt
-from prisim_tpu_torch.engine.cuda_nudft import nudft_cuda
+from prisim_tpu_torch.engine.cuda_nudft import (live_order, nudft_cuda,
+                                                source_splits)
 
 BAR = 2e-6     # max|dV| / max|V|: the bar of tests/test_pallas_nudft.py
 NU0, DNU = 150e6, 97656.25
@@ -239,29 +240,116 @@ def test_modes_match_f64_golden(mode_case):
                  else mode_case["gold"][0])
 
 
+def _xla_modes(c):
+    """JAX's XLA engine on the mode case (computed once per case)."""
+    if "xla" not in c:
+        kw = dict(s_sky=jnp.asarray(c["s_sky"]), gradient=c["grad"])
+        if c["ext"]:
+            kw.update(src_shape_sigma=jnp.asarray(c["sigma"]),
+                      inv_wl=jnp.asarray(c["freqs"] / CNST.c, jnp.float32))
+        want = nj.nudft_visibilities(*c["jx"], nj.freq_grid_scalars(NU0, DNU),
+                                     c["C"], chan0=c["chan0"], src_block=16,
+                                     **kw)
+        c["xla"] = (tuple(np.asarray(x) for x in want) if c["grad"]
+                    else np.asarray(want))
+    return c["xla"]
+
+
+def _pallas_modes(c):
+    """The Pallas kernel in interpret mode on the mode case (once)."""
+    if "pallas" not in c:
+        want = nudft_pallas(
+            *c["jx"], nj.freq_grid_scalars(NU0, DNU), c["C"],
+            chan0=c["chan0"], src_tile=16, bl_tile=8, interpret=True,
+            s_sky=jnp.asarray(c["s_sky"]), gradient=c["grad"],
+            src_shape_sigma=None if c["sigma"] is None
+            else jnp.asarray(c["sigma"]))
+        c["pallas"] = (tuple(np.asarray(x) for x in want) if c["grad"]
+                       else np.asarray(want))
+    return c["pallas"]
+
+
 def test_modes_match_xla_engine(mode_case):
-    c = mode_case
-    kw = dict(s_sky=jnp.asarray(c["s_sky"]), gradient=c["grad"])
-    if c["ext"]:
-        kw.update(src_shape_sigma=jnp.asarray(c["sigma"]),
-                  inv_wl=jnp.asarray(c["freqs"] / CNST.c, jnp.float32))
-    want = nj.nudft_visibilities(*c["jx"], nj.freq_grid_scalars(NU0, DNU),
-                                 c["C"], chan0=c["chan0"], src_block=16,
-                                 **kw)
-    _check_modes(c, tuple(np.asarray(x) for x in want) if c["grad"]
-                 else np.asarray(want))
+    _check_modes(mode_case, _xla_modes(mode_case))
 
 
 def test_modes_match_pallas_interpret(mode_case):
+    _check_modes(mode_case, _pallas_modes(mode_case))
+
+
+@pytest.mark.parametrize("anchor", [None, 4, 16])
+def test_modes_anchor_periods_match_golden_xla_and_pallas(mode_case,
+                                                          anchor):
+    """The plain K1b, K1c and both at once at every chain length of the
+    anchored rotations that the kernels take (None: every phasor
+    evaluated), against the f64 golden, JAX's XLA engine and the Pallas
+    kernel in interpret mode, at the bars of tests/test_pallas_nudft.py."""
     c = mode_case
-    want = nudft_pallas(
-        *c["jx"], nj.freq_grid_scalars(NU0, DNU), c["C"], chan0=c["chan0"],
-        src_tile=16, bl_tile=8, interpret=True,
-        s_sky=jnp.asarray(c["s_sky"]), gradient=c["grad"],
-        src_shape_sigma=None if c["sigma"] is None
-        else jnp.asarray(c["sigma"]))
-    _check_modes(c, tuple(np.asarray(x) for x in want) if c["grad"]
-                 else np.asarray(want))
+    sigma = None if c["sigma"] is None else torch.as_tensor(c["sigma"])
+    got = nt.nudft_visibilities(
+        *(torch.as_tensor(np.array(x)) for x in c["jx"]),
+        nt.freq_grid_scalars(NU0, DNU), c["C"], chan0=c["chan0"],
+        s_sky=torch.as_tensor(c["s_sky"]), gradient=c["grad"],
+        src_block=16, src_shape_sigma=sigma, anchor=anchor)
+    got = tuple(x.numpy() for x in got) if c["grad"] else (got.numpy(),
+                                                           None)
+    gold = c["gold"] if c["grad"] else c["gold"][0]
+    for want in (gold, _xla_modes(c), _pallas_modes(c)):
+        _check_modes(dict(c, got=got), want)
+
+
+@pytest.mark.parametrize("mode", ["point"] + sorted(MODES))
+def test_live_order_sums_equal_full_sums(mode):
+    """The kernels' source order (live_order): the plain float64 sums over
+    the live sources only, with directions, amplitudes, s_sky and sigma
+    all taken through that order, equal the sums over every source within
+    float64 rounding; the rows left out are all zero, and the live ones
+    keep their order."""
+    grad, ext = MODES.get(mode, (False, False))
+    S, B, C = 90, 7, 32
+    se, bl, amps, _ = _problem(S, B, C, 0, 150.0, seed=9)
+    rng = np.random.RandomState(10)
+    amps[rng.rand(S) < 0.33] = 0.0
+    sigma = rng.uniform(20.0, 200.0, S).astype(np.float32)
+    sigma[::4] = np.inf
+    seh, sel = (torch.as_tensor(x) for x in tft.split_f64(se))
+    blh, bll = (torch.as_tensor(x) for x in tft.split_f64(bl))
+    a = torch.as_tensor(amps)
+    s_sky = torch.as_tensor((se + [0.0, 0.0, 1.0]).astype(np.float32))
+    sig = torch.as_tensor(sigma) if ext else None
+    perm, n_live = live_order(a)
+    n = int(n_live)
+    assert perm.dtype == n_live.dtype == torch.int32
+    live = np.flatnonzero((amps != 0).any(axis=1))
+    assert n == live.size and np.array_equal(perm[:n].numpy(), live)
+    assert not bool((a[perm[n:].long()] != 0).any())
+    idx = perm[:n].long()
+    gs = nt.freq_grid_scalars(NU0, DNU)
+    full = nt._nudft_sums(seh, sel, blh, bll, a, gs, C, 0, sig,
+                          s_sky, 16, grad, nt.ANCHOR)
+    part = nt._nudft_sums(seh[idx], sel[idx], blh, bll, a[idx], gs, C, 0,
+                          None if sig is None else sig[idx], s_sky[idx], 16,
+                          grad, nt.ANCHOR)
+    for f, p in zip(full, part):
+        assert f.dtype == torch.float64 and f.shape == p.shape
+        assert float((f - p).abs().max()) <= 1e-13 * float(f.abs().max())
+
+
+def test_source_splits_fill_the_card():
+    """The source splits of the NUDFT kernels: the north star's K1c grid of
+    158 blocks on 132 SMs x 2 fills its last wave best at 5 splits; a
+    grid that fills whole waves keeps 1; a handful of blocks takes the
+    most, 8; every choice fills the waves at least as well as 1 split."""
+    assert source_splits(158, 264) == 5
+    assert source_splits(264, 264) == 1
+    assert source_splits(2, 132) == 8
+    for blocks in range(1, 600, 7):
+        n = source_splits(blocks, 264)
+        assert 1 <= n <= 8
+
+        def fill(k):
+            return blocks * k / (-(-blocks * k // 264) * 264)
+        assert fill(n) >= fill(1)
 
 
 def test_modes_torch_golden_matches_numpy_golden(mode_case):
