@@ -65,6 +65,37 @@ started together, then:
    bit-identical, and K1b (visibilities and planes) against its plain
    version and the golden on 16 baselines over all sources.
 
+Then the beams and their routes, each run with the kernel counts set to 0
+just before it and read just after (its wall-clock, K1a and K2 launches
+and the engine that ran are printed):
+
+a. Beams: every branch of the dispatcher (each telescope id, each shape
+   with and without a ground plane, the MWA tile steered without and with
+   delay/gain errors, apertures with and without a feed, a steered dipole
+   array) on the card at snapshot 0's 49,152 slice directions x 1024
+   channels, against the same torch code on the CPU, and twice on the
+   card, bit-identical.
+b. BASELINE config #2 (MWA-128 catalog) at full size, as
+   benchmarks/bench_configs.config2 builds it: 8,128 baselines x 256
+   channels x 10 accumulations, mwa_dipole, the 4,096-source catalog
+   (51 above the default 10 Jy flux_min), NPZ products; with engine auto
+   (whether the banded gate passed, and its readings) and engine direct,
+   and the difference of the two runs; then the same pair with
+   skyparm.flux_min: 0 (every catalog source), without products.
+c. Phased-array track: config #2's array, band and catalog seen by a
+   steered MWA tile, 4 accumulations of 3,600 s: snapshot 1 equals a
+   1-accumulation run at its LST and differs from snapshot 0; two runs
+   with delay/gain errors (4 realizations) are bit-identical.
+d. External beam at config #4's width: the north star's array and band on
+   its nside-256 sky with an nside-64 chromatic HEALPix beam that this
+   script writes (the pattern of bench_configs._write_synthetic_feko), 2
+   of its 100 accumulations; each snapshot split into host weights, device
+   beam and K1a; snapshot 0 against K1a on the host ExternalBeam.evaluate
+   beam over 128 channels.
+e. Sky sectors: the slice with processing.n_sky_sectors: 3 on engine
+   auto, each sector on the banded engine without the truth beam; their
+   sum against the full run.
+
 After the phases it prints the card's name and power limit, the roofline
 share (bound / time, against the H100 data-sheet peaks) of K1a, K1b, K1c
 and K2 at the slice and the north star, and the kernels line: each
@@ -854,6 +885,511 @@ def northstar_mode_phase(label, parms, cuda, gradient):
     return dict(ms=ms, **bd)
 
 
+# --------------------------------------------------------------------------
+# Phases a-e: every beam of the dispatcher on the card, BASELINE config #2
+# at full size, a phased-array track, an external HEALPix beam at config
+# #4's width, and sky sectors
+# --------------------------------------------------------------------------
+
+# one beam on the card against the same torch code on the CPU, max|d pb| /
+# max|pb|: float32 maths, rounded by other libraries (the bar of
+# tests/test_torch_beams.py against JAX)
+BEAM_CPU_BAR = 1e-5
+# the CPU side takes every BEAM_CPU_STRIDE-th direction (a beam's rows are
+# independent of each other)
+BEAM_CPU_STRIDE = 8
+# config #2's engine auto run against its engine direct run, max|dV| /
+# max_c sum_s |A|: the gate's 2e-6, with room for the snapshots it does not
+# see
+CFG2_BAR = 1e-5
+STEER_BAR = 2e-5      # a track snapshot vs a 1-acc run at its LST, of max|V|
+SECTOR_BAR = 2e-4     # the sum of the sectors vs the full run, of max|V|
+# K1a on ExternalBeam.evaluate's float64 host beam against the route's
+# snapshot (float32 log table and weights on the card), max|dV| / max_c
+# sum_s |A|: the float32 beam's rounding (~6e-8 of its peak of 1 in a CPU
+# run at small size) with room
+EXT_HOST_BAR = 1e-6
+EXT_HOST_CHANS = (448, 576)   # the channels of that comparison
+SIDEREAL_DEG_PER_SEC = 360.0 / 86164.0905
+
+
+def beam_cases():
+    """(label, telescope, pointing_info) of every branch of the dispatcher:
+    each telescope id, each generic shape with and without a ground plane,
+    the MWA tile steered with no errors and with delay and gain errors
+    (4 realizations), an aperture of isotropic radiators alone and lit by a
+    feed, and a steered array of dipoles."""
+    from prisim_tpu_torch.beams import mwa_tile_positions
+    point = (0.1, -0.05, float(np.sqrt(1.0 - 0.1 ** 2 - 0.05 ** 2)))
+    locs = np.random.RandomState(11).uniform(-3, 3, (12, 3)) * [1, 1, 0.1]
+    steer = {"pointing_center_dircos": point}
+    cases = [("id %s" % tid, {"id": tid}, None) for tid in
+             ("vla", "gmrt", "ugmrt", "hera", "hirax", "mwa", "mwa_dipole",
+              "paper")]
+    for shape in ("delta", "dipole", "dish", "gaussian", "rect", "square"):
+        size = {"rect": (4.0, 2.0), "dipole": 0.74}.get(shape, 2.0)
+        for gp in (None, 0.3):
+            cases.append(("%s%s" % (shape, ", ground plane" if gp else ""),
+                          {"id": "custom", "shape": shape, "size": size,
+                           "groundplane": gp}, None))
+    return cases + [
+        ("mwa tile steered, no errors", {"id": "mwa"}, steer),
+        ("mwa tile steered, errors", {"id": "mwa"},
+         dict(steer, delayerr=1e-9, gainerr=0.5, nrand=4)),
+        ("aperture", {"id": "custom", "aperture_locs": locs}, steer),
+        ("aperture lit by a feed",
+         {"id": "custom", "aperture_locs": locs,
+          "feedinfo": {"shape": "dipole", "size": 1.2,
+                       "position": (0.0, 0.0, 2.0)}}, steer),
+        ("dipole array steered",
+         {"id": "custom", "shape": "dipole", "size": 0.74,
+          "element_locs": mwa_tile_positions()}, steer)]
+
+
+def beams_phase(dirs, freqs, dev):
+    """Phase a: every beam of beam_cases() on the card at the directions
+    `dirs` (S, 3) x `freqs` (C,) (float32 on `dev`; the VLA/GMRT ids 250 MHz
+    higher, where uGMRT has a band), against the same torch code on the CPU
+    on every BEAM_CPU_STRIDE-th direction (a beam with errors: both draws
+    from one CPU generator seeded 0), and each beam twice on the card with
+    its default generator, bit-identical. Checks device, dtype and shape;
+    prints each beam's card time."""
+    from prisim_tpu_torch.beams import primary_beam
+    S, C = dirs.shape[0], freqs.shape[0]
+    dirs_cpu = dirs[::BEAM_CPU_STRIDE].cpu()
+    print("beams phase: %d directions x %d channels on %s; the CPU on every "
+          "%dth direction (%d)" % (S, C, dev, BEAM_CPU_STRIDE,
+                                   dirs_cpu.shape[0]))
+    worst = 0.0
+    for label, tel, pinfo in beam_cases():
+        f = freqs + 250e6 if tel["id"] in ("vla", "gmrt", "ugmrt") else freqs
+        kw = dict(pointing_info=pinfo, band_freq=float(f[0]))
+
+        def card(**more):
+            return primary_beam(dirs, f, tel, **kw, **more)
+
+        pb = card()
+        if not (pb.device == dirs.device and pb.dtype == torch.float32
+                and pb.shape == (S, C)):
+            raise SystemExit("beam %s: %s %s %s on the card" % (
+                label, pb.device, pb.dtype, tuple(pb.shape)))
+        if not bool(torch.isfinite(pb).all()):
+            raise SystemExit("beam %s: not finite on the card" % label)
+        if not torch.equal(pb, card()):
+            raise SystemExit("beam %s: two calls differ" % label)
+        ms = cuda_time_ms(card, n=1, warm=False)
+        errors = bool(pinfo and pinfo.get("delayerr"))
+        if errors:
+            pb = card(generator=torch.Generator().manual_seed(0))
+            more = dict(generator=torch.Generator().manual_seed(0))
+        else:
+            more = {}
+        ref = primary_beam(dirs_cpu, f.cpu(), tel, **kw, **more)
+        rel = float((pb[::BEAM_CPU_STRIDE].cpu() - ref).abs().max()
+                    / ref.abs().max())
+        worst = max(worst, rel)
+        print("beam %-32s card %.4f ms, max %.4e, vs CPU max|d|/max = %.4e%s"
+              % (label, ms, float(pb.abs().max()), rel,
+                 "; two calls bit-identical" + (
+                     " (errors, nrand %d)" % pinfo["nrand"] if errors else "")))
+        if not rel <= BEAM_CPU_BAR:
+            raise SystemExit("beam %s: card vs CPU %.3e (bar %.0e)"
+                             % (label, rel, BEAM_CPU_BAR))
+        del pb, ref
+    print("beams phase: %d beams, worst card vs CPU %.4e (bar %.0e)"
+          % (len(beam_cases()), worst, BEAM_CPU_BAR))
+
+
+def engine_ran(log):
+    """The engine a run took, from its verbose log."""
+    if "falling back to the direct engine" in log:
+        return "banded, demoted to direct"
+    return "banded" if "banded NUFFT:" in log else "direct"
+
+
+def drive(label, parms, dev, save=False):
+    """run_simulation(parms) with the kernel counts set to 0 just before
+    and read just after. Prints its log, wall-clock, engine and K1a and K2
+    launches; every route of this slice launches K1a (the direct engine,
+    or the banded engine's gate). Returns (result, log, counts, seconds)."""
+    from prisim_tpu_torch.driver import run_simulation
+    log = io.StringIO()
+    zero_counts()
+    t0 = time.time()
+    with contextlib.redirect_stdout(log):
+        out = run_simulation(parms, verbose=True, save=save, device=dev)
+    wall = time.time() - t0
+    got = counts()
+    text = log.getvalue()
+    print(text.rstrip())
+    print("%s: wall-clock %.3f s, engine %s, launches K1a %d, K2 %d (%s)"
+          % (label, wall, engine_ran(text), got["k1a"], got["k2"], got))
+    if got["k1a"] == 0:
+        raise SystemExit("%s: K1a never launched" % label)
+    if engine_ran(text) == "banded" and got["k2"] == 0:
+        raise SystemExit("%s: banded run without a K2 launch" % label)
+    return out, text, got, wall
+
+
+def coherent_scale(parms, dev):
+    """The coherent flux scale of a run, max over snapshots and channels of
+    sum_s |A_sc|, and its source count."""
+    from prisim_tpu_torch.driver import prepare_simulation
+    from prisim_tpu_torch.engine.observe import (schedule_tensors,
+                                                 snapshot_nudft_inputs)
+    sim = prepare_simulation(parms, dev)
+    Mh, Ml, pch, pcl = schedule_tensors(sim.obs, sim.inst.latitude, dev)
+    best = 0.0
+    for t in range(Mh.shape[0]):
+        amps = snapshot_nudft_inputs(sim.inst, sim.sky, Mh[t], Ml[t], pch[t],
+                                     pcl[t], sim.beam_fn)[2]
+        best = max(best, float(amps.abs().sum(dim=0).max()))
+    return best, sim.sky.flux.shape[0]
+
+
+def config2_parms(root, engine, simid, nant=128, nchan=256, nsrc=4096,
+                  n_acc=10, **sections):
+    """BASELINE config #2 (MWA-128 catalog) as
+    benchmarks/bench_configs.config2 builds it: nant antennas random-uniform
+    over +-750 m from default_rng(42) (its stand-in for the MWA layout
+    file), then from the same generator the catalog of nsrc sources (RA
+    0-360, dec -80-20, Pareto(1.8) + 0.05 Jy, spectral index -0.83 +- 0.1)
+    written as a text file; mwa_dipole, chromatic; nchan x 160 kHz at 150
+    MHz; n_acc x 112 s drift from LST 0; NPZ products. `sections` update the
+    parameter sections."""
+    from prisim_tpu_torch.config import load_parms
+    rng = np.random.default_rng(42)
+    pos = np.zeros((nant, 3))
+    pos[:, :2] = rng.uniform(-750, 750, (nant, 2))
+    loc = np.stack([rng.uniform(0, 360, nsrc),
+                    rng.uniform(-80, 20, nsrc)], axis=-1)
+    flux = rng.pareto(1.8, nsrc) + 0.05
+    spindex = rng.normal(-0.83, 0.1, nsrc)
+    os.makedirs(root, exist_ok=True)
+    cat = os.path.join(root, "cfg2_catalog.txt")
+    with open(cat, "w") as f:
+        f.write("# ra dec flux spindex\n")
+        for i in range(nsrc):
+            f.write(f"{loc[i,0]:.6f} {loc[i,1]:.6f} {flux[i]:.4f} "
+                    f"{spindex[i]:.4f}\n")
+    p = {
+        "dirstruct": {"rootdir": root, "project": "bench_cfg2",
+                      "simid": simid},
+        "telescope": {"id": "mwa_dipole", "latitude": -26.7,
+                      "A_eff": 21.0, "Trx": 50.0},
+        "array": {"layout_positions": pos.tolist()},
+        "antenna": {"shape": "dipole", "size": 0.74},
+        "beam": {"use_external": False, "chromatic": True},
+        "bandpass": {"freq": 150e6, "freq_resolution": 160e3,
+                     "nchan": nchan},
+        "obsparm": {"obs_mode": "drift", "n_acc": n_acc, "t_acc": 112.0},
+        "pointing": {"lst_init": 0.0},
+        "skyparm": {"model": "custom"},
+        "catalog": {"custom_file": cat},
+        "processing": {"engine": engine},
+        "save_formats": {"fmt": "none", "npz": True},
+    }
+    for sec, val in sections.items():
+        p[sec] = dict(p.get(sec, {}), **val)
+    return load_parms(p)
+
+
+def gate_readings(dump):
+    """The banded gate's readings from its PRISIM_DEBUG_XCHECK_DUMP file."""
+    with np.load(dump) as g:
+        dmax = float(np.abs(g["fast0"] - g["direct0"]).max())
+        return ("ok=%s, max|dV|/max|V|=%.4e, /max_c sum_s|A|=%.4e, truth "
+                "amps %s, model residual %.4e"
+                % (bool(g["ok0"]), dmax / float(np.abs(g["direct0"]).max()),
+                   dmax / float(g["csA0"]), bool(g["truth_on"]),
+                   float(g["resid0"])))
+
+
+def config2_phase(root, dev, **sizes):
+    """Phase b: config #2 with engine auto (the banded engine behind its
+    gate on a card: whether the gate passed or the run was demoted, and the
+    gate's readings) and engine direct; both wall-clocks and the runs'
+    difference in both normalizations. Twice: as config2 builds it
+    (skyparm.flux_min takes its default of 10 Jy), with its NPZ products,
+    and with skyparm.flux_min: 0 (every catalog source), without products
+    (writing them takes ~30 s a run on the card machine's host). Returns
+    {cut: numbers}."""
+    out = {}
+    for cut, extra, save in (
+            ("as built", {}, True),
+            ("flux_min 0", {"skyparm": {"flux_min": 0.0}}, False)):
+        runs = {}
+        for engine in ("auto", "direct"):
+            simid = "cfg2_%s_%s" % ("all" if extra else "cut", engine)
+            parms = config2_parms(root, engine, simid, **sizes, **extra)
+            n_acc = parms["obsparm"]["n_acc"]
+            dump = os.path.join(root, simid + "_gate.npz")
+            if os.path.exists(dump):
+                os.remove(dump)
+            if engine == "auto":
+                os.environ["PRISIM_DEBUG_XCHECK_DUMP"] = dump
+            try:
+                (vs, outdir), log, got, wall = drive(
+                    "config #2 (%s), engine %s" % (cut, engine), parms, dev,
+                    save=save)
+            finally:
+                os.environ.pop("PRISIM_DEBUG_XCHECK_DUMP", None)
+            nant = len(parms["array"]["layout_positions"])
+            shape = (nant * (nant - 1) // 2, parms["bandpass"]["nchan"], n_acc)
+            assert vs.skyvis.shape == shape, (vs.skyvis.shape, shape)
+            assert np.isfinite(vs.skyvis).all() and np.isfinite(vs.vis).all()
+            if save:
+                check_products(vs, outdir, False)
+            eng = engine_ran(log)
+            if engine == "direct":
+                assert got == dict(dict.fromkeys(got, 0), k1a=n_acc), got
+            elif os.path.exists(dump):
+                print("config #2 (%s) gate: %s; %s" % (
+                    cut, gate_readings(dump), "passed" if eng == "banded"
+                    else "the run was demoted to the direct engine"))
+            runs[engine] = (vs.skyvis, wall, eng)
+        coh, nsky = coherent_scale(parms, dev)
+        d = float(np.abs(runs["auto"][0] - runs["direct"][0]).max())
+        vmax = float(np.abs(runs["direct"][0]).max())
+        print("config #2 (%s): %s bl x %d ch x %d acc, %d sources in the sky "
+              "of %d in the catalog; engine auto (%s) %.3f s, engine direct "
+              "%.3f s; auto vs direct max|dV|=%.4e  /max|V|=%.4e  "
+              "/max_c sum_s|A|=%.4e" % (
+                  cut, vs.skyvis.shape[0], vs.skyvis.shape[1],
+                  vs.skyvis.shape[2], nsky, sizes.get("nsrc", 4096),
+                  runs["auto"][2], runs["auto"][1], runs["direct"][1], d,
+                  d / vmax, d / coh))
+        if not d / coh <= CFG2_BAR:
+            raise SystemExit("config #2 (%s): auto vs direct %.3e (bar %.0e)"
+                             % (cut, d / coh, CFG2_BAR))
+        out[cut] = dict(auto_s=runs["auto"][1], direct_s=runs["direct"][1],
+                        engine=runs["auto"][2], nsky=nsky)
+        del vs, runs
+    return out
+
+
+def track_parms(root, simid, lst_init_h, n_acc, sizes, **phasedarray):
+    """Config #2's array, band and catalog seen by a steered MWA tile
+    (telescope.id: mwa, antenna.phased_array) tracking RA 30, dec -26.7
+    from lst_init_h hours in n_acc accumulations of 3,600 s; engine auto.
+    The catalog stays at its epoch (skyparm.epoch: null): a run precesses
+    it to the run's mean epoch, which differs by 1.5 h between a 4- and a
+    1-accumulation run, a shift that 1.5 km baselines resolve (~4e-5 of
+    max|V| in a CPU run at small size), where the steering check wants the
+    two runs to differ only in their pointing."""
+    return config2_parms(
+        root, "auto", simid, n_acc=n_acc, telescope={"id": "mwa"},
+        antenna={"phased_array": True},
+        phasedarray=dict({"delayerr": 0.0, "gainerr": 0.0}, **phasedarray),
+        obsparm={"obs_mode": "track", "t_acc": 3600.0},
+        pointing={"lst_init": lst_init_h,
+                  "track_init": {"ra": 30.0, "dec": -26.7}},
+        skyparm={"epoch": None}, **sizes)
+
+
+def track_phase(root, dev, **sizes):
+    """Phase c: the phased-array track in 4 accumulations; snapshot 1 equals
+    a 1-accumulation run at its LST (the pointing reaches the beam each
+    snapshot) and differs from snapshot 0; then delay and gain errors with 4
+    realizations, run twice: bit-identical, and unlike the run without
+    errors."""
+    (vs4, _), _, _, w4 = drive("phased-array track, 4 acc",
+                               track_parms(root, "track4", 0.0, 4, sizes),
+                               dev)
+    lst1 = 3600.0 * SIDEREAL_DEG_PER_SEC / 15.0
+    (vs1, _), _, _, w1 = drive("phased-array track, 1 acc at snapshot 1's "
+                               "LST", track_parms(root, "track1", lst1, 1,
+                                                  sizes), dev)
+    a, b = vs4.skyvis[..., 1], vs1.skyvis[..., 0]
+    scale = float(np.abs(a).max())
+    d1 = float(np.abs(a - b).max()) / scale
+    d0 = float(np.abs(a - vs4.skyvis[..., 0]).max()) / scale
+    print("phased-array track: snapshot 1 vs the 1-acc run at its LST "
+          "max|dV|/max|V| = %.4e (bar %.0e); vs snapshot 0 %.4e"
+          % (d1, STEER_BAR, d0))
+    if not (np.isfinite(vs4.skyvis).all() and d1 <= STEER_BAR and d0 > 1e-3):
+        raise SystemExit("phased-array track: the steering does not follow "
+                         "the snapshots")
+    err = dict(delayerr=1e-9, gainerr=0.5, nrand=4)
+    walls = []
+    vis = []
+    for k in range(2):
+        (vs, _), _, _, w = drive(
+            "phased-array track with delay/gain errors, run %d" % (k + 1),
+            track_parms(root, "track_err%d" % k, 0.0, 4, sizes, **err), dev)
+        vis.append(vs.skyvis)
+        walls.append(w)
+    same = np.array_equal(vis[0], vis[1])
+    de = float(np.abs(vis[0] - vs4.skyvis).max()) / float(
+        np.abs(vs4.skyvis).max())
+    print("phased-array track with errors (delayerr 1 ns, gainerr 0.5 dB, "
+          "nrand 4): two runs %s; vs no errors max|dV|/max|V| = %.4e"
+          % ("bit-identical" if same else "DIFFER", de))
+    if not (same and de > 1e-3):
+        raise SystemExit("phased-array errors do not repeat or do not act")
+    return dict(track_s=w4, one_s=w1, err_s=walls)
+
+
+def write_feko_like_beam(path, nside=64, freqs=np.linspace(100e6, 200e6, 8),
+                         d_eff=14.0):
+    """The chromatic beam of benchmarks/bench_configs._write_synthetic_feko
+    as a HEALPix FITS file written with the port's write_image: an
+    elliptical gaussian in sin(theta) of width ~ lambda/D (sigma 0.42
+    c / (nu D) times 1.08 and 0.94) with its first-sidelobe ripple, at the
+    model frequencies `freqs`; 1e-6 below the horizon. Returns `path`."""
+    from prisim_tpu_torch import healpix as hp
+    from prisim_tpu_torch.constants import c
+    from prisim_tpu_torch.io.fitsio import write_image
+    theta, phi = hp.pix2ang(nside, np.arange(hp.nside2npix(nside)))
+    st = np.sin(theta)
+    maps = []
+    for nu in freqs:
+        sig0 = 0.42 * c / (nu * d_eff)
+        arg = ((st * np.cos(phi)) / (1.08 * sig0)) ** 2 \
+            + ((st * np.sin(phi)) / (0.94 * sig0)) ** 2
+        gdb = -10.0 * arg / np.log(10.0) + 3.0 * np.sin(
+            4.0 * st / sig0) ** 2 * np.exp(-0.5 * arg) * 0.05
+        maps.append(10.0 ** (gdb / 10.0))
+    maps = np.stack(maps, axis=1)
+    maps[theta > 0.5 * np.pi] = 1e-6
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "wb") as fh:
+        write_image(fh, maps, primary=True)
+        write_image(fh, np.asarray(freqs), extname="FREQS")
+    return path
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def external_phase(parms, dev, host_chans=EXT_HOST_CHANS):
+    """Phase d: the external-beam route (beam.use_external with a FITS
+    file), which runs the direct engine (K1a): the run, then its snapshots
+    again as the route runs them, each split into host weights (rotate on
+    the card, fetch the directions, angular weights on the host, upload),
+    device beam (ExternalBeam.device_evaluate) and K1a; snapshot 0 against
+    the run's, and against K1a on the beam of ExternalBeam.evaluate (host,
+    float64) over the channels `host_chans`. Returns the times."""
+    from prisim_tpu_torch import geometry as geom
+    from prisim_tpu_torch.beams import ExternalBeam
+    from prisim_tpu_torch.driver import prepare_simulation
+    from prisim_tpu_torch.engine import cuda_nudft
+    from prisim_tpu_torch.engine.observe import (df_rotate3,
+                                                 schedule_tensors,
+                                                 snapshot_nudft_inputs)
+    n_acc = parms["obsparm"]["n_acc"]
+    (vs, _), _, got, wall = drive("external beam", parms, dev)
+    assert got == dict(dict.fromkeys(got, 0), k1a=n_acc), got
+    assert np.isfinite(vs.skyvis).all()
+    sim = prepare_simulation(parms, dev)
+    inst, sky = sim.inst, sim.sky
+    ext = ExternalBeam.from_fits(parms["beam"]["file"])
+    logtable = torch.as_tensor(ext.channel_table(sim.freqs), device=dev)
+    chunk = max(1, (1 << 28) // (4 * inst.nchan))
+    Mh, Ml, pch, pcl = schedule_tensors(sim.obs, inst.latitude, dev)
+    times = []
+    for t in range(n_acc):
+        sync(dev)
+        t0 = time.time()
+        sh, _ = df_rotate3(Mh[t], Ml[t], sky.s_eq_hi, sky.s_eq_lo)
+        altaz = geom.dircos2altaz(np.clip(sh.cpu().numpy().astype(
+            np.float64), -1.0, 1.0), xp=np)
+        pix, wgt = (torch.as_tensor(x, device=dev)
+                    for x in ext.interp_weights(altaz))
+        sync(dev)
+        host_s = time.time() - t0
+
+        def beam(s, f):
+            return ExternalBeam.device_evaluate(logtable, pix, wgt, chunk)
+
+        beam_ms = cuda_time_ms(lambda: beam(None, None), n=1)
+        seh, sel, amps, _ = snapshot_nudft_inputs(inst, sky, Mh[t], Ml[t],
+                                                  pch[t], pcl[t], beam)
+        args = (seh, sel, inst.bl_hi, inst.bl_lo, amps, inst.grid_scalars(),
+                inst.nchan)
+        v = cuda_nudft.nudft_cuda(*args)
+        k1a_ms = cuda_time_ms(lambda: cuda_nudft.nudft_cuda(*args), n=1,
+                              warm=False)
+        times.append(dict(host_s=host_s, beam_ms=beam_ms, k1a_ms=k1a_ms))
+        print("external beam snapshot %d: host weights %.4f s (rotate, fetch "
+              "%d directions, angular weights, upload), device beam %.4f ms "
+              "(%d source chunks), K1a %.4f ms"
+              % (t, host_s, sh.shape[0], beam_ms,
+                 -(-sh.shape[0] // chunk), k1a_ms))
+        if t == 0:
+            want = phased_snapshot0(vs, parms, v.cpu().numpy())
+            d0 = np.abs(vs.skyvis[:, :, 0] - want).max() / np.abs(want).max()
+            print("external beam snapshot 0 vs the run's: max|dV|/max|V| = "
+                  "%.3e" % d0)
+            assert d0 <= 1e-6, d0
+            c0, c1 = host_chans
+            t0 = time.time()
+            pb = ext.evaluate(altaz, sim.freqs[c0:c1])
+            eval_s = time.time() - t0
+            pb = torch.as_tensor(pb, dtype=torch.float32, device=dev)
+            fl = sky.flux[:, c0:c1]
+            amps_h = torch.where((sh[:, 2] > 0.0)[:, None], pb * fl,
+                                 torch.zeros_like(fl)).contiguous()
+            v_h = cuda_nudft.nudft_cuda(seh, sel, inst.bl_hi, inst.bl_lo,
+                                        amps_h, inst.grid_scalars(),
+                                        c1 - c0, chan0=c0)
+            coh = float(amps_h.abs().sum(dim=0).max())
+            vr = v[:, c0:c1]
+            dh = float((vr - v_h).abs().max())
+            vmax = float(vr.abs().max())
+            print("external beam snapshot 0, channels %d-%d: K1a on the host "
+                  "ExternalBeam.evaluate beam (%.2f s) vs the route's: "
+                  "max|dV|=%.4e  /max|V|=%.4e  /max_c sum_s|A|=%.4e (bar "
+                  "%.0e); max|d beam| over the sources above the horizon "
+                  "%.4e" % (c0, c1 - 1, eval_s, dh, dh / vmax, dh / coh,
+                            EXT_HOST_BAR,
+                            float((pb - beam(None, None)[:, c0:c1])[
+                                sh[:, 2] > 0].abs().max())))
+            if not dh / coh <= EXT_HOST_BAR:
+                raise SystemExit("external beam: the route disagrees with "
+                                 "the host beam: %.3e" % (dh / coh))
+            del pb, amps_h, v_h
+        del seh, sel, amps, args, v, pix, wgt
+    return dict(wall_s=wall, snapshots=times)
+
+
+def sectors_phase(parms, full, dev):
+    """Phase e: processing.n_sky_sectors on engine auto; the sum of the
+    sector outputs against the full run, and the engine of each sector (at
+    least one banded, without the float64 truth beam, which sectors never
+    take)."""
+    n = parms["processing"]["n_sky_sectors"]
+    (outs, _), log, got, wall = drive("sky sectors (%d)" % n, parms, dev)
+    assert len(outs) == n
+    parts = log.split("sky sector ")[1:]
+    plain_banded = 0
+    for k, part in enumerate(parts):
+        if outs[k] is None:
+            print("sky sector %d: no source enters it" % k)
+            continue
+        eng = engine_ran(part)
+        truth = "truth amps" in part
+        plain_banded += eng == "banded" and not truth
+        print("sky sector %d: engine %s, truth amps %s" % (k, eng, truth))
+        if truth:
+            raise SystemExit("sky sector %d took the truth beam" % k)
+    (vf, _), _, _, wall_f = drive("full sky (the sectors' reference)", full,
+                                  dev)
+    tot = sum(v.skyvis for v in outs if v is not None)
+    d = float(np.abs(tot - vf.skyvis).max())
+    rel = d / float(np.abs(vf.skyvis).max())
+    print("sky sectors: %d of %d run banded without the truth beam; sum vs "
+          "full run max|dV|/max|V| = %.4e (bar %.0e), /max_c sum_s|A| = "
+          "%.4e; %.3f s for the sectors, %.3f s for the full run"
+          % (plain_banded, n, rel, SECTOR_BAR,
+             d / coherent_scale(full, dev)[0], wall, wall_f))
+    if not (rel <= SECTOR_BAR and plain_banded >= 1):
+        raise SystemExit("sky sectors failed")
+    return dict(sectors_s=wall, full_s=wall_f)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -1023,6 +1559,44 @@ def main():
         cuda, gradient=True)
     torch.cuda.empty_cache()
     print("[north-star K1b phase: %.2f s]" % (time.time() - t0))
+
+    t0 = time.time()
+    from prisim_tpu_torch.engine.observe import df_rotate3, schedule_tensors
+    sim = prepare_simulation(direct, cuda)
+    Mh, Ml, _, _ = schedule_tensors(sim.obs, sim.inst.latitude, cuda)
+    dirs = df_rotate3(Mh[0], Ml[0], sim.sky.s_eq_hi, sim.sky.s_eq_lo)[0]
+    beams_phase(dirs.contiguous(), torch.as_tensor(
+        sim.freqs, dtype=torch.float32, device=cuda), cuda)
+    del sim, dirs
+    torch.cuda.empty_cache()
+    print("[beams phase: %.2f s]" % (time.time() - t0))
+
+    t0 = time.time()
+    config2_phase(os.path.join(out_root, "cfg2"), cuda)
+    torch.cuda.empty_cache()
+    print("[config #2 phase: %.2f s]" % (time.time() - t0))
+
+    t0 = time.time()
+    track_phase(os.path.join(out_root, "cfg2"), cuda)
+    torch.cuda.empty_cache()
+    print("[phased-array track phase: %.2f s]" % (time.time() - t0))
+
+    t0 = time.time()
+    beam = write_feko_like_beam(os.path.join(out_root, "feko_beam.fits"))
+    external_phase(northstar_parms(
+        obsparm={"n_acc": 2},
+        beam={"use_external": True, "file": beam, "chromatic": True},
+        processing={"engine": "auto"}), cuda)
+    torch.cuda.empty_cache()
+    print("[external beam phase: %.2f s]" % (time.time() - t0))
+
+    t0 = time.time()
+    sectors_phase(
+        slice_parms(out_root, have_h5py, "auto", "hera37_sectors",
+                    processing={"n_sky_sectors": 3}),
+        slice_parms(out_root, have_h5py, "auto", "hera37_sectors_full"), cuda)
+    torch.cuda.empty_cache()
+    print("[sky sectors phase: %.2f s]" % (time.time() - t0))
 
     print(smi)
     for label, ms, bd in (

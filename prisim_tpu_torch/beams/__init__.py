@@ -1,6 +1,21 @@
 """Primary beams (torch)."""
 
-from .analytic import airy_beam, bessel_j1, gaussian_beam
+from .analytic import (
+    bessel_j1, airy_beam, gaussian_beam, dipole_beam,
+    ground_plane_pattern, vla_pbcor_beam, gmrt_beam,
+    uniform_rect_aperture_beam, uniform_square_aperture_beam,
+    array_field_pattern, mwa_tile_positions,
+    generic_aperture_field_pattern, feed_illumination_of_aperture,
+    feed_aperture_combined_field_pattern,
+)
 from .dispatch import primary_beam
+from .external import ExternalBeam
 
-__all__ = ["airy_beam", "bessel_j1", "gaussian_beam", "primary_beam"]
+__all__ = ["bessel_j1", "airy_beam", "gaussian_beam", "dipole_beam",
+           "ground_plane_pattern", "vla_pbcor_beam", "gmrt_beam",
+           "uniform_rect_aperture_beam", "uniform_square_aperture_beam",
+           "array_field_pattern", "mwa_tile_positions",
+           "generic_aperture_field_pattern",
+           "feed_illumination_of_aperture",
+           "feed_aperture_combined_field_pattern", "primary_beam",
+           "ExternalBeam"]

@@ -1,12 +1,21 @@
-"""Analytic primary beams on torch tensors: Airy dish and gaussian.
+"""Analytic primary beams on torch tensors.
 
-Counterpart of the Airy/gaussian part of prisim_tpu/beams/analytic.py.
-All functions take
+Counterpart of prisim_tpu/beams/analytic.py: the Airy dish and gaussian,
+the finite dipole and its ground-plane factor, the VLA/GMRT PBCOR
+polynomials, uniform rectangular and square apertures, the beamformer
+array factor (MWA tile), arbitrary apertures of isotropic radiators and
+their feed illumination. All functions take
   dircos : (nsrc, 3) float32 direction cosines in local (E, N, U)
   freqs  : (nchan,) float32 frequencies in Hz
-and return (nsrc, nchan) float32 field or power patterns, on the device
-of `dircos`. `airy_beam_df` is the float64 truth pattern of the banded
+and return (nsrc, nchan) float32 field or power patterns (complex64
+(nsrc, nchan, nrand) fields for the array factors), on the device of
+`dircos`. `airy_beam_df` is the float64 truth pattern of the banded
 engine's truth-amps path.
+
+Random delay and gain errors are drawn from a torch.Generator; with none
+given, a fresh one seeded 0 on the tensors' device, so every call repeats
+its realization (the JAX package draws from jax.random.PRNGKey(0); the
+values differ draw for draw).
 """
 
 from __future__ import annotations
@@ -19,7 +28,12 @@ import torch
 from .. import constants as CNST
 
 __all__ = ["bessel_j1", "airy_beam", "airy_beam_df", "airy_df_available",
-           "gaussian_beam"]
+           "gaussian_beam", "dipole_beam", "ground_plane_pattern",
+           "vla_pbcor_beam", "gmrt_beam", "uniform_rect_aperture_beam",
+           "uniform_square_aperture_beam", "mwa_tile_positions",
+           "array_field_pattern", "generic_aperture_field_pattern",
+           "feed_illumination_of_aperture",
+           "feed_aperture_combined_field_pattern"]
 
 
 def _j1_cheb_coeffs(deg=26):
@@ -72,6 +86,27 @@ def bessel_j1(x):
     return torch.where(ax < 8.0, small, big)
 
 
+def _as_f32(x, device):
+    """A tensor on `device` from an array, a sequence or a tensor, in the
+    dtypes the JAX package computes in: float64 becomes float32 and
+    complex128 complex64."""
+    t = torch.as_tensor(x, device=device)
+    if t.dtype == torch.float64:
+        return t.float()
+    if t.dtype == torch.complex128:
+        return t.to(torch.complex64)
+    return t
+
+
+def _vec3(p, like):
+    """A direction (3-sequence, array or tensor) as a float32 (3,) tensor
+    on the device of `like`."""
+    if not torch.is_tensor(p):
+        p = np.asarray(p, dtype=np.float32)
+    return torch.as_tensor(p, dtype=torch.float32,
+                           device=like.device).reshape(3)
+
+
 def _offaxis_sin(dircos, pointing_dircos=None):
     """sin(angle from the beam axis) per source, and the horizon mask.
 
@@ -81,8 +116,7 @@ def _offaxis_sin(dircos, pointing_dircos=None):
         sin_t = torch.sqrt(torch.clip(dircos[:, 0] ** 2 + dircos[:, 1] ** 2,
                                       0.0, 1.0))
         return sin_t, dircos[:, 2] < 0.0
-    p = torch.as_tensor(np.asarray(pointing_dircos, dtype=np.float32),
-                        device=dircos.device).reshape(3)
+    p = _vec3(pointing_dircos, dircos)
     p = p / torch.linalg.norm(p)
     cosang = torch.clip(dircos @ p, -1.0, 1.0)
     sinang = torch.sqrt(torch.clip(1.0 - cosang ** 2, 0.0, 1.0))
@@ -187,3 +221,376 @@ def gaussian_beam(dircos, freqs, diameter, pointing_dircos=None, power=True):
     pattern = torch.exp(-0.5 * (sin_t[:, None] / sigma_dircos[None, :]) ** 2)
     pattern = torch.where(below[:, None], torch.zeros_like(pattern), pattern)
     return pattern ** 2 if power else pattern
+
+
+def dipole_beam(dircos, freqs, length, orientation_dircos=(1.0, 0.0, 0.0),
+                short_dipole=False, half_wave=False, power=True):
+    """Finite-length dipole field pattern
+      E = (cos(kh cos a) - cos(kh)) / sin a, normalized by (1 - cos kh),
+    where a is the angle between source and dipole axis."""
+    d = _vec3(orientation_dircos, dircos)
+    d = d / torch.linalg.norm(d)
+    cosa = torch.clip(dircos @ d, -1.0, 1.0)
+    sina = torch.sqrt(torch.clip(1.0 - cosa ** 2, 1e-12, 1.0))
+    shape = (dircos.shape[0], freqs.shape[0])
+    if short_dipole:
+        pattern = sina[:, None].expand(shape)
+        return pattern ** 2 if power else pattern
+    if half_wave:
+        pattern = (torch.cos(0.5 * np.pi * cosa) / sina)[:, None].expand(shape)
+        return pattern ** 2 if power else pattern
+    k = 2.0 * np.pi * freqs / CNST.c
+    kh = k * (0.5 * length)
+    maxpat = 1.0 - torch.cos(kh)
+    num = torch.cos(kh[None, :] * cosa[:, None]) - torch.cos(kh)[None, :]
+    pattern = num / sina[:, None] / maxpat[None, :]
+    # L'Hopital limit as a -> 0: kh sin(kh cos a) tan(a) -> 0
+    pattern = torch.where((torch.abs(torch.abs(cosa) - 1.0) < 1e-10)[:, None],
+                          torch.zeros_like(pattern), pattern)
+    return pattern ** 2 if power else pattern
+
+
+def ground_plane_pattern(dircos, freqs, height, modifier=None, power=False):
+    """Image-dipole ground-plane factor 2 sin(k h sin(alt)), peak-normalized."""
+    k = 2.0 * np.pi * freqs / CNST.c
+    sinalt = torch.clip(dircos[:, 2], 0.0, 1.0)
+    gp = 2.0 * torch.sin(k[None, :] * height * sinalt[:, None])
+    if modifier is not None:
+        val = 1.0 / torch.sqrt(torch.clip(torch.abs(dircos[:, 2]), min=1e-10))
+        if "scale" in modifier:
+            val = val * modifier["scale"]
+        if "max" in modifier:
+            val = torch.clip(val, 0.0, modifier["max"])
+        gp = gp * val[:, None]
+    gp = gp / (2.0 * torch.sin(k[None, :] * height))
+    return gp ** 2 if power else gp
+
+
+_VLA_FREQ_REF = np.array([0.0738, 0.3275, 1.465, 4.885, 8.435, 14.965,
+                          22.485, 43.315])
+_VLA_PARMS = np.array([
+    [-0.897, 2.71, -0.242], [-0.935, 3.23, -0.378], [-1.343, 6.579, -1.186],
+    [-1.372, 6.940, -1.309], [-1.306, 6.253, -1.100],
+    [-1.305, 6.155, -1.030], [-1.417, 7.332, -1.352],
+    [-1.321, 6.185, -0.983]])
+
+_GMRT_FREQ_REF = np.array([0.235, 0.325, 0.610, 1.420])
+_GMRT_PARMS = {
+    "gmrt": np.array([[-3.366, 46.159, -29.963, 7.529],
+                      [-3.397, 47.192, -30.931, 7.803],
+                      [-3.486, 47.749, -35.203, 10.399],
+                      [-2.27961, 21.4611, -9.7929, 1.80153]]),
+    "ugmrt": np.array([[np.nan] * 4,
+                       [-2.939, 33.312, -16.659, 3.006],
+                       [-3.190, 38.642, -20.471, 3.964],
+                       [-2.608, 27.357, -13.091, 2.365]]),
+}
+
+
+def _offaxis_deg(dircos):
+    n = torch.clip(dircos[:, 2], -1.0, 1.0)
+    return torch.rad2deg(torch.arccos(n))
+
+
+def _band_index(ref_ghz, freqs, band_freq):
+    """The PBCOR band nearest the first frequency: `band_freq` (Hz, a host
+    number) where the caller has it, else freqs[0] (a device read)."""
+    f0 = float(freqs[0]) if band_freq is None else float(band_freq)
+    return int(np.argmin(np.abs(ref_ghz - f0 / 1e9)))
+
+
+def _pbcor_x(dircos, freqs):
+    """(angle[arcmin] * freq[GHz])^2, (nsrc, nchan)."""
+    ang = _offaxis_deg(dircos)
+    f_ghz = torch.as_tensor(freqs, device=dircos.device).float() / 1e9
+    return (ang[:, None] * 60.0 * f_ghz[None, :]) ** 2
+
+
+def vla_pbcor_beam(dircos, freqs, clip_negative=True, band_freq=None):
+    """AIPS PBCOR 3-term polynomial in (angle[arcmin] * freq[GHz])^2, the
+    band selected by the first frequency (`band_freq`, see _band_index)."""
+    a1, a2, a3 = (float(a) for a in _VLA_PARMS[
+        _band_index(_VLA_FREQ_REF, freqs, band_freq)])
+    x = _pbcor_x(dircos, freqs)
+    pb = 1.0 + a1 * x / 1e3 + a2 * x ** 2 / 1e7 + a3 * x ** 3 / 1e10
+    if clip_negative:
+        pb = torch.clip(pb, min=0.0)
+    return pb
+
+
+def gmrt_beam(dircos, freqs, instrument="gmrt", clip_negative=True,
+              band_freq=None):
+    """GMRT/uGMRT PBCOR 4-term polynomial (uGMRT has no 235 MHz band: NaN
+    there, as in the reference)."""
+    a1, a2, a3, a4 = (float(a) for a in _GMRT_PARMS[instrument][
+        _band_index(_GMRT_FREQ_REF, freqs, band_freq)])
+    x = _pbcor_x(dircos, freqs)
+    pb = (1.0 + a1 * x / 1e3 + a2 * x ** 2 / 1e7 + a3 * x ** 3 / 1e10
+          + a4 * x ** 4 / 1e13)
+    if clip_negative:
+        pb = torch.clip(pb, min=0.0)
+    return pb
+
+
+def _sinc(x):
+    return torch.sinc(x)  # normalized sinc sin(pi x)/(pi x)
+
+
+def uniform_rect_aperture_beam(dircos, freqs, sides,
+                               pointing_dircos=None, power=True):
+    """sinc x sinc pattern of a uniformly illuminated rectangular aperture."""
+    wl = CNST.c / freqs
+    if pointing_dircos is None:
+        rel = dircos
+    else:
+        rel = dircos - _vec3(pointing_dircos, dircos).reshape(1, 3)
+    arg1 = sides[0] * rel[:, 0][:, None] / wl[None, :]
+    arg2 = sides[1] * rel[:, 1][:, None] / wl[None, :]
+    ab = _sinc(arg1) * _sinc(arg2)
+    ab = torch.where((dircos[:, 2] < 0.0)[:, None], torch.zeros_like(ab), ab)
+    return ab ** 2 if power else ab
+
+
+def uniform_square_aperture_beam(dircos, freqs, side, pointing_dircos=None,
+                                 power=True):
+    return uniform_rect_aperture_beam(dircos, freqs, (side, side),
+                                      pointing_dircos=pointing_dircos,
+                                      power=power)
+
+
+def mwa_tile_positions():
+    """4x4 grid of dipoles, 1.1 m spacing."""
+    x, y = np.meshgrid(1.1 * np.linspace(-1.5, 1.5, 4),
+                       1.1 * np.linspace(1.5, -1.5, 4))
+    return np.stack([x.ravel(), y.ravel(), np.zeros(16)], axis=-1)
+
+
+def _normal(shape, generator, device):
+    """Standard normal draws from `generator` (on its own device), moved to
+    `device`."""
+    return torch.randn(shape, generator=generator,
+                       device=generator.device).to(device)
+
+
+def _array_factor(geom_delay, delays, gains, freqs, nelem):
+    """(1/N) sum_a g_a exp(i 2 pi nu (geom_a + d_a)), summed element by
+    element so that the (nsrc, nelem, nchan, nrand) phase array is never
+    formed. geom_delay (nsrc, nelem); delays and gains (nelem, nchan|1,
+    nrand|1). Returns (nsrc, nchan|1, nrand|1) complex64."""
+    w = (2.0 * np.pi * freqs)[None, :, None]
+    af = None
+    for a in range(nelem):
+        phase = w * (geom_delay[:, a, None, None] + delays[a][None])
+        term = gains[a][None] * torch.polar(torch.ones_like(phase), phase)
+        af = term if af is None else af + term
+    return af / nelem
+
+
+def array_field_pattern(element_pos, dircos, freqs, pointing_dircos=None,
+                        delays=None, gains=None, delayerr=0.0, gainerr_db=0.0,
+                        nrand=1, generator=None):
+    """Beamformer array factor with optional random delay/gain errors.
+
+    AF(s, nu) = (1/N) sum_a g_a exp(i 2 pi nu (delta_a - s.x_a / c))
+    with delta_a = x_a . p / c delay compensation toward pointing p.
+    Returns (nsrc, nchan, nrand) complex64."""
+    dev = dircos.device
+    element_pos = _as_f32(element_pos, dev).float()
+    nant = element_pos.shape[0]
+    if delays is None:
+        if pointing_dircos is not None:
+            delays = (element_pos @ _vec3(pointing_dircos, dircos)) / CNST.c
+        else:
+            delays = torch.zeros(nant, device=dev)
+    else:
+        delays = _as_f32(delays, dev).reshape(nant)
+    gains = (torch.ones(nant, device=dev) if gains is None
+             else _as_f32(gains, dev).reshape(nant))
+    d = delays[:, None] + torch.zeros((nant, nrand), device=dev)
+    g = gains[:, None] + torch.zeros((nant, nrand), device=dev)
+    if delayerr > 0.0 or gainerr_db > 0.0:
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        if delayerr > 0.0:
+            d = d + delayerr * _normal((nant, nrand), generator, dev)
+        if gainerr_db > 0.0:
+            g = g * 10.0 ** ((gainerr_db / 10.0)
+                             * _normal((nant, nrand), generator, dev))
+    geom_delay = -(dircos @ element_pos.t()) / CNST.c        # (nsrc, nant)
+    return _array_factor(geom_delay, d[:, None, :], g[:, None, :], freqs,
+                         nant)
+
+
+def _bc_element_chan(x, nelem, nchan, what):
+    """Normalize per-element/per-channel tensors to (nelem|1, nchan|1):
+    scalar, (nelem,), (nchan,), (nelem, nchan), or already-3D
+    (nelem, nchan, nrand) (returned unchanged)."""
+    if x.ndim == 0:
+        return x.reshape(1, 1)
+    if x.ndim == 1:
+        if x.shape[0] == nelem:
+            return x.reshape(nelem, 1)
+        if x.shape[0] == nchan:
+            return x.reshape(1, nchan)
+        if x.shape[0] == 1:
+            return x.reshape(1, 1)
+        raise ValueError("size of %s inconsistent with elements/channels"
+                         % what)
+    if x.ndim in (2, 3):
+        return x
+    raise ValueError("%s must be scalar, 1-D, 2-D or 3-D" % what)
+
+
+def generic_aperture_field_pattern(aperture_locs, dircos, freqs,
+                                   pointing_dircos=None, delays=None,
+                                   gains=None, delayerr=0.0,
+                                   gainerr_db=0.0, nrand=1, generator=None,
+                                   power=False):
+    """Field pattern of an arbitrary aperture of isotropic radiators.
+
+    Generalizes array_field_pattern with FREQUENCY-DEPENDENT complex
+    element gains and delays: scalars, (nelem,), (nchan,),
+    (nelem, nchan), or (nelem, nchan, nrand).
+
+    AF(s, nu) = (1/N) sum_a g_a(nu) exp(i 2 pi nu (d_a(nu) - s.x_a/c)),
+    d_a defaulting to x_a.p/c delay compensation toward pointing p.
+    Returns (nsrc, nchan, nrand) complex64, or the power pattern
+    mean_nrand |AF|^2 (nsrc, nchan) when power=True."""
+    dev = dircos.device
+    aperture_locs = _as_f32(aperture_locs, dev).float()
+    if aperture_locs.shape[1] == 2:
+        aperture_locs = torch.cat(
+            [aperture_locs, torch.zeros((aperture_locs.shape[0], 1),
+                                        device=dev)], dim=1)
+    nelem = aperture_locs.shape[0]
+    nchan = freqs.shape[0]
+    if delays is None:
+        if pointing_dircos is not None:
+            p = _vec3(pointing_dircos, dircos)
+            delays = ((aperture_locs @ p) / CNST.c).reshape(nelem, 1)
+        else:
+            delays = torch.zeros((1, 1), device=dev)
+    else:
+        delays = _bc_element_chan(_as_f32(delays, dev), nelem, nchan,
+                                  "delays")
+    gains = torch.ones((1, 1), device=dev) if gains is None else \
+        _bc_element_chan(_as_f32(gains, dev), nelem, nchan, "gains")
+    if delays.ndim == 2:
+        delays = delays[:, :, None]
+    if gains.ndim == 2:
+        gains = gains[:, :, None]
+    if delayerr > 0.0 or gainerr_db > 0.0:
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        if delayerr > 0.0:
+            delays = delays + delayerr * _normal((nelem, 1, nrand),
+                                                 generator, dev)
+        if gainerr_db > 0.0:
+            gains = gains * 10.0 ** ((gainerr_db / 10.0)
+                                     * _normal((nelem, 1, nrand),
+                                               generator, dev))
+    nr = max(int(nrand), delays.shape[-1], gains.shape[-1])
+    # per-element tables broadcast over the elements (a (1, ...) table
+    # serves every element)
+    delays = delays.expand((nelem,) + delays.shape[1:])
+    gains = gains.expand((nelem,) + gains.shape[1:])
+    geom_delay = -(dircos @ aperture_locs.t()) / CNST.c      # (nsrc, nelem)
+    af = _array_factor(geom_delay, delays, gains, freqs, nelem)
+    af = af.expand(af.shape[0], nchan, nr)
+    if power:
+        return torch.mean(torch.abs(af) ** 2, dim=-1)
+    return af
+
+
+def _feed_sky_field(feedinfo, dircos, freqs, short_dipole=False,
+                    half_wave=True):
+    """Complex feed element field at the given directions: the shared
+    shape dispatch of feed_illumination_of_aperture /
+    feed_aperture_combined_field_pattern. Returns (nsrc, nchan, nrand)
+    complex64."""
+    shape = (feedinfo or {}).get("shape", "delta")
+    nsrc = dircos.shape[0]
+    nchan = freqs.shape[0]
+    if shape == "delta":
+        ep = torch.ones((nsrc, nchan), device=dircos.device)
+    elif shape == "dipole":
+        ep = dipole_beam(dircos, freqs, feedinfo["size"],
+                         orientation_dircos=feedinfo.get(
+                             "orientation_dircos", (1.0, 0.0, 0.0)),
+                         short_dipole=short_dipole, half_wave=half_wave,
+                         power=False)
+    elif shape == "dish":
+        ep = airy_beam(dircos, freqs, feedinfo["size"], power=False)
+    elif shape == "rect":
+        ep = uniform_rect_aperture_beam(dircos, freqs, feedinfo["size"],
+                                        power=False)
+    elif shape == "square":
+        ep = uniform_square_aperture_beam(dircos, freqs,
+                                          feedinfo["size"], power=False)
+    else:
+        raise ValueError("invalid feed shape %r" % shape)
+    ep = ep[:, :, None].to(torch.complex64)
+    if feedinfo.get("element_locs") is not None:
+        # phased-array feed: isotropic-radiator array factor
+        ep = ep * array_field_pattern(feedinfo["element_locs"], dircos,
+                                      freqs)
+    if feedinfo.get("groundplane") is not None and shape != "dish":
+        gp = ground_plane_pattern(dircos, freqs,
+                                  feedinfo["groundplane"],
+                                  modifier=feedinfo.get("ground_modify"),
+                                  power=False)
+        ep = ep * gp[:, :, None]
+    return ep
+
+
+def feed_illumination_of_aperture(aperture_locs, feedinfo, freqs,
+                                  short_dipole=False, half_wave=True):
+    """Complex feed illumination of aperture samples.
+
+    aperture_locs: (N, 2|3) sample positions, ENU meters. feedinfo:
+    dict with position (3,), shape, size, orientation_dircos,
+    element_locs (phased-array feed), groundplane. The feed's field
+    pattern is evaluated along the directions from the feed to each
+    sample (apertures below the feed are mirrored: the feed only points
+    upwards). freqs: (nchan,) tensor (its device is the result's).
+
+    Returns (rel_locs (N, 3) host float64, illumination (N, nchan, nrand)
+    complex64)."""
+    freqs = _as_f32(freqs, None)
+    locs = np.asarray(aperture_locs, dtype=np.float64)
+    if locs.shape[1] == 2:
+        locs = np.hstack([locs, np.zeros((locs.shape[0], 1))])
+    pos = np.asarray((feedinfo or {}).get("position") or (0.0, 0.0, 0.0),
+                     dtype=np.float64).reshape(3)
+    rel = locs - pos[None, :]
+    look = -rel if rel[:, 2].mean() < 0.0 else rel
+    r = np.linalg.norm(look, axis=1)
+    safe = np.where(r > 0, r, 1.0)
+    dirs = look / safe[:, None]
+    dirs[r == 0] = (0.0, 0.0, 1.0)          # sample at the feed: zenith
+    illum = _feed_sky_field(feedinfo, _as_f32(dirs, freqs.device), freqs,
+                            short_dipole=short_dipole, half_wave=half_wave)
+    return rel, illum
+
+
+def feed_aperture_combined_field_pattern(aperture_locs, feedinfo, dircos,
+                                         freqs, pointing_dircos=None,
+                                         short_dipole=False,
+                                         half_wave=True, power=True):
+    """Combined feed x aperture pattern: the feed's own sky field pattern
+    times the aperture array factor whose per-element complex gains are
+    the feed's illumination of the aperture samples. Returns (nsrc,
+    nchan) power (default) or (nsrc, nchan, nrand) field."""
+    rel, illum = feed_illumination_of_aperture(
+        aperture_locs, feedinfo, freqs, short_dipole=short_dipole,
+        half_wave=half_wave)
+    feed_fp = _feed_sky_field(feedinfo, dircos, freqs,
+                              short_dipole=short_dipole,
+                              half_wave=half_wave)
+    ap = generic_aperture_field_pattern(rel, dircos, freqs,
+                                        pointing_dircos=pointing_dircos,
+                                        gains=illum, power=False)
+    field = ap * feed_fp
+    if power:
+        return torch.mean(torch.abs(field) ** 2, dim=-1)
+    return field

@@ -17,6 +17,14 @@ kernel K1b) and skies with source shapes (extended sources, kernel K1c:
 the catalog and DSM FITS skies, a 7-column custom catalog) always run the
 direct engine, as the reference does.
 
+Beams: every telescope id and element shape of beams/dispatch.py, a
+phased array (antenna.phased_array, the phasedarray section) steered per
+accumulation through both engines, and external HEALPix beams
+(beam.use_external with a FITS file, or HDF5 where h5py imports), which
+always run the direct engine without gradients. processing.n_sky_sectors
+> 1 runs one simulation per azimuthal sky sector (a per-snapshot
+amplitude mask) and returns their list.
+
 The device is explicit: run_simulation(..., device="cuda") raises when no
 card is present and never carries on on the CPU. Branches that are not
 ported yet raise NotImplementedError before any compute, naming the
@@ -25,6 +33,7 @@ ROADMAP item that ports them.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import functools
 import gc
@@ -46,23 +55,25 @@ from .skymodel import (SkyModel, healpix_diffuse_model,
 from . import catalogs as CATS
 from . import geometry as geom
 from . import windows as win
-from .beams.analytic import airy_beam_df, airy_df_available
-from .beams.dispatch import check_ported as check_beam_ported
+from .beams.analytic import airy_beam_df, airy_df_available, \
+    mwa_tile_positions
 from .beams.dispatch import primary_beam
+from .beams.external import ExternalBeam
 from .config import dump_parms, load_parms
 from .engine.noise import generate_noise, thermal_noise_rms
 from .engine.nufft_banded import PlanRejected, make_banded_plan, \
     make_banded_snapshot_fns
 from .engine.nufft_delay import chebyshev_node_model, chebyshev_projection
 from .engine.observe import Instrument, Observation, SkySources, \
-    schedule_tensors, simulate_drift
+    df_rotate3, schedule_tensors, simulate_drift, simulate_snapshot
 from .vis import VisibilitySet, delay_transform, phase_centering, \
     project_baselines
 
 __all__ = ["run_simulation", "prepare_simulation", "resolve_device",
            "banded_engine",
            "build_layout", "build_frequencies", "build_schedule",
-           "build_sky", "build_tsys", "precess_sky_to_obs_epoch", "main"]
+           "build_sky", "build_observed_sky", "build_tsys",
+           "precess_sky_to_obs_epoch", "main"]
 
 SIDEREAL_DEG_PER_SEC = 360.0 / 86164.0905
 
@@ -461,6 +472,27 @@ def precess_sky_to_obs_epoch(sky, parms, obs):
         epoch_jyear=2000.0 + (jd_to - eph.JD_J2000) / 365.25)
 
 
+def build_observed_sky(parms, freqs, obs):
+    """The sky of a run: build_sky, precessed to the observing epoch and,
+    with skyparm.roi_radius, cut to the sources within that many degrees
+    of the (mean-LST) pointing center."""
+    lat = float(parms["telescope"]["latitude"])
+    sky = precess_sky_to_obs_epoch(build_sky(parms, freqs), parms, obs)
+    roi = parms["skyparm"].get("roi_radius")
+    if roi is not None:
+        pc_altaz = obs.pointing_altaz.mean(axis=0)
+        hadec = geom.altaz2hadec(pc_altaz.reshape(1, 2), lat, xp=np)
+        pc_ra = (np.mean(obs.lst_deg) - hadec[0, 0]) % 360.0
+        d = geom.sphdist(sky.location[:, 0], sky.location[:, 1],
+                         pc_ra, hadec[0, 1], xp=np)
+        sky = sky.subset(np.where(d <= float(roi))[0])
+        if sky.nsrc == 0:
+            raise ValueError(
+                "skyparm.roi_radius=%.1f deg leaves no sources in the "
+                "field of view" % float(roi))
+    return sky
+
+
 def _src_block_from_memuse(parms, nbl, nchan, nsrc):
     """processing.memuse (GB) -> source-streaming block size via the
     reference's DFT-matrix memory model (run_prisim.py:1737-1743:
@@ -624,8 +656,6 @@ def check_supported(parms, device):
         raise ValueError("processing.use_pallas: false asks for the plain "
                          "NUDFT, but on a CUDA device the direct engine "
                          "always runs kernel K1a")
-    if int(proc.get("n_sky_sectors") or 1) > 1:
-        raise _not_ported("processing.n_sky_sectors > 1", 17)
     pp = parms.get("pp") or {}
     if int(pp.get("n_chunks") or 1) > 1:
         raise _not_ported("pp.n_chunks > 1 (chunked runs)", 17)
@@ -634,23 +664,21 @@ def check_supported(parms, device):
     bm = parms.get("beam") or {}
     pol = str(bm.get("pol") or "X").upper()
     if pol in ("XY", "DUAL", "FULL"):
-        raise _not_ported("beam.pol: %s" % pol, 14)
+        raise _not_ported("beam.pol: %s" % pol, 16)
     if pol not in ("X", "Y"):
         raise ValueError("beam.pol must be X, Y, XY, or full")
-    if bm.get("use_external"):
-        raise _not_ported("beam.use_external (external beams)", 14)
-    if parms["antenna"].get("phased_array"):
-        raise _not_ported("antenna.phased_array", 14)
-    check_beam_ported(_telescope(parms))
+    from .io.hdf5 import h5py
+    if (bm.get("use_external") and bm.get("file") and h5py is None
+            and not _fits_beam(bm["file"])):
+        raise ImportError("beam.file %r is read as HDF5, which needs h5py; "
+                          "give the beam as a FITS file" % bm["file"])
     sf = parms["save_formats"]
     fmt = (sf.get("fmt") or "HDF5").lower()
     if fmt == "fits" or sf.get("uvfits") or sf.get("uvh5"):
         raise _not_ported("FITS/UVFITS/UVH5 outputs", 16)
-    if fmt == "hdf5":
-        from .io.hdf5 import h5py
-        if h5py is None:
-            raise ImportError("save_formats.fmt: HDF5 needs h5py; set "
-                              "save_formats.fmt: none to write NPZ only")
+    if fmt == "hdf5" and h5py is None:
+        raise ImportError("save_formats.fmt: HDF5 needs h5py; set "
+                          "save_formats.fmt: none to write NPZ only")
     bp = parms["bandpass"]
     if bp.get("pfb_method") == "theoretical" and bp.get("pfb_file"):
         raise _not_ported("bandpass.pfb_file (FITS PFB table)", 16)
@@ -661,27 +689,82 @@ def check_supported(parms, device):
         raise _not_ported("diagnosis.jax_profile/resource_monitor", 17)
 
 
-def _make_beam_fn(parms, telescope, freqs):
-    """beam_fn(dircos, freqs) -> (S, C) power pattern on dircos's device.
+def _fits_beam(path):
+    """Whether an external beam file is read as FITS (else HDF5)."""
+    return str(path).endswith((".fits", ".uvbeam"))
+
+
+def _pointing_info(parms, telescope, obs):
+    """The beamformer of a phased array (antenna.phased_array): element
+    positions from phasedarray.file, else the MWA tile, into
+    telescope['element_locs'], and the pointing_info dict (snapshot 0's
+    pointing, delayerr, gainerr, nrand); None for other arrays."""
+    if not parms["antenna"].get("phased_array"):
+        return None
+    pa = parms.get("phasedarray") or {}
+    if pa.get("file"):
+        elem = parse_layout_file(pa["file"], skip_rows=0)
+        telescope["element_locs"] = np.asarray(elem.positions)
+    else:
+        telescope["element_locs"] = mwa_tile_positions()
+    pc0 = geom.altaz2dircos(obs.pointing_altaz[:1], xp=np)[0]
+    return {"pointing_center_dircos": tuple(pc0),
+            "delayerr": float(pa.get("delayerr") or 0.0),
+            "gainerr": float(pa.get("gainerr") or 0.0),
+            "nrand": int(pa.get("nrand") or 1)}
+
+
+def _sector_mask(dircos, k, n_sectors):
+    """Per-snapshot azimuthal sky-sector membership, (S,) in dircos's
+    dtype: sector k of n is az in [-w/2 + k w, -w/2 + (k+1) w) and its
+    antipodal wedge, w = 180/n deg, both of which fold to
+    floor(((az + w/2) mod 180) / w) == k. Evaluated on the snapshot's
+    current direction cosines, so membership follows the drift."""
+    az = torch.rad2deg(torch.atan2(dircos[..., 0], dircos[..., 1]))
+    w = 180.0 / n_sectors
+    m = torch.remainder(az + 0.5 * w, 180.0)
+    return (torch.floor(m / w) == k).to(dircos.dtype)
+
+
+def _make_beam_fn(parms, telescope, freqs, pointing_info=None):
+    """beam_fn(dircos, freqs, pc=None) -> (S, C) power pattern on dircos's
+    device, masked to the run's sky sector (parms['_sector']) if it has
+    one. With a phased array (`pointing_info`) it carries needs_pointing,
+    and the engines pass each snapshot's pointing dircos as `pc`.
 
     Where the beam is a plain chromatic zenith Airy dish (the conditions
-    of the reference, prisim_tpu/driver.py:983-1015), it also carries
+    of the reference, prisim_tpu/driver.py:983-1015: no sector, no
+    steering, no external beam, no ground plane), it also carries
     beam_fn.df_eval(s_hi, s_lo, nu) -> (S, len(nu)) float64, the truth
     pattern of the banded engine's truth-amps path."""
     bm = parms.get("beam") or {}
     achromatic = bm.get("chromatic") is False
     sel_freq = float(bm.get("select_freq") or 150e6)
     pol = str(bm.get("pol") or "X").upper()
+    sector = parms.get("_sector")
+    band_freq = sel_freq if achromatic else float(freqs[0])
 
-    def beam_fn(dircos, f):
+    def beam_fn(dircos, f, pc=None):
+        pinfo = pointing_info
+        if pc is not None and pointing_info is not None:
+            pinfo = dict(pointing_info, pointing_center_dircos=pc)
         if achromatic:
             f1 = torch.tensor([sel_freq], dtype=torch.float32,
                               device=dircos.device)
-            pb1 = primary_beam(dircos, f1, telescope, pol=pol)
-            return pb1.expand(dircos.shape[0], f.shape[0])
-        return primary_beam(dircos, f, telescope, pol=pol)
+            pb = primary_beam(dircos, f1, telescope, pointing_info=pinfo,
+                              pol=pol, band_freq=band_freq).expand(
+                                  dircos.shape[0], f.shape[0])
+        else:
+            pb = primary_beam(dircos, f, telescope, pointing_info=pinfo,
+                              pol=pol, band_freq=band_freq)
+        if sector is not None:
+            pb = pb * _sector_mask(dircos, *sector)[:, None]
+        return pb
 
-    if not achromatic and not telescope.get("groundplane"):
+    beam_fn.needs_pointing = pointing_info is not None
+    if (sector is None and pointing_info is None and not achromatic
+            and not bm.get("use_external")
+            and not telescope.get("groundplane")):
         tid = telescope.get("id")
         odc = telescope.get("orientation_dircos")
         # hera/hirax steer the Airy axis by orientation_dircos and the
@@ -718,10 +801,10 @@ class Simulation:
     src_block: int
 
 
-def prepare_simulation(parms, device, verbose=False):
+def prepare_simulation(parms, device, verbose=False, sky=None):
     """Host builders + device upload: layout, baselines, schedule, sky
-    (precessed, roi-cut), instrument and beam. `parms` is a resolved
-    parameter dict (load_parms)."""
+    (build_observed_sky, or the given host `sky`), instrument and beam.
+    `parms` is a resolved parameter dict (load_parms)."""
     tp = parms["telescope"]
     lat = float(tp["latitude"])
     layout = build_layout(parms)
@@ -734,22 +817,10 @@ def prepare_simulation(parms, device, verbose=False):
                           direction_deg=blp.get("direction"))
     freqs = build_frequencies(parms)
     obs = build_schedule(parms, lat)
-    sky = precess_sky_to_obs_epoch(build_sky(parms, freqs), parms, obs)
-    roi = parms["skyparm"].get("roi_radius")
-    if roi is not None:
-        # restrict the catalog to sources within roi_radius degrees of
-        # the (mean-LST) pointing center
-        pc_altaz = obs.pointing_altaz.mean(axis=0)
-        hadec = geom.altaz2hadec(pc_altaz.reshape(1, 2), lat, xp=np)
-        pc_ra = (np.mean(obs.lst_deg) - hadec[0, 0]) % 360.0
-        d = geom.sphdist(sky.location[:, 0], sky.location[:, 1],
-                         pc_ra, hadec[0, 1], xp=np)
-        sky = sky.subset(np.where(d <= float(roi))[0])
-        if sky.nsrc == 0:
-            raise ValueError(
-                "skyparm.roi_radius=%.1f deg leaves no sources in the "
-                "field of view" % float(roi))
+    if sky is None:
+        sky = build_observed_sky(parms, freqs, obs)
     telescope = _telescope(parms)
+    pointing_info = _pointing_info(parms, telescope, obs)
     inst = Instrument.build(bls.vectors, freqs, device, latitude=lat,
                             longitude=float(tp.get("longitude") or 0.0),
                             altitude=float(tp.get("altitude") or 0.0),
@@ -765,7 +836,8 @@ def prepare_simulation(parms, device, verbose=False):
         print("[prisim_tpu_torch] %d bl x %d chan x %d acc, %d sources on %s"
               % (bls.nbl, freqs.size, obs.n_acc, sky.nsrc, device))
     return Simulation(layout, bls, freqs, obs, telescope, inst, sky, sks,
-                      _make_beam_fn(parms, telescope, freqs), src_block)
+                      _make_beam_fn(parms, telescope, freqs, pointing_info),
+                      src_block)
 
 
 class _EngineDemotion(Exception):
@@ -791,23 +863,26 @@ def _demote(parms, reason):
 
 
 def run_simulation(parms, outdir=None, verbose=True, save=True,
-                   device="cuda"):
+                   device="cuda", _sky_override=None):
     """Run a full simulation from a parameter source (path, YAML string
     or dict) on `device` ('cuda' or 'cpu').
 
     processing.engine 'auto' runs the banded NUFFT engine (kernel K2,
     gated against the direct engine) on a CUDA card and the direct engine
-    on the CPU; a gradient run or a sky with source shapes runs the direct
-    engine whatever the engine, and a gradient run's VisibilitySet
-    carries gradients["baseline"] (3, nbl, nchan, n_acc). Returns
-    (VisibilitySet, output_dir or None)."""
+    on the CPU; a gradient run, a sky with source shapes or an external
+    beam runs the direct engine whatever the engine, and a gradient run's
+    VisibilitySet carries gradients["baseline"] (3, nbl, nchan, n_acc).
+    Returns (VisibilitySet, output_dir or None); with
+    processing.n_sky_sectors > 1, (list of one VisibilitySet per sector,
+    None for a sector no source enters, outdir)."""
     if not isinstance(parms, dict) or "telescope" not in parms:
         parms = load_parms(parms)
     dev = resolve_device(device)
     cur = parms
     while True:
         try:
-            return _run_simulation_inner(cur, outdir, verbose, save, dev)
+            return _run_simulation_inner(cur, outdir, verbose, save, dev,
+                                         _sky_override)
         except _EngineDemotion as dem:
             cur = dem.parms
             gc.collect()
@@ -815,15 +890,76 @@ def run_simulation(parms, outdir=None, verbose=True, save=True,
                 torch.cuda.empty_cache()
 
 
-def _run_simulation_inner(parms, outdir, verbose, save, dev):
+def _run_sectors(parms, outdir, verbose, save, dev, n_sectors):
+    """processing.n_sky_sectors > 1: one simulation per azimuthal sky
+    sector (prisim_tpu/driver.py:751-802). The sector's wedge is applied
+    inside the beam as an amplitude mask on each snapshot's current source
+    azimuths; a host prefilter drops the sources that never enter the
+    sector during the scan (2-degree guard margin; the mask decides).
+    Returns (list of VisibilitySet or None, outdir)."""
+    lat = float(parms["telescope"]["latitude"])
+    obs = build_schedule(parms, lat)
+    sky = build_observed_sky(parms, build_frequencies(parms), obs)
+    w = 180.0 / n_sectors
+    lst = np.asarray(obs.lst_deg, dtype=np.float64)
+    ha = (lst[:, None] - sky.location[None, :, 0])      # (T, S) deg
+    dec = np.radians(sky.location[:, 1])[None, :]
+    lat_r = np.radians(lat)
+    har = np.radians(ha)
+    sin_alt = (np.sin(lat_r) * np.sin(dec)
+               + np.cos(lat_r) * np.cos(dec) * np.cos(har))
+    # azimuth from north, eastward (matches dircos e/n convention)
+    az = np.degrees(np.arctan2(
+        -np.cos(dec) * np.sin(har),
+        np.sin(dec) * np.cos(lat_r)
+        - np.cos(dec) * np.sin(lat_r) * np.cos(har)))
+    above = sin_alt > np.sin(np.radians(-2.0))
+    fold = np.mod(az + 0.5 * w, 180.0)
+    outs = []
+    for k in range(n_sectors):
+        # margin-expanded wedge membership at any snapshot
+        lo_k, hi_k = k * w - 2.0, (k + 1) * w + 2.0
+        inw = (fold >= lo_k) & (fold < hi_k)
+        if lo_k < 0.0:
+            inw |= fold >= lo_k + 180.0
+        if hi_k > 180.0:
+            inw |= fold < hi_k - 180.0
+        keep = np.where(np.any(inw & above, axis=0))[0]
+        if verbose:
+            print("[prisim_tpu_torch] sky sector %d of %d: %d of %d sources"
+                  % (k, n_sectors, keep.size, sky.nsrc))
+        if keep.size == 0:
+            outs.append(None)
+            continue
+        p2 = copy.deepcopy(parms)
+        p2["processing"]["n_sky_sectors"] = 1
+        p2["_sector"] = (k, n_sectors)
+        if p2["dirstruct"].get("simid"):
+            p2["dirstruct"]["simid"] += "_sector%d" % k
+        outs.append(run_simulation(
+            p2, outdir=None if outdir is None else outdir + "_sector%d" % k,
+            verbose=verbose, save=save, device=dev,
+            _sky_override=sky.subset(keep))[0])
+    return outs, outdir
+
+
+def _run_simulation_inner(parms, outdir, verbose, save, dev, sky_override):
     check_supported(parms, dev)
+    n_sectors = int(parms["processing"].get("n_sky_sectors") or 1)
+    if sky_override is None and n_sectors > 1:
+        return _run_sectors(parms, outdir, verbose, save, dev, n_sectors)
     t0 = time.time()
-    sim = prepare_simulation(parms, dev, verbose=verbose)
+    sim = prepare_simulation(parms, dev, verbose=verbose, sky=sky_override)
     _phase(verbose, "inputs built and on %s" % dev, t0)
     t1 = time.time()
     grad = bool(parms["processing"].get("gradient_mode"))
     engine = _resolve_engine(parms, dev)
-    if engine == "nufft" and (grad or sim.sky.src_shape_sigma is not None):
+    bm = parms.get("beam") or {}
+    external = bool(bm.get("use_external") and bm.get("file"))
+    if external and (engine == "nufft" or grad):
+        print("[prisim_tpu_torch] beam.use_external: the external-beam "
+              "route runs the direct engine, without gradients")
+    elif engine == "nufft" and (grad or sim.sky.src_shape_sigma is not None):
         print("[prisim_tpu_torch] %s, which the banded NUFFT engine does "
               "not compute; running the direct engine"
               % ("processing.gradient_mode asks for baseline gradients"
@@ -831,7 +967,9 @@ def _run_simulation_inner(parms, outdir, verbose, save, dev):
                  "sources)"))
         engine = "direct"
     gradients = None
-    if engine == "nufft":
+    if external:
+        vis_tbc = _simulate_external(parms, sim, verbose)
+    elif engine == "nufft":
         vis_tbc = _simulate_banded(parms, sim, verbose)
     else:
         out = simulate_drift(sim.inst, sim.sky, sim.obs, sim.beam_fn,
@@ -952,6 +1090,50 @@ def _simulate_banded(parms, sim, verbose):
         oks.append(ok)
     if not bool(torch.stack(oks).all()):
         raise _demote(parms, "banded NUFFT unit-source check failed")
+    return torch.stack(snaps)
+
+
+def _simulate_external(parms, sim, verbose):
+    """All accumulations with an external HEALPix beam
+    (prisim_tpu/driver.py:1017-1085), on the direct engine: the
+    frequency-interpolated log table goes to the device once; per
+    snapshot the sources are rotated on the device, their (S, 3) float32
+    directions fetched, the angular weights computed on the host and
+    uploaded, and ExternalBeam.device_evaluate feeds the NUDFT (K1a on a
+    card). Returns (T, B, C) complex64."""
+    bm = parms.get("beam") or {}
+    path = bm["file"]
+    ext = (ExternalBeam.from_fits(path) if _fits_beam(path)
+           else ExternalBeam.from_hdf5(path))
+    dev = sim.inst.device
+    logtable = torch.as_tensor(ext.channel_table(
+        sim.freqs, chromatic=bool(bm.get("chromatic", True)),
+        select_freq=bm.get("select_freq")), device=dev)
+    # bound the (4 x chunk, C) float32 gather of device_evaluate to 1 GiB
+    chunk = max(1, (1 << 28) // (4 * sim.freqs.size))
+    sector = parms.get("_sector")
+    if verbose:
+        print("[prisim_tpu_torch] external beam %s: nside %d, %d model "
+              "frequencies; direct engine" % (path, ext.nside,
+                                              ext.freqs.size))
+    Mh, Ml, pch, pcl = schedule_tensors(sim.obs, sim.inst.latitude, dev)
+    snaps = []
+    for t in range(sim.obs.n_acc):
+        sh, _ = df_rotate3(Mh[t], Ml[t], sim.sky.s_eq_hi, sim.sky.s_eq_lo)
+        altaz = geom.dircos2altaz(np.clip(sh.cpu().numpy().astype(
+            np.float64), -1.0, 1.0), xp=np)
+        pix, wgt = (torch.as_tensor(x, device=dev)
+                    for x in ext.interp_weights(altaz))
+
+        def beam(s, f, pix=pix, wgt=wgt):
+            pb = ExternalBeam.device_evaluate(logtable, pix, wgt, chunk)
+            if sector is not None:
+                pb = pb * _sector_mask(s, *sector)[:, None]
+            return pb
+
+        snaps.append(simulate_snapshot(sim.inst, sim.sky, Mh[t], Ml[t],
+                                       pch[t], pcl[t], beam,
+                                       src_block=sim.src_block))
     return torch.stack(snaps)
 
 

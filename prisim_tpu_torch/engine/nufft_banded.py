@@ -511,17 +511,18 @@ def _post(plan, out, Qc):
 # --------------------------------------------------------------------------
 
 def make_coeff_fn(freqs, rank, pinvQ, beam_fn, node_model=True):
-    """coeffs(sh, fx) -> (S, rank) float32 spectral coefficients of the
-    beam-weighted fluxes: the node model (beam x flux at the rank
+    """coeffs(sh, fx, pch=None) -> (S, rank) float32 spectral coefficients
+    of the beam-weighted fluxes: the node model (beam x flux at the rank
     Chebyshev nodes, the flux taken through its rank-r projection) or the
-    full-channel projection form. Carries the NodeModel (or None) as
+    full-channel projection form. pch, the snapshot's pointing dircos,
+    steers a beam_fn that needs it. Carries the NodeModel (or None) as
     ``coeffs.node_model``."""
     freqs64 = np.asarray(freqs, np.float64)
     if not node_model:
-        def coeffs(sh, fx):
+        def coeffs(sh, fx, pch=None):
             f = torch.as_tensor(freqs64, dtype=torch.float32,
                                 device=sh.device)
-            amps = _beam_and_flux(sh, fx, f, beam_fn)
+            amps = _beam_and_flux(sh, fx, f, beam_fn, pc=pch)
             return spectral_project(amps, torch.as_tensor(pinvQ,
                                                           device=sh.device))
 
@@ -530,12 +531,12 @@ def make_coeff_fn(freqs, rank, pinvQ, beam_fn, node_model=True):
 
     nm = chebyshev_node_model(freqs64, rank)
 
-    def coeffs(sh, fx):
+    def coeffs(sh, fx, pch=None):
         dev = sh.device
         fluxC = spectral_project(fx, torch.as_tensor(pinvQ, device=dev))
         fluxn = fluxC @ torch.as_tensor(nm.V, device=dev).t()
         nodes = torch.as_tensor(nm.nu_nodes, dtype=torch.float32, device=dev)
-        ampsn = _beam_and_flux(sh, fluxn, nodes, beam_fn)
+        ampsn = _beam_and_flux(sh, fluxn, nodes, beam_fn, pc=pch)
         return ampsn @ torch.as_tensor(nm.node2coef, device=dev)
 
     coeffs.node_model = nm
@@ -643,7 +644,7 @@ def make_banded_snapshot_fns(instrument, sky, beam_fn, plan, pinvQ, Q,
         if truth is not None:
             P = coeffs_df(sh, slo, fn64[sl])
         else:
-            P = coeffs(sh, flux[sl])
+            P = coeffs(sh, flux[sl], pch)
         return sl, sh, seh.contiguous(), sel.contiguous(), P
 
     def prep_chunk(c, Mh, Ml, pch, pcl):
@@ -674,8 +675,8 @@ def make_banded_snapshot_fns(instrument, sky, beam_fn, plan, pinvQ, Q,
             part = _spread(plan, u_h, u_l, P_r)
             rows = part if rows is None else rows.add_(part)
             ok = ok and bool(okc)
-            amps = _beam_and_flux(sh, flux[sl], freqs_f32,
-                                  beam_fn).contiguous()
+            amps = _beam_and_flux(sh, flux[sl], freqs_f32, beam_fn,
+                                  pc=pch).contiguous()
             if truth is None:
                 vd += direct_visibilities(seh, sel, instrument, amps,
                                           gate_src_block)

@@ -181,9 +181,16 @@ class Observation:
         return geom.altaz2dircos(self.pointing_altaz, xp=np)
 
 
-def _beam_and_flux(s_enu_hi, flux, freqs_f32, beam_fn):
-    """amps = beam(s) * flux, zeroed below the horizon."""
-    pb = beam_fn(s_enu_hi, freqs_f32)
+def _beam_and_flux(s_enu_hi, flux, freqs_f32, beam_fn, pc=None):
+    """amps = beam(s) * flux, zeroed below the horizon.
+
+    pc: the snapshot's (3,) pointing dircos tensor. A beam_fn marked
+    `needs_pointing = True` (a phased array steered per accumulation)
+    receives it as a third argument."""
+    if pc is not None and getattr(beam_fn, "needs_pointing", False):
+        pb = beam_fn(s_enu_hi, freqs_f32, pc)
+    else:
+        pb = beam_fn(s_enu_hi, freqs_f32)
     above = (s_enu_hi[:, 2] > 0.0)[:, None]
     return torch.where(above, pb * flux, torch.zeros_like(flux))
 
@@ -198,7 +205,7 @@ def snapshot_nudft_inputs(instrument, sky, Mh, Ml, pch, pcl, beam_fn):
     seh, sel = tf.df_add(sh, sl, -pch[None, :], -pcl[None, :])
     freqs_f32 = torch.as_tensor(instrument.freqs, dtype=torch.float32,
                                 device=sh.device)
-    amps = _beam_and_flux(sh, sky.flux, freqs_f32, beam_fn)
+    amps = _beam_and_flux(sh, sky.flux, freqs_f32, beam_fn, pc=pch)
     return (seh.contiguous(), sel.contiguous(), amps.contiguous(),
             sh.contiguous())
 

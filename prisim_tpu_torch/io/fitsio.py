@@ -1,8 +1,9 @@
-"""Minimal pure-numpy FITS reading and binary-table writing.
+"""Minimal pure-numpy FITS reading, binary-table and image writing.
 
 Counterpart of prisim_tpu/io/fitsio.py for the catalog skies (NVSS,
-GLEAM and DSM/GSM per-pixel tables): 2880-byte header and data blocks,
-big-endian data, BINTABLE extensions. It imports no jax, where importing
+GLEAM and DSM/GSM per-pixel tables) and the external HEALPix beams:
+2880-byte header and data blocks, big-endian data, BINTABLE and IMAGE
+extensions. It imports no jax, where importing
 prisim_tpu.io.fitsio runs prisim_tpu/io/__init__.py, which does.
 
 `write_bintable` writes the same bytes as the reference's, from one
@@ -15,7 +16,8 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["card", "format_header", "write_bintable", "read_fits"]
+__all__ = ["card", "format_header", "write_bintable", "write_image",
+           "read_fits"]
 
 BLOCK = 2880
 
@@ -103,6 +105,41 @@ def write_bintable(fh, extname, columns, extra_cards=()):
     cards.extend(extra_cards)
     fh.write(format_header(cards))
     fh.write(_pad_data(table.tobytes()))
+
+
+def write_image(fh, data=None, primary=False, extname=None,
+                extra_cards=()):
+    """Write an IMAGE HDU (primary or extension). data: ndarray or None
+    (header-only HDU). Axis order follows FITS convention (NAXIS1 is the
+    FASTEST-varying axis = the last numpy axis)."""
+    cards = []
+    if primary:
+        cards.append(card("SIMPLE", True, "conforms to FITS standard"))
+    else:
+        cards.append(card("XTENSION", "IMAGE", "image extension"))
+    if data is None:
+        cards += [card("BITPIX", 8), card("NAXIS", 0)]
+        if not primary:
+            cards += [card("PCOUNT", 0), card("GCOUNT", 1)]
+    else:
+        data = np.asarray(data)
+        if data.dtype.kind == "f":
+            dt, bitpix = (">f8", -64) if data.itemsize == 8 else \
+                (">f4", -32)
+        else:
+            dt, bitpix = ">i4", 32
+        cards += [card("BITPIX", bitpix), card("NAXIS", data.ndim)]
+        for i, n in enumerate(reversed(data.shape), 1):
+            cards.append(card("NAXIS%d" % i, int(n)))
+        if not primary:
+            cards += [card("PCOUNT", 0), card("GCOUNT", 1)]
+    if extname:
+        cards.append(card("EXTNAME", extname))
+    cards.extend(extra_cards)
+    fh.write(format_header(cards))
+    if data is not None:
+        fh.write(_pad_data(np.ascontiguousarray(data, dtype=dt)
+                           .tobytes()))
 
 
 def _parse_header(fh):

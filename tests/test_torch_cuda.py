@@ -385,3 +385,146 @@ def test_banded_run_cuda_matches_cpu(cuda, tmp_path):
                                device="cpu")
     scale = np.abs(vs_cpu.skyvis).max()
     assert np.abs(vs_gpu.skyvis - vs_cpu.skyvis).max() / scale < 1e-6
+
+
+# --------------------------------------------------------------------------
+# beams on CUDA tensors, and the beam routes of the driver on the card
+# --------------------------------------------------------------------------
+
+# a beam on the card against the same torch code on the CPU, max|d| / max:
+# float32 maths, rounded by other libraries
+BEAM_BAR = 1e-5
+_STEER = {"pointing_center_dircos": (0.1, -0.05, 0.99373)}
+_LOCS = np.random.RandomState(11).uniform(-3, 3, (12, 3)) * [1, 1, 0.1]
+_BEAMS = dict(
+    [("id_%s" % t, ({"id": t}, None)) for t in
+     ("vla", "gmrt", "ugmrt", "hera", "hirax", "mwa", "mwa_dipole", "paper")]
+    + [("%s%s" % (s, "_gp" if gp else ""),
+        ({"id": "custom", "shape": s, "groundplane": gp,
+          "size": {"rect": (4.0, 2.0), "dipole": 0.74}.get(s, 2.0)}, None))
+       for s in ("delta", "dipole", "dish", "gaussian", "rect", "square")
+       for gp in (None, 0.3)]
+    + [("mwa_steered", ({"id": "mwa"}, _STEER)),
+       ("mwa_errors", ({"id": "mwa"},
+                       dict(_STEER, delayerr=1e-9, gainerr=0.5, nrand=4))),
+       ("aperture", ({"id": "custom", "aperture_locs": _LOCS}, _STEER)),
+       ("aperture_feed", ({"id": "custom", "aperture_locs": _LOCS,
+                           "feedinfo": {"shape": "dipole", "size": 1.2,
+                                        "position": (0.0, 0.0, 2.0)}},
+                          _STEER))])
+
+
+def _beam_inputs(S=2000, C=48, seed=5):
+    rng = np.random.RandomState(seed)
+    s = rng.randn(S, 3)
+    s /= np.linalg.norm(s, axis=1, keepdims=True)
+    return (torch.as_tensor(s, dtype=torch.float32),
+            torch.as_tensor(140e6 + 0.5e6 * np.arange(C), dtype=torch.float32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(_BEAMS))
+def test_beams_on_cuda_match_cpu(cuda, name):
+    """Every branch of the dispatcher given CUDA tensors computes on the
+    card, in float32, and agrees with the CPU; a beam with errors draws
+    the same realization from one CPU generator on both, and repeats
+    itself bit for bit with its default (card) generator."""
+    from prisim_tpu_torch.beams import primary_beam
+    tel, pinfo = _BEAMS[name]
+    dc, f = _beam_inputs()
+    if tel["id"] in ("vla", "gmrt", "ugmrt"):
+        f = f + 250e6
+    gen = (lambda: torch.Generator().manual_seed(0)) if name == "mwa_errors" \
+        else (lambda: None)
+    got = primary_beam(dc.to(cuda), f.to(cuda), tel, pointing_info=pinfo,
+                       generator=gen())
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    want = primary_beam(dc, f, tel, pointing_info=pinfo, generator=gen())
+    assert got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    assert float((got.cpu() - want).abs().max()) <= BEAM_BAR * float(
+        want.abs().max())
+    a = primary_beam(dc.to(cuda), f.to(cuda), tel, pointing_info=pinfo)
+    b = primary_beam(dc.to(cuda), f.to(cuda), tel, pointing_info=pinfo)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_external_device_evaluate_cuda_matches_cpu(cuda):
+    """ExternalBeam.device_evaluate on CUDA tensors: on the card, the same
+    for every chunk of its gather, and within 1e-6 of the CPU's."""
+    from prisim_tpu_torch import healpix as hp
+    from prisim_tpu_torch.beams import ExternalBeam
+    theta, phi = hp.pix2ang(16, np.arange(hp.nside2npix(16)))
+    bf = np.asarray([120e6, 150e6, 180e6, 210e6])
+    maps = np.stack([np.exp(-(np.sin(theta) / (0.3 * 150e6 / f)) ** 2)
+                     for f in bf], axis=1)
+    ext = ExternalBeam(maps, bf)
+    rng = np.random.default_rng(5)
+    altaz = np.stack([rng.uniform(-20, 90, 3000), rng.uniform(0, 360, 3000)],
+                     axis=-1)
+    table = torch.as_tensor(ext.channel_table(150e6 + 2e5 * np.arange(64)))
+    pix, wgt = (torch.as_tensor(x) for x in ext.interp_weights(altaz))
+    want = ExternalBeam.device_evaluate(table, pix, wgt)
+    got = ExternalBeam.device_evaluate(table.to(cuda), pix.to(cuda),
+                                       wgt.to(cuda))
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    assert float((got.cpu() - want).abs().max()) <= 1e-6
+    chunked = ExternalBeam.device_evaluate(table.to(cuda), pix.to(cuda),
+                                           wgt.to(cuda), 777)
+    assert torch.equal(got, chunked)
+
+
+def _route_parms(tmp_path, case):
+    from prisim_tpu_torch.config import load_parms
+    p = {"dirstruct": {"rootdir": str(tmp_path)},
+         "telescope": {"id": "hera", "latitude": -30.7},
+         "array": {"layout": "HERA-7", "redundant": False},
+         "bandpass": {"nchan": 32, "freq_resolution": 390625.0},
+         "obsparm": {"n_acc": 2, "t_acc": 600.0},
+         "skyparm": {"model": "random", "nsrc": 96, "seed": 7},
+         "processing": {"engine": "direct"},
+         "pp": {"key": "none"},
+         "save_formats": {"fmt": "none", "npz": False}}
+    if case == "mwa_dipole":
+        p["telescope"] = {"id": "mwa_dipole", "latitude": -26.7}
+    elif case == "phased_track":
+        p["telescope"] = {"id": "mwa", "latitude": -26.7}
+        p["antenna"] = {"shape": "dipole", "size": 0.74, "phased_array": True}
+        p["obsparm"] = {"n_acc": 2, "t_acc": 3600.0, "obs_mode": "track"}
+        p["pointing"] = {"track_init": {"ra": 30.0, "dec": -26.7}}
+    elif case == "sectors":
+        p["processing"]["n_sky_sectors"] = 3
+    elif case == "external":
+        from prisim_tpu_torch import healpix as hp
+        from prisim_tpu_torch.io.fitsio import write_image
+        theta, _ = hp.pix2ang(8, np.arange(hp.nside2npix(8)))
+        path = str(tmp_path / "beam.fits")
+        with open(path, "wb") as fh:
+            write_image(fh, np.exp(-(np.sin(theta) / 0.3) ** 2)[:, None],
+                        primary=True)
+        p["beam"] = {"use_external": True, "file": path}
+        p["skyparm"] = {"model": "usm", "nside": 8}
+    return load_parms(p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["mwa_dipole", "phased_track", "sectors",
+                                  "external"])
+def test_beam_routes_cuda_match_cpu(cuda, tmp_path, case):
+    """The beam routes on the card (K1a) against the same runs on the CPU
+    (plain versions), within 1e-5 of max|V| (the float32 beams round
+    differently on the card): mwa_dipole, a steered MWA tile tracking, three
+    sky sectors (each sector), an external FITS beam."""
+    from prisim_tpu_torch.driver import run_simulation
+    parms = _route_parms(tmp_path, case)
+    n0 = nudft_cuda.launches
+    gpu, _ = run_simulation(parms, verbose=False, save=False, device="cuda")
+    assert nudft_cuda.launches > n0
+    cpu, _ = run_simulation(parms, verbose=False, save=False, device="cpu")
+    pairs = zip(gpu, cpu) if case == "sectors" else [(gpu, cpu)]
+    for g, c in pairs:
+        assert (g is None) == (c is None)
+        if g is not None:
+            scale = np.abs(c.skyvis).max()
+            assert np.abs(g.skyvis - c.skyvis).max() / scale < 1e-5

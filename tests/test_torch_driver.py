@@ -3,6 +3,7 @@ the small HERA-19 example (shrunk as tests/test_driver.py shrinks it), on
 HERA-7 gradient and extended-source runs (a 7-column custom catalog, a DSM
 FITS map, an NVSS catalog), and on the banded NUFFT engine's example."""
 
+import copy
 import dataclasses
 import os
 
@@ -36,6 +37,9 @@ def _parms(root, **over):
     p["save_formats"]["uvh5"] = False
     p["processing"]["engine"] = "direct"
     for dotted, val in over.items():
+        if "." not in dotted:
+            p[dotted] = val
+            continue
         sec, key = dotted.split(".")
         p[sec][key] = val
     return p
@@ -137,17 +141,17 @@ def test_delay_transform_matches_jax(runs):
 
 @pytest.mark.parametrize("over", [
     {"processing.engine": "nufft", "processing.nufft_spread": "sorted"},
-    {"processing.n_sky_sectors": 2},
+    {"beam.pol": "full"},
     {"beam.pol": "XY"},
-    {"beam.use_external": True},
-    {"antenna.phased_array": True},
+    {"pp.mesh_axes": ["bl"]},
+    {"plots": True},
     {"save_formats.uvfits": True},
     {"save_formats.fmt": "FITS"},
     {"pp.n_chunks": 2},
     {"skyparm.model": "hi_cube", "catalog.spectrum_file": "cube.fits"},
     {"bandpass.pfb_method": "theoretical", "bandpass.pfb_file": "pfb.fits"},
-    {"telescope.id": "mwa"},
-    {"telescope.id": "custom", "antenna.shape": "dipole"},
+    {"diagnosis.jax_profile": "profile_dir"},
+    {"save_formats.uvh5": True},
 ])
 def test_unported_branches_raise_before_compute(tmp_path, monkeypatch,
                                                 over):
@@ -568,3 +572,363 @@ def test_apply_baseline_gradients_first_order(shaped_files):
     dv_true = np.transpose(v1 - v0, (1, 2, 0))
     assert np.abs(dv_true).max() > 0
     assert np.abs(dv_pred - dv_true).max() / np.abs(dv_true).max() < 0.02
+
+
+# --------------------------------------------------------------------------
+# beams: BASELINE config #2 (mwa_dipole), phased arrays, sky sectors and
+# external HEALPix beams, each against prisim_tpu's run on the CPU
+# --------------------------------------------------------------------------
+
+# max|dskyvis| / max|skyvis| against JAX's f32 XLA engine (its own error on
+# these small sums reads up to ~4e-6 of max|V|, see JAX_F32_BAR)
+BEAM_BAR = 1e-5
+
+
+def config2_parms(root, nant=32, nchan=32, nsrc=256, n_acc=2, **sections):
+    """benchmarks/bench_configs.config2 at its --small sizes: nant
+    antennas random-uniform over +-750 m from default_rng(42), the
+    seeded Pareto catalog written as a text file, mwa_dipole, chromatic,
+    nchan x 160 kHz at 150 MHz, n_acc x 112 s; `sections` update the
+    sections. An unresolved dict: each package loads it."""
+    rng = np.random.default_rng(42)
+    pos = np.zeros((nant, 3))
+    pos[:, :2] = rng.uniform(-750, 750, (nant, 2))
+    loc = np.stack([rng.uniform(0, 360, nsrc),
+                    rng.uniform(-80, 20, nsrc)], axis=-1)
+    flux = rng.pareto(1.8, nsrc) + 0.05
+    spindex = rng.normal(-0.83, 0.1, nsrc)
+    os.makedirs(str(root), exist_ok=True)
+    cat = os.path.join(str(root), "cfg2_catalog.txt")
+    with open(cat, "w") as f:
+        f.write("# ra dec flux spindex\n")
+        for i in range(nsrc):
+            f.write(f"{loc[i,0]:.6f} {loc[i,1]:.6f} {flux[i]:.4f} "
+                    f"{spindex[i]:.4f}\n")
+    p = {
+        "dirstruct": {"rootdir": str(root), "project": "bench_cfg2"},
+        "telescope": {"id": "mwa_dipole", "latitude": -26.7,
+                      "A_eff": 21.0, "Trx": 50.0},
+        "array": {"layout_positions": pos.tolist()},
+        "antenna": {"shape": "dipole", "size": 0.74},
+        "beam": {"use_external": False, "chromatic": True},
+        "bandpass": {"freq": 150e6, "freq_resolution": 160e3,
+                     "nchan": nchan},
+        "obsparm": {"obs_mode": "drift", "n_acc": n_acc, "t_acc": 112.0},
+        "pointing": {"lst_init": 0.0},
+        "skyparm": {"model": "custom"},
+        "catalog": {"custom_file": cat},
+        "pp": {"key": "none"},
+        "save_formats": {"fmt": "none", "npz": False},
+    }
+    for sec, val in sections.items():
+        p[sec] = dict(p.get(sec, {}), **val)
+    return p
+
+
+def _phased_track(lst_init, n_acc, **phasedarray):
+    """tests/test_round4.py's phased-array track run: the MWA tile steered
+    at (ra 30, dec -26.7), HERA-7, 8 ch, 3,600 s accumulations."""
+    return {
+        "telescope": {"id": "mwa", "latitude": -26.7},
+        "antenna": {"shape": "dipole", "size": 0.74, "phased_array": True},
+        "phasedarray": dict({"delayerr": 0.0, "gainerr": 0.0}, **phasedarray),
+        "bandpass": {"nchan": 8, "freq": 150e6, "freq_resolution": 195312.5},
+        "array": {"layout": "HERA-7"},
+        "obsparm": {"n_acc": n_acc, "t_acc": 3600.0, "obs_mode": "track"},
+        "pointing": {"lst_init": lst_init,
+                     "track_init": {"ra": 30.0, "dec": -26.7}},
+        "skyparm": {"model": "random", "nsrc": 48, "seed": 3},
+        "pp": {"key": "none"},
+        "save_formats": {"fmt": "none", "npz": False},
+    }
+
+
+_SECTORS = {
+    "telescope": {"latitude": -30.0},
+    "bandpass": {"nchan": 8, "freq": 150e6, "freq_resolution": 195312.5},
+    "array": {"layout": "HERA-7"},
+    "obsparm": {"n_acc": 2, "t_acc": 3600.0},
+    "skyparm": {"model": "random", "nsrc": 96, "seed": 7},
+    "processing": {"n_sky_sectors": 3},
+    "pp": {"key": "none"},
+    "save_formats": {"fmt": "none", "npz": False},
+}
+
+
+def write_fits_beam(path, nside=8, bfreqs=(140e6, 150e6, 160e6)):
+    """An elliptical gaussian-in-sin(theta) HEALPix power beam at the
+    frequencies bfreqs, written with the port's write_image."""
+    from prisim_tpu_torch import healpix as hp
+    from prisim_tpu_torch.io.fitsio import write_image
+    theta, phi = hp.pix2ang(nside, np.arange(hp.nside2npix(nside)))
+    st = np.sin(theta)
+    maps = np.stack([np.exp(-0.5 * ((st * np.cos(phi) / 1.08) ** 2
+                                    + (st * np.sin(phi) / 0.94) ** 2)
+                            / (0.42 * 2.998e8 / (f * 14.0)) ** 2)
+                     for f in bfreqs], axis=1)
+    with open(path, "wb") as fh:
+        write_image(fh, maps, primary=True)
+        write_image(fh, np.asarray(bfreqs), extname="FREQS")
+    return str(path)
+
+
+def _external(path, **sections):
+    p = {"telescope": {"id": "hera", "latitude": -30.7},
+         "array": {"layout": "HERA-7", "redundant": False},
+         "bandpass": {"nchan": 16, "freq": 150e6,
+                      "freq_resolution": 390625.0},
+         "obsparm": {"n_acc": 2, "t_acc": 600.0},
+         "skyparm": {"model": "usm", "nside": 8},
+         "beam": {"use_external": True, "file": path, "chromatic": True},
+         "pp": {"key": "none"},
+         "save_formats": {"fmt": "none", "npz": False}}
+    for sec, val in sections.items():
+        p[sec] = dict(p.get(sec, {}), **val)
+    return p
+
+
+def _both_runs(p):
+    vj, _ = drv_jax.run_simulation(cfg_jax.load_parms(copy.deepcopy(p)),
+                                   verbose=False, save=False)
+    vt, _ = drv_t.run_simulation(cfg_t.load_parms(copy.deepcopy(p)),
+                                 verbose=False, save=False, device="cpu")
+    return vj, vt
+
+
+def _skyvis_close(vt, vj, bar=BEAM_BAR):
+    assert vt.skyvis.shape == vj.skyvis.shape
+    assert vt.skyvis.dtype == np.complex64
+    scale = np.abs(vj.skyvis).max()
+    assert scale > 0
+    assert np.abs(vt.skyvis - vj.skyvis).max() / scale < bar
+
+
+@pytest.mark.parametrize("case", ["config2_mwa_dipole", "phased_track",
+                                  "external_fits", "external_fits_achromatic",
+                                  "paper_groundplane"])
+def test_beam_routes_match_jax(tmp_path, case):
+    if case == "config2_mwa_dipole":
+        p = config2_parms(tmp_path)
+    elif case == "phased_track":
+        p = _phased_track(0.0, 2)
+    elif case.startswith("external_fits"):
+        path = write_fits_beam(tmp_path / "beam.fits")
+        p = _external(path, beam={"chromatic": case == "external_fits"})
+    else:
+        p = _external(None, telescope={"id": "paper"},
+                      antenna={"ground_plane": 0.3},
+                      beam={"use_external": False})
+    vj, vt = _both_runs(p)
+    _skyvis_close(vt, vj)
+
+
+@pytest.mark.parametrize("tid", ["vla", "gmrt", "ugmrt"])
+def test_pbcor_telescopes_run(tid):
+    """The VLA/GMRT ids run in the port's driver, the band picked from the
+    host frequencies (prisim_tpu's driver cannot run them: its PBCOR beams
+    read the traced frequencies with np.asarray inside the scan). Each
+    snapshot is its direct engine on the dispatcher's beam."""
+    from prisim_tpu_torch.beams import primary_beam
+    from prisim_tpu_torch.engine import observe
+    p = cfg_t.load_parms(_external(None, telescope={"id": tid},
+                                   bandpass={"freq": 400e6},
+                                   beam={"use_external": False},
+                                   phasing={"center": None}))
+    vs, _ = drv_t.run_simulation(p, verbose=False, save=False, device="cpu")
+    assert np.isfinite(vs.skyvis).all() and np.abs(vs.skyvis).max() > 0
+    sim = drv_t.prepare_simulation(p, torch.device("cpu"))
+    Mh, Ml, pch, pcl = observe.schedule_tensors(sim.obs, sim.inst.latitude,
+                                                "cpu")
+    v0 = observe.simulate_snapshot(
+        sim.inst, sim.sky, Mh[0], Ml[0], pch[0], pcl[0],
+        lambda s, f: primary_beam(s, f, {"id": tid})).numpy()
+    np.testing.assert_array_equal(vs.skyvis[:, :, 0], v0)
+
+
+def test_config2_shape_and_engine_auto_on_cpu(tmp_path):
+    """Config #2's --small run has 496 baselines (all pairs of a random
+    array are unique) and engine auto is the direct engine on the CPU."""
+    vs, _ = drv_t.run_simulation(cfg_t.load_parms(config2_parms(
+        tmp_path, processing={"engine": "auto"})), verbose=False, save=False,
+        device="cpu")
+    assert vs.skyvis.shape == (32 * 31 // 2, 32, 2)
+    assert np.isfinite(vs.skyvis).all()
+
+
+def test_sectors_match_jax_and_sum_to_full(tmp_path):
+    outs_j, _ = drv_jax.run_simulation(cfg_jax.load_parms(
+        copy.deepcopy(_SECTORS)), verbose=False, save=False)
+    outs_t, _ = drv_t.run_simulation(cfg_t.load_parms(
+        copy.deepcopy(_SECTORS)), verbose=False, save=False, device="cpu")
+    assert len(outs_t) == len(outs_j) == 3
+    for vt, vj in zip(outs_t, outs_j):
+        assert (vt is None) == (vj is None)
+        if vt is not None:
+            _skyvis_close(vt, vj)
+    full = dict(_SECTORS, processing={"n_sky_sectors": 1})
+    vf, _ = drv_t.run_simulation(cfg_t.load_parms(full), verbose=False,
+                                 save=False, device="cpu")
+    tot = sum(v.skyvis for v in outs_t if v is not None)
+    assert np.abs(tot - vf.skyvis).max() <= 2e-4 * np.abs(vf.skyvis).max()
+
+
+def test_sectors_save_products_per_sector(tmp_path):
+    p = cfg_t.load_parms(dict(copy.deepcopy(_SECTORS), dirstruct={
+        "rootdir": str(tmp_path), "project": "proj", "simid": "sec"},
+        save_formats={"fmt": "none", "npz": True}))
+    outs, _ = drv_t.run_simulation(p, verbose=False, device="cpu")
+    for k, vs in enumerate(outs):
+        if vs is None:
+            continue
+        npz = tmp_path / "proj" / ("sec_sector%d" % k) / "simdata" / \
+            "simvis.npz"
+        with np.load(npz) as d:
+            np.testing.assert_array_equal(d["skyvis_freq"], vs.skyvis)
+
+
+def test_phased_array_per_snapshot_pointing_both_engines():
+    """As tests/test_round4.py checks JAX: snapshot 1 of a 2-accumulation
+    track run equals a 1-accumulation run at its LST, and differs from
+    snapshot 0: on the direct engine, and on the banded engine (plain K2
+    behind its gate), whose steered amplitudes reach the node model and
+    the gate."""
+    sid = 360.0 / 86164.0905
+    runs = {}
+    for engine in ("direct", "nufft"):
+        for lst, n in ((0.0, 2), (3600.0 * sid / 15.0, 1)):
+            p = _phased_track(lst, n)
+            p["processing"] = {"engine": engine}
+            runs[engine, n], _ = drv_t.run_simulation(
+                cfg_t.load_parms(p), verbose=False, save=False, device="cpu")
+    for engine in ("direct", "nufft"):
+        a = runs[engine, 2].skyvis[..., 1]
+        b = runs[engine, 1].skyvis[..., 0]
+        scale = np.abs(a).max()
+        assert np.abs(a - b).max() <= 2e-5 * scale
+        assert np.abs(a - runs[engine, 2].skyvis[..., 0]).max() > 1e-3 * scale
+    d, n = runs["direct", 2].skyvis, runs["nufft", 2].skyvis
+    assert np.abs(d - n).max() <= 1e-5 * np.abs(d).max()
+
+
+def test_phased_array_errors_repeat_and_differ():
+    """Non-zero delay/gain errors with nrand 4: two runs bit-identical
+    (the generator is seeded 0 in every call), and unlike the error-free
+    run."""
+    p = cfg_t.load_parms(_phased_track(0.0, 2, delayerr=1e-9, gainerr=0.5,
+                                       nrand=4))
+    a, _ = drv_t.run_simulation(p, verbose=False, save=False, device="cpu")
+    b, _ = drv_t.run_simulation(p, verbose=False, save=False, device="cpu")
+    np.testing.assert_array_equal(a.skyvis, b.skyvis)
+    c, _ = drv_t.run_simulation(cfg_t.load_parms(_phased_track(0.0, 2)),
+                                verbose=False, save=False, device="cpu")
+    assert np.abs(a.skyvis - c.skyvis).max() > 1e-3 * np.abs(c.skyvis).max()
+
+
+def test_phased_array_element_file(tmp_path):
+    """phasedarray.file: element positions from a layout file (here the
+    MWA tile written out) give the default tile's run."""
+    from prisim_tpu_torch.beams import mwa_tile_positions
+    path = tmp_path / "tile.txt"
+    np.savetxt(path, np.c_[np.arange(16), mwa_tile_positions()],
+               fmt=["%d", "%.6f", "%.6f", "%.6f"])
+    a, _ = drv_t.run_simulation(cfg_t.load_parms(_phased_track(
+        0.0, 1, file=str(path))), verbose=False, save=False, device="cpu")
+    b, _ = drv_t.run_simulation(cfg_t.load_parms(_phased_track(0.0, 1)),
+                                verbose=False, save=False, device="cpu")
+    np.testing.assert_allclose(a.skyvis, b.skyvis, rtol=0,
+                               atol=1e-6 * np.abs(b.skyvis).max())
+
+
+@pytest.mark.parametrize("case", ["plain_hera", "sector", "steered",
+                                  "external"])
+def test_truth_beam_only_for_plain_dishes(tmp_path, monkeypatch, case):
+    """The float64 truth Airy (df_eval) is attached only to a plain
+    chromatic zenith dish: a sectored, steered (phased-array dish) or
+    external-beam run never takes it. A sectored HERA run on the banded
+    engine completes with the truth pattern made to raise, and its gate
+    held the f32 amps."""
+    hera = {"telescope": {"id": "hera", "latitude": -30.7},
+            "array": {"layout": "HERA-7"},
+            "bandpass": {"nchan": 32, "freq": 150e6,
+                         "freq_resolution": 390625.0},
+            "obsparm": {"n_acc": 1, "t_acc": 60.0},
+            "skyparm": {"model": "random", "nsrc": 64, "seed": 2},
+            "processing": {"engine": "nufft"},
+            "save_formats": {"fmt": "none", "npz": False}}
+    parms = cfg_t.load_parms(hera)
+    if case == "sector":
+        parms["_sector"] = (0, 2)
+    elif case == "steered":
+        parms["telescope"]["id"] = "custom"
+        parms["antenna"].update(shape="dish", size=14.0, phased_array=True)
+    elif case == "external":
+        parms["beam"].update(use_external=True,
+                             file=write_fits_beam(tmp_path / "b.fits"))
+    sim = drv_t.prepare_simulation(parms, torch.device("cpu"))
+    assert hasattr(sim.beam_fn, "df_eval") == (case == "plain_hera")
+    assert sim.beam_fn.needs_pointing == (case == "steered")
+    if case != "sector":
+        return
+
+    def no_truth(*a, **k):
+        raise AssertionError("truth beam evaluated")
+    monkeypatch.setattr(drv_t, "airy_beam_df", no_truth)
+    dump = tmp_path / "gate.npz"
+    p = cfg_t.load_parms(dict(hera, processing={"engine": "nufft",
+                                                "n_sky_sectors": 2}))
+    os.environ["PRISIM_DEBUG_XCHECK_DUMP"] = str(dump)
+    try:
+        outs, _ = drv_t.run_simulation(p, verbose=False, save=False,
+                                       device="cpu")
+    finally:
+        del os.environ["PRISIM_DEBUG_XCHECK_DUMP"]
+    assert len(outs) == 2
+    with np.load(dump) as d:
+        assert not bool(d["truth_on"]) and bool(d["ok0"])
+
+
+def test_external_beam_runs_direct_engine(tmp_path, monkeypatch, capsys):
+    """engine nufft with an external beam runs the direct engine, says so,
+    and never builds the banded engine; the same visibilities as engine
+    direct."""
+    path = write_fits_beam(tmp_path / "beam.fits")
+
+    def no_banded(*a, **k):
+        raise AssertionError("banded engine built")
+    monkeypatch.setattr(drv_t, "banded_engine", no_banded)
+    vs, _ = drv_t.run_simulation(cfg_t.load_parms(_external(
+        path, processing={"engine": "nufft"})), verbose=False, save=False,
+        device="cpu")
+    assert "external-beam route runs the direct engine" in \
+        capsys.readouterr().out
+    vd, _ = drv_t.run_simulation(cfg_t.load_parms(_external(
+        path, processing={"engine": "direct"})), verbose=False, save=False,
+        device="cpu")
+    np.testing.assert_array_equal(vs.skyvis, vd.skyvis)
+
+
+def test_hdf5_beam_without_h5py_raises_before_compute(tmp_path, monkeypatch):
+    from prisim_tpu_torch.io import hdf5 as io_hdf5
+
+    def no_compute(*a, **k):
+        raise AssertionError("compute reached")
+    monkeypatch.setattr(io_hdf5, "h5py", None)
+    monkeypatch.setattr(drv_t, "prepare_simulation", no_compute)
+    with pytest.raises(ImportError, match="h5py"):
+        drv_t.run_simulation(cfg_t.load_parms(_external(
+            str(tmp_path / "beam.hdf5"))), verbose=False, device="cpu")
+
+
+def test_external_hdf5_beam_matches_fits(tmp_path):
+    from prisim_tpu_torch.io.fitsio import read_fits
+    path = write_fits_beam(tmp_path / "beam.fits")
+    maps, bfreqs = (h["data"] for h in read_fits(path))
+    h5 = str(tmp_path / "beam.hdf5")
+    with h5py.File(h5, "w") as f:
+        f["beam"] = maps
+        f["freqs"] = bfreqs
+    a, _ = drv_t.run_simulation(cfg_t.load_parms(_external(path)),
+                                verbose=False, save=False, device="cpu")
+    b, _ = drv_t.run_simulation(cfg_t.load_parms(_external(h5)),
+                                verbose=False, save=False, device="cpu")
+    np.testing.assert_array_equal(a.skyvis, b.skyvis)

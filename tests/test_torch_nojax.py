@@ -2,8 +2,10 @@
 unavailable, as on a card machine that has none of the first three: a
 subprocess blocks the four imports, imports every module of
 prisim_tpu_torch and runs a small simulation to NPZ, with the direct
-engine, with the banded NUFFT engine, as a gradient run, and on a DSM FITS
-map that the port itself writes (extended sources)."""
+engine, with the banded NUFFT engine, as a gradient run, on a DSM FITS
+map that the port itself writes (extended sources), as a phased-array
+track, in sky sectors, and with an external FITS beam that the port
+writes."""
 
 import os
 import subprocess
@@ -36,15 +38,41 @@ SCRIPT = textwrap.dedent("""
         write_dsm_fits(path, np.ones(12 * 4 * 4), -2.55)
         sky = {"model": "dsm", "nside": 4}
         cat = {"DSM_file_prefix": path}
-    parms = load_parms({
-        "dirstruct": {"rootdir": root, "simid": "nojax"},
+    p = {
+        "dirstruct": {"rootdir": root, "project": "proj", "simid": "nojax"},
         "telescope": {"id": "hera"},
         "array": {"layout": "HERA-7", "redundant": False},
         "bandpass": {"nchan": 8, "freq_resolution": 97656.25},
         "obsparm": {"n_acc": 2, "t_acc": 60.0},
         "skyparm": sky, "catalog": cat, "processing": proc,
-        "save_formats": {"fmt": "none", "npz": True}})
+        "save_formats": {"fmt": "none", "npz": True}}
+    if mode == "phased":
+        p["telescope"] = {"id": "mwa"}
+        p["antenna"] = {"shape": "dipole", "size": 0.74,
+                        "phased_array": True}
+        p["obsparm"] = {"n_acc": 2, "t_acc": 1800.0, "obs_mode": "track"}
+        p["pointing"] = {"track_init": {"ra": 10.0, "dec": -30.0}}
+    if mode == "sectors":
+        proc["n_sky_sectors"] = 2
+    if mode == "external":
+        from prisim_tpu_torch import healpix as hp
+        from prisim_tpu_torch.io.fitsio import write_image
+        theta, _ = hp.pix2ang(8, np.arange(hp.nside2npix(8)))
+        path = root + "/beam.fits"
+        with open(path, "wb") as fh:
+            write_image(fh, np.exp(-(np.sin(theta) / 0.3) ** 2)[:, None],
+                        primary=True)
+        p["beam"] = {"use_external": True, "file": path}
+    parms = load_parms(p)
     vs, out = driver.run_simulation(parms, verbose=False, device="cpu")
+    if mode == "sectors":
+        full = dict(parms, processing=dict(proc, n_sky_sectors=1))
+        vf, _ = driver.run_simulation(full, verbose=False, save=False,
+                                      device="cpu")
+        tot = sum(v.skyvis for v in vs if v is not None)
+        print("SECTORS", len(vs), float(abs(tot - vf.skyvis).max()
+                                        / abs(vf.skyvis).max()))
+        out = root + "/proj/nojax_sector0"
     if mode == "gradient":
         print("GRAD", vs.gradients["baseline"].shape)
     if mode == "dsm":
@@ -66,7 +94,8 @@ def _run_blocked(tmp_path, mode, lines_out=None):
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     lines = dict(line.split(" ", 1) for line in proc.stdout.splitlines()
-                 if line.startswith(("LOADED", "OUT", "GRAD", "SIGMA")))
+                 if line.startswith(("LOADED", "OUT", "GRAD", "SIGMA",
+                                     "SECTORS")))
     if lines_out is not None:
         lines_out.update(lines)
     assert lines["LOADED"] == "[]"
@@ -114,6 +143,20 @@ def test_port_runs_dsm_fits_without_jax_yaml_h5py(tmp_path):
     assert 3.0 < sigma < 4.0
     usm = _run_blocked(tmp_path / "usm", "direct")
     assert np.abs(sky - usm).max() > 1e-3 * np.abs(usm).max()
+
+
+def test_port_runs_beam_routes_without_jax_yaml_h5py(tmp_path):
+    """A phased-array (MWA tile) track, two sky sectors (their sum is the
+    full run) and an external FITS beam written by the port's
+    write_image; each differs from the plain HERA run."""
+    direct = _run_blocked(tmp_path / "direct", "direct")
+    lines = {}
+    runs = {mode: _run_blocked(tmp_path / mode, mode, lines)
+            for mode in ("phased", "sectors", "external")}
+    n, rel = lines["SECTORS"].split()
+    assert int(n) == 2 and float(rel) < 2e-4
+    for mode in ("phased", "external"):
+        assert np.abs(runs[mode] - direct).max() > 1e-3 * np.abs(direct).max()
 
 
 IMPORT_ALL = textwrap.dedent("""
