@@ -65,9 +65,10 @@ started together, then:
    bit-identical, and K1b (visibilities and planes) against its plain
    version and the golden on 16 baselines over all sources.
 
-Then the beams and their routes, each run with the kernel counts set to 0
-just before it and read just after (its wall-clock, K1a and K2 launches
-and the engine that ran are printed):
+Then the beams, their routes and the polarization routes, each run with
+the kernel counts set to 0 just before it and read just after (its
+wall-clock, K1a and K2 launches and the engine that ran are printed; for a
+polarization run, also each component's):
 
 a. Beams: every branch of the dispatcher (each telescope id, each shape
    with and without a ground plane, the MWA tile steered without and with
@@ -95,6 +96,22 @@ d. External beam at config #4's width: the north star's array and band on
 e. Sky sectors: the slice with processing.n_sky_sectors: 3 on engine
    auto, each sector on the banded engine without the truth beam; their
    sum against the full run.
+f. Full polarization at full size: config #2 with beam.pol: full (default
+   feeds), engine auto, no products but the combined 4-pol UVFITS (~1 GB):
+   each of the XX, YY and XY component runs (its engine, the gate's
+   readings in both normalizations, its K1a/K2 launches and wall-clock);
+   the sign-indefinite XY component on engine direct against the banded
+   one (the gate's 2e-6 of the coherent scale); simvis_fullpol.uvfits read
+   back with load_uvfits and read_fits (XX, YY, XY = YX, equal to the
+   returned cubes); the Mueller weights of snapshot 0 on the card against
+   the CPU (1e-6 of max) and |B_XY| <= sqrt(B_XX B_YY).
+g. Dual polarization on the HERA-37 slice with array.redundant (63 unique
+   of 666 baselines), beam.pol: XY, engine auto, save_formats fmt fits +
+   uvfits, save_redundant: X against Y (a circular dish, 1e-7 of max|V|),
+   each feed's simvis.fits read back with load_fits equal to its run,
+   each simvis.uvfits on all 666 baselines (each a unique baseline's
+   rows), the combined 2-pol and 4-pol UVFITS (cross-pols flagged zeros);
+   then each product's writer timed alone.
 
 After the phases it prints the card's name and power limit, the roofline
 share (bound / time, against the H100 data-sheet peaks) of K1a, K1b, K1c
@@ -1390,6 +1407,269 @@ def sectors_phase(parms, full, dev):
     return dict(sectors_s=wall, full_s=wall_f)
 
 
+# --------------------------------------------------------------------------
+# Phases f-g: full polarization at full size on config #2, dual
+# polarization with the native FITS, UVFITS and redundant-expansion
+# products on the HERA-37 slice
+# --------------------------------------------------------------------------
+
+MUELLER_CPU_BAR = 1e-6    # Mueller weights card vs CPU, max|d B| / max|B|
+# X and Y runs of a circular dish, max|V_X - V_Y| / max|V| (the same beam)
+DISH_XY_BAR = 1e-7
+
+
+@contextlib.contextmanager
+def component_counts():
+    """Record, for every run_simulation call made inside another (the
+    polarization components of a pol run), its component (the Mueller
+    component, else beam.pol), wall-clock and kernel launches: yields the
+    list the records go into."""
+    from prisim_tpu_torch import driver as drv
+    outer = drv.run_simulation
+    records, depth = [], [0]
+
+    def run(parms, *a, **k):
+        depth[0] += 1
+        c0, t0 = counts(), time.time()
+        try:
+            return outer(parms, *a, **k)
+        finally:
+            depth[0] -= 1
+            if depth[0] > 0:
+                c1 = counts()
+                records.append(dict(
+                    comp=str(parms.get("_mueller_component")
+                             or parms["beam"]["pol"]),
+                    wall=time.time() - t0,
+                    launches={n: c1[n] - c0[n] for n in c1}))
+
+    drv.run_simulation = run
+    try:
+        yield records
+    finally:
+        drv.run_simulation = outer
+
+
+def component_logs(log):
+    """The verbose log of a pol run cut into its component runs' logs, each
+    ending at its "done in" line (a demoted attempt prints none)."""
+    parts, cur = [], []
+    for line in log.splitlines():
+        cur.append(line)
+        if line.startswith("[prisim_tpu_torch] done in"):
+            parts.append("\n".join(cur))
+            cur = []
+    return parts
+
+
+def gate_line(log):
+    """The gate's readings in both normalizations from a component's log."""
+    for line in log.splitlines():
+        if "cross-check" in line:
+            return line[line.find("(") + 1:line.rfind(")")]
+    return "no gate"
+
+
+def report_components(label, log, records):
+    """Print each component's engine, gate readings, launches and
+    wall-clock; returns {component: record with the engine}."""
+    out = {}
+    for rec, part in zip(records, component_logs(log)):
+        rec["engine"] = engine_ran(part)
+        out[rec["comp"]] = rec
+        print("%s component %s: engine %s, K1a %d, K2 %d launches, "
+              "%.3f s; gate: %s" % (label, rec["comp"], rec["engine"],
+                                    rec["launches"]["k1a"],
+                                    rec["launches"]["k2"], rec["wall"],
+                                    gate_line(part)))
+    return out
+
+
+def stokes_cube(path, npol):
+    """The (Ntimes, Nbls, Nfreq, npol) visibilities and (..., npol) weights
+    of a UVFITS file, read with the port's read_fits, un-conjugated."""
+    from prisim_tpu_torch.io.fitsio import read_fits
+    (gh,) = [h for h in read_fits(path) if "pars" in h]
+    assert int(gh["header"]["NAXIS3"]) == npol
+    d = gh["data"].reshape(gh["data"].shape[0], -1, npol, 3)
+    return np.conj(d[..., 0] + 1j * d[..., 1]), d[..., 2]
+
+
+def to_cube(v_tm, vs):
+    """(Nblts, Nfreq) time-major rows -> (nbl, nchan, n_acc)."""
+    return v_tm.reshape(vs.n_acc, vs.nbl, vs.nchan).transpose(1, 2, 0)
+
+
+def fullpol_phase(root, dev, **sizes):
+    """Phase f: beam.pol full on config #2 at full size, engine auto: the
+    XX, YY and XY component runs (each one's engine, gate readings,
+    launches), the XY component on engine direct against the banded one,
+    the combined 4-pol UVFITS read back, and the Mueller weights of
+    snapshot 0 on the card against the CPU. Returns the numbers."""
+    import copy
+    from prisim_tpu_torch.beams import mueller_unpol_weights
+    from prisim_tpu_torch.driver import prepare_simulation
+    from prisim_tpu_torch.engine.observe import df_rotate3, schedule_tensors
+    from prisim_tpu_torch.io.uvfits import load_uvfits
+    parms = config2_parms(root, "auto", "cfg2_fullpol",
+                          beam={"pol": "full"},
+                          save_formats={"fmt": "none", "npz": False},
+                          **sizes)
+    parms["save_redundant"] = False
+    with component_counts() as records:
+        (outs, outdir), log, got, wall = drive(
+            "full polarization, config #2", parms, dev, save=True)
+    comps = report_components("full polarization", log, records)
+    vs_xx, vs_yy, vs_xy = outs
+    assert [r["comp"] for r in records] == ["XX", "YY", "XY"], records
+    banded = sum(r["engine"] == "banded" for r in records)
+    export_s = wall - sum(r["wall"] for r in records)
+    print("full polarization: %d of 3 components banded; launches K1a %d, "
+          "K2 %d (expected 3 and 33 if none demotes); the combined 4-pol "
+          "UVFITS written in %.3f s (the run's wall-clock less its "
+          "components')" % (banded, got["k1a"], got["k2"], export_s))
+    for vs in outs:
+        assert np.isfinite(vs.skyvis).all() and np.isfinite(vs.vis).all()
+
+    direct = copy.deepcopy(parms)
+    direct["processing"]["engine"] = "direct"
+    direct["beam"]["pol"] = "X"
+    direct["_mueller_component"] = "XY"
+    (vd, _), _, got_d, wall_d = drive("XY component, engine direct", direct,
+                                      dev)
+    assert got_d == dict(dict.fromkeys(got_d, 0),
+                         k1a=direct["obsparm"]["n_acc"]), got_d
+    coh, _ = coherent_scale(direct, dev)
+    d = float(np.abs(vs_xy.skyvis - vd.skyvis).max())
+    vmax = float(np.abs(vd.skyvis).max())
+    print("XY component, engine %s vs direct: max|dV|=%.4e  /max|V|=%.4e  "
+          "/max_c sum_s|A|=%.4e (bar %.0e); max|V_XY|/max|V_XX| = %.4e"
+          % (comps["XY"]["engine"], d, d / vmax, d / coh, GATE_TOL,
+             vmax / float(np.abs(vs_xx.skyvis).max())))
+    if not d / coh <= GATE_TOL:
+        raise SystemExit("full polarization: the XY component on engine %s "
+                         "disagrees with engine direct: %.3e of the coherent "
+                         "scale" % (comps["XY"]["engine"], d / coh))
+
+    path = os.path.join(outdir, "simdata", "simvis_fullpol.uvfits")
+    t0 = time.time()
+    back = load_uvfits(path)
+    cube, wts = stokes_cube(path, 4)
+    read_s = time.time() - t0
+    same = [np.array_equal(to_cube(cube[..., p], vs_xx), vs.skyvis)
+            for p, vs in enumerate((vs_xx, vs_yy, vs_xy, vs_xy))]
+    print("full polarization: %s (%.1f MB) read back in %.2f s: "
+          "load_uvfits XX equal %s, XX/YY/XY/YX equal %s, weights > 0 %s"
+          % (os.path.basename(path), os.path.getsize(path) / 1e6, read_s,
+             np.array_equal(back.skyvis, vs_xx.skyvis), same,
+             bool((wts > 0).all())))
+    if not (np.array_equal(back.skyvis, vs_xx.skyvis) and all(same)
+            and (wts > 0).all()):
+        raise SystemExit("full polarization: the 4-pol UVFITS does not hold "
+                         "the simulated cubes")
+    del back, cube, wts
+
+    sim = prepare_simulation(direct, dev)
+    Mh, Ml, _, _ = schedule_tensors(sim.obs, sim.inst.latitude, dev)
+    dirs = df_rotate3(Mh[0], Ml[0], sim.sky.s_eq_hi, sim.sky.s_eq_lo)[0]
+    f32 = torch.as_tensor(sim.freqs, dtype=torch.float32, device=dev)
+    w_dev = mueller_unpol_weights(dirs, f32)
+    w_cpu = mueller_unpol_weights(dirs.cpu(), f32.cpu())
+    errs = {pq: float((w_dev[pq].cpu() - w_cpu[pq]).abs().max())
+            / float(w_cpu[pq].abs().max()) for pq in ("XX", "YY", "XY")}
+    cs = bool((w_dev["XY"].abs() <= torch.sqrt(w_dev["XX"] * w_dev["YY"])
+               * (1 + 1e-6) + 1e-7).all())
+    print("Mueller weights at snapshot 0 (%d directions x %d channels) on "
+          "the card vs the CPU, max|dB|/max|B|: %s (bar %.0e); "
+          "|B_XY| <= sqrt(B_XX B_YY): %s; B_XY in [%.4e, %.4e]"
+          % (dirs.shape[0], f32.shape[0],
+             ", ".join("%s %.4e" % kv for kv in errs.items()),
+             MUELLER_CPU_BAR, cs, float(w_dev["XY"].min()),
+             float(w_dev["XY"].max())))
+    if not (max(errs.values()) <= MUELLER_CPU_BAR and cs
+            and all(w_dev[pq].device.type == "cuda" for pq in w_dev)):
+        raise SystemExit("Mueller weights on the card disagree")
+    return dict(wall_s=wall, direct_xy_s=wall_d, export_s=export_s,
+                launches=got, components=comps)
+
+
+def dualpol_phase(parms, dev):
+    """Phase g: beam.pol XY on the HERA-37 slice with array.redundant,
+    engine auto, save_formats fmt fits + uvfits, save_redundant: each feed
+    (engine, gate, launches), X against Y, each simvis.fits read back with
+    load_fits, each simvis.uvfits on the full redundant set, the combined
+    2-pol and 4-pol UVFITS; then each product's writer timed alone."""
+    from prisim_tpu_torch import driver as drv
+    from prisim_tpu_torch.io import load_fits, save_fits
+    from prisim_tpu_torch.io.uvfits import load_uvfits, save_uvfits
+    with component_counts() as records:
+        (outs, dir_x), log, got, wall = drive("dual polarization, HERA-37 "
+                                              "redundant", parms, dev,
+                                              save=True)
+    comps = report_components("dual polarization", log, records)
+    vs_x, vs_y = outs
+    scale = float(np.abs(vs_x.skyvis).max())
+    dxy = float(np.abs(vs_x.skyvis - vs_y.skyvis).max()) / scale
+    print("dual polarization: %d unique baselines x %d ch x %d acc; X vs Y "
+          "(a circular dish) max|dV|/max|V| = %.4e (bar %.0e)"
+          % (vs_x.nbl, vs_x.nchan, vs_x.n_acc, dxy, DISH_XY_BAR))
+    if not dxy <= DISH_XY_BAR:
+        raise SystemExit("dual polarization: X and Y of a dish differ")
+    n_all = len(vs_x.layout["labels"]) * (len(vs_x.layout["labels"]) - 1) // 2
+    for vs, d in ((vs_x, dir_x), (vs_y, dir_x[:-len("_polX")] + "_polY")):
+        sd = os.path.join(d, "simdata")
+        back = load_fits(os.path.join(sd, "simvis.fits"))
+        exact = all(np.array_equal(getattr(back, n), getattr(vs, n))
+                    for n in ("skyvis", "vis", "vis_noise", "baselines",
+                              "projected_baselines", "freqs", "lst",
+                              "timestamps", "t_acc", "labels"))
+        exact &= all(np.array_equal(getattr(back, n), np.asarray(
+            getattr(vs, n), np.float32)) for n in ("bp", "bp_wts", "Tsys",
+                                                   "vis_rms"))
+        uv = load_uvfits(os.path.join(sd, "simvis.uvfits"))
+        rows = np.all(uv.skyvis[:, None] == vs.skyvis[None], axis=(2, 3))
+        expanded = bool((rows.sum(axis=1) >= 1).all()
+                        and np.unique(rows.argmax(axis=1)).size == vs.nbl)
+        print("dual polarization %s: simvis.fits equals the run %s; "
+              "simvis.uvfits %d baselines (all pairs %d), each a unique "
+              "baseline's rows: %s" % (os.path.basename(d), exact, uv.nbl,
+                                       n_all, expanded))
+        if not (exact and uv.nbl == n_all and expanded):
+            raise SystemExit("dual polarization: products disagree")
+    sd = os.path.join(dir_x, "simdata")
+    c2, w2 = stokes_cube(os.path.join(sd, "simvis_dualpol.uvfits"), 2)
+    c4, w4 = stokes_cube(os.path.join(sd, "simvis_4pol.uvfits"), 4)
+    ok = (all(np.array_equal(to_cube(c[..., p], vs_x), vs.skyvis)
+              for c in (c2, c4) for p, vs in enumerate((vs_x, vs_y)))
+          and (c4[..., 2:] == 0).all() and (w4[..., 2:] < 0).all()
+          and (w2 > 0).all())
+    print("dual polarization: combined 2-pol and 4-pol UVFITS read back, "
+          "XX/YY equal the runs and the cross-pols flagged zeros: %s" % ok)
+    if not ok:
+        raise SystemExit("dual polarization: combined exports disagree")
+    tmp = os.path.join(os.path.dirname(dir_x), "dualpol_writer_times")
+    os.makedirs(tmp, exist_ok=True)
+    times = {}
+    t0 = time.time()
+    save_fits(vs_x, os.path.join(tmp, "simvis.fits"))
+    times["simvis.fits (save_fits)"] = time.time() - t0
+    t0 = time.time()
+    vs_uv = drv._expand_redundant(vs_x)
+    times["expansion onto the redundant set"] = time.time() - t0
+    t0 = time.time()
+    save_uvfits(vs_uv, os.path.join(tmp, "simvis.uvfits"), pols=(-5,))
+    times["simvis.uvfits, %d baselines (save_uvfits)" % n_all] = \
+        time.time() - t0
+    for name, kw in (("simvis_dualpol.uvfits", {}),
+                     ("simvis_4pol.uvfits", {"four_pol": True})):
+        t0 = time.time()
+        save_uvfits(vs_x, os.path.join(tmp, name), vs_second=vs_y, **kw)
+        times[name] = time.time() - t0
+    print("dual polarization product writers (host): %s"
+          % "; ".join("%s %.3f s" % kv for kv in times.items()))
+    return dict(wall_s=wall, launches=got, components=comps, writers=times)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -1597,6 +1877,19 @@ def main():
         slice_parms(out_root, have_h5py, "auto", "hera37_sectors_full"), cuda)
     torch.cuda.empty_cache()
     print("[sky sectors phase: %.2f s]" % (time.time() - t0))
+
+    t0 = time.time()
+    fullpol_phase(os.path.join(out_root, "cfg2"), cuda)
+    torch.cuda.empty_cache()
+    print("[full polarization phase: %.2f s]" % (time.time() - t0))
+
+    t0 = time.time()
+    dualpol_phase(slice_parms(
+        out_root, have_h5py, "auto", "hera37_dualpol",
+        array={"layout": "HERA-37", "redundant": True}, beam={"pol": "XY"},
+        save_formats={"fmt": "fits", "npz": False, "uvfits": True}), cuda)
+    torch.cuda.empty_cache()
+    print("[dual polarization phase: %.2f s]" % (time.time() - t0))
 
     print(smi)
     for label, ms, bd in (

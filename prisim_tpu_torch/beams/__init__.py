@@ -10,6 +10,7 @@ from .analytic import (
 )
 from .dispatch import primary_beam
 from .external import ExternalBeam
+from .jones import dipole_jones, mueller_from_jones, mueller_unpol_weights
 
 __all__ = ["bessel_j1", "airy_beam", "gaussian_beam", "dipole_beam",
            "ground_plane_pattern", "vla_pbcor_beam", "gmrt_beam",
@@ -18,4 +19,5 @@ __all__ = ["bessel_j1", "airy_beam", "gaussian_beam", "dipole_beam",
            "generic_aperture_field_pattern",
            "feed_illumination_of_aperture",
            "feed_aperture_combined_field_pattern", "primary_beam",
-           "ExternalBeam"]
+           "ExternalBeam", "dipole_jones", "mueller_unpol_weights",
+           "mueller_from_jones"]

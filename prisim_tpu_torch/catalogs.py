@@ -1,5 +1,5 @@
-"""Survey catalog readers: SUMSS, NVSS, GLEAM, MWACS and DSM/GSM per-pixel
-FITS tables.
+"""Survey catalog readers: SUMSS, NVSS, GLEAM, MWACS, DSM/GSM per-pixel
+FITS tables and FITS HI cubes.
 
 Counterpart of prisim_tpu/catalogs.py. The text readers (SUMSS, MWACS),
 the flux cut and the power-law model builder are copies of its own; the
@@ -20,7 +20,8 @@ from .io import fitsio
 from .skymodel import SkyModel
 
 __all__ = ["read_sumss", "read_nvss", "read_gleam", "read_mwacs",
-           "read_dsm_fits", "write_dsm_fits", "flux_cut"]
+           "read_dsm_fits", "write_dsm_fits", "read_hi_cube_fits",
+           "flux_cut"]
 
 
 def _powerlaw_model(ra, dec, flux, freq_ref, spindex, src_shape=None,
@@ -244,3 +245,60 @@ def write_dsm_fits(path, temp, spindex, map_freq=150e6):
             ("T_%.0f" % (map_freq / 1e6), "1D", temp),
             ("spindex", "1D", np.broadcast_to(
                 np.asarray(spindex, dtype=np.float64), temp.shape))])
+
+
+def read_hi_cube_fits(path, center_freq, fluctuations=False):
+    """HI lightcone / EoR simulation cube from FITS.
+
+    Format per the reference's use_HI_cube/use_HI_fluctuations branch
+    (PRISim's scripts/run_prisim.py:1020-1065): primary header has
+    NEXTEN, FITSTYPE and PIXAREA; FITSTYPE='IMAGE' carries a FREQUENCY
+    bintable (column 'Frequency [MHz]') plus a TEMPERATURE image
+    (npix, nf) and a COORDINATE bintable (RA, DEC); other FITSTYPEs store
+    one bintable per frequency with a 'Temperature' column and
+    '<MHz> ...' EXTNAMEs. Temperatures (K) convert to pixel fluxes with
+    the center-frequency Rayleigh-Jeans factor (run_prisim.py:1053, which
+    uses the single band-center freq). fluctuations=True subtracts the
+    per-channel mean map (use_HI_fluctuations, run_prisim.py:1046-1047).
+
+    Returns a tabulated-spectrum SkyModel (Jy); frequency interpolation
+    onto the simulated channels happens in SkyModel.generate_spectrum."""
+    hdus = fitsio.read_fits(path)
+    hdr0 = hdus[0]["header"]
+    pixarea = float(hdr0["PIXAREA"])
+    fitstype = str(hdr0.get("FITSTYPE", "IMAGE")).strip()
+    by_name = {str(h["header"].get("EXTNAME", "")).strip(): h
+               for h in hdus[1:]}
+    coords = by_name["COORDINATE"]["columns"]
+    ra = np.asarray(coords["RA"], dtype=np.float64)
+    dec = np.asarray(coords["DEC"], dtype=np.float64)
+    if fitstype.upper() == "IMAGE":
+        fcols = by_name["FREQUENCY"]["columns"]
+        fkey = [k for k in fcols if k.lower().startswith("freq")][0]
+        freqs_mhz = np.asarray(fcols[fkey], dtype=np.float64)
+        temp = np.asarray(by_name["TEMPERATURE"]["data"],
+                          dtype=np.float64)
+        if temp.shape[0] == freqs_mhz.size and \
+                temp.shape[-1] != freqs_mhz.size:
+            temp = temp.T                          # (npix, nf)
+    else:
+        items = []
+        for name, h in by_name.items():
+            if "columns" in h and "Temperature" in h["columns"]:
+                try:
+                    fmhz = float(name.split(" ")[0])
+                except ValueError:
+                    continue
+                items.append((fmhz, np.asarray(h["columns"]["Temperature"],
+                                               dtype=np.float64)))
+        items.sort(key=lambda t: t[0])
+        freqs_mhz = np.asarray([t[0] for t in items])
+        temp = np.stack([t[1] for t in items], axis=1)
+    if fluctuations:
+        temp = temp - temp.mean(axis=0, keepdims=True)
+    flux = temp * (2.0 * CNST.k_B * float(center_freq) ** 2
+                   / CNST.c ** 2) * pixarea / CNST.Jy
+    return SkyModel(location=np.stack([ra, dec], axis=-1),
+                    spec_kind="spectrum", spectrum=flux,
+                    freqs_model=freqs_mhz * 1e6,
+                    name="HI_fluctuations" if fluctuations else "HI_cube")

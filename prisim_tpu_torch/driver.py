@@ -5,7 +5,8 @@ Counterpart of prisim_tpu/driver.py on one device:
   load_parms -> layout (+ perturbations) -> baselines -> frequency grid
   -> observation schedule (drift|track|file) -> sky model (+ precession,
   roi_radius) -> beam -> drift scan -> Tsys/noise -> gains -> phasing ->
-  projection -> optional delay transform -> HDF5/NPZ + metadata.
+  projection -> optional delay transform -> products (HDF5, NPZ, native
+  FITS, UVFITS, UVH5, figures) + metadata.
 
 The drift scan runs one of two engines (processing.engine): the direct
 NUDFT (kernel K1a on a CUDA card, its plain version on the CPU) or the
@@ -23,11 +24,16 @@ accumulation through both engines, and external HEALPix beams
 (beam.use_external with a FITS file, or HDF5 where h5py imports), which
 always run the direct engine without gradients. processing.n_sky_sectors
 > 1 runs one simulation per azimuthal sky sector (a per-snapshot
-amplitude mask) and returns their list.
+amplitude mask) and returns their list. beam.pol: XY (or dual) runs the X
+and Y feeds as two simulations, beam.pol: full the XX, YY and XY Mueller
+weights of crossed dipoles (beams/jones.py) as three, each through the
+same engines (the XY weight is sign-indefinite), and writes the combined
+2-pol and 4-pol UVFITS (and UVH5, where save_formats.uvh5 asks for it).
 
 The device is explicit: run_simulation(..., device="cuda") raises when no
 card is present and never carries on on the CPU. Branches that are not
-ported yet raise NotImplementedError before any compute, naming the
+ported yet (the sorted spread, multi-device and chunked runs,
+diagnostics) raise NotImplementedError before any compute, naming the
 ROADMAP item that ports them.
 """
 
@@ -46,7 +52,7 @@ import torch
 
 from . import __version__
 from . import healpix as hp
-from .baselines import build_baselines
+from .baselines import baseline_generator, build_baselines, uniq_baselines
 from .gains import GainInfo, apply_gains
 from .layouts import ArrayLayout, parse_layout_file, preset_layout
 from .skymodel import (SkyModel, healpix_diffuse_model,
@@ -59,6 +65,7 @@ from .beams.analytic import airy_beam_df, airy_df_available, \
     mwa_tile_positions
 from .beams.dispatch import primary_beam
 from .beams.external import ExternalBeam
+from .beams.jones import mueller_unpol_weights
 from .config import dump_parms, load_parms
 from .engine.noise import generate_noise, thermal_noise_rms
 from .engine.nufft_banded import PlanRejected, make_banded_plan, \
@@ -276,9 +283,9 @@ def build_sky(parms, freqs):
     'custom' (ascii catalog: RA DEC FLUX [SPINDEX] [MAJAX MINAX PA]), the
     survey catalogs 'sumss', 'nvss', 'gleam', 'mwacs' and their merges
     'csm' (SUMSS + NVSS) and 'asm' (csm + the DSM map), 'hi_monopole',
-    'noise', 'skymod_hdf5' (native SkyModel HDF5), 'hi_cube' from npz, and
-    'usm'/'hpx'/'dsm'/'gsm' HEALPix maps from .npy/.npz or per-pixel DSM
-    FITS tables. FITS HI cubes raise."""
+    'noise', 'skymod_hdf5' (native SkyModel HDF5), 'hi_cube' from FITS
+    simulation cubes or npz, and 'usm'/'hpx'/'dsm'/'gsm' HEALPix maps from
+    .npy/.npz or per-pixel DSM FITS tables."""
     sp = parms["skyparm"]
     cat = parms["catalog"]
     model = (sp.get("model") or "custom").lower()
@@ -395,18 +402,23 @@ def build_sky(parms, freqs):
     elif model in ("skymod_hdf5", "hdf5"):
         sm = SkyModel.load_hdf5(cat["skymod_file"])
     elif model in ("hi_cube", "hi_fluctuations", "lidz", "21cmfast"):
-        # HI lightcone cube: npz with 'maps' (npix, nf) + 'freqs'
+        # HI lightcone cube: FITS simulation cubes (Lidz/21cmFAST,
+        # run_prisim.py:1020-1065) or npz with 'maps' (npix, nf) HEALPix
+        # brightness maps + 'freqs'
         path = cat.get("spectrum_file") or cat.get("skymod_file")
         if not path:
             raise ValueError("catalog.spectrum_file required for HI cube")
         if str(path).endswith((".fits", ".FITS")):
-            raise _not_ported("FITS HI cubes (catalog readers)", 16)
-        with np.load(path) as d:
-            maps = d["maps"]
-            fmdl = d["freqs"]
-        if model == "hi_fluctuations":
-            maps = maps - maps.mean(axis=0, keepdims=True)
-        sm = healpix_diffuse_model(maps, freqs_model=fmdl)
+            sm = CATS.read_hi_cube_fits(
+                path, center_freq=float(parms["bandpass"]["freq"]),
+                fluctuations=(model == "hi_fluctuations"))
+        else:
+            with np.load(path) as d:
+                maps = d["maps"]
+                fmdl = d["freqs"]
+            if model == "hi_fluctuations":
+                maps = maps - maps.mean(axis=0, keepdims=True)
+            sm = healpix_diffuse_model(maps, freqs_model=fmdl)
     elif model in ("usm", "hpx", "dsm", "gsm", "gsm2008", "gsm2016"):
         nside = int(sp.get("nside") or 64)
         if model == "usm":
@@ -551,7 +563,14 @@ def _bandpass_weights(parms, nbl, freqs, n_acc):
     pfb = (parms.get("bandpass") or {}).get("pfb_method")
     ccw = int(parms["processing"].get("coarse_channel_width") or 16)
     shape1d = None
-    if pfb is not None:       # a FITS pfb_file is refused by check_supported
+    if pfb == "theoretical" and parms["bandpass"].get("pfb_file"):
+        # measured PFB response from a FITS table (run_prisim.py:
+        # 916-927): hdu0 = per-filter response grid (dB), hdu1 =
+        # frequency axis (MHz); summed in linear units and interpolated
+        # onto the channels
+        shape1d = win.pfb_theoretical_shape(parms["bandpass"]["pfb_file"],
+                                            freqs)
+    elif pfb is not None:
         # analytic PFB scalloping (stand-in for the empirical MWA
         # table, DSP.PFB_empirical at run_prisim.py:914)
         shape1d = win.pfb_shape(nchan, ccw)
@@ -663,9 +682,7 @@ def check_supported(parms, device):
         raise _not_ported("pp.mesh_axes (multi-device runs)", 13)
     bm = parms.get("beam") or {}
     pol = str(bm.get("pol") or "X").upper()
-    if pol in ("XY", "DUAL", "FULL"):
-        raise _not_ported("beam.pol: %s" % pol, 16)
-    if pol not in ("X", "Y"):
+    if pol not in ("X", "Y", "XY", "DUAL", "FULL"):
         raise ValueError("beam.pol must be X, Y, XY, or full")
     from .io.hdf5 import h5py
     if (bm.get("use_external") and bm.get("file") and h5py is None
@@ -673,17 +690,12 @@ def check_supported(parms, device):
         raise ImportError("beam.file %r is read as HDF5, which needs h5py; "
                           "give the beam as a FITS file" % bm["file"])
     sf = parms["save_formats"]
-    fmt = (sf.get("fmt") or "HDF5").lower()
-    if fmt == "fits" or sf.get("uvfits") or sf.get("uvh5"):
-        raise _not_ported("FITS/UVFITS/UVH5 outputs", 16)
-    if fmt == "hdf5" and h5py is None:
+    if (sf.get("fmt") or "HDF5").lower() == "hdf5" and h5py is None:
         raise ImportError("save_formats.fmt: HDF5 needs h5py; set "
                           "save_formats.fmt: none to write NPZ only")
-    bp = parms["bandpass"]
-    if bp.get("pfb_method") == "theoretical" and bp.get("pfb_file"):
-        raise _not_ported("bandpass.pfb_file (FITS PFB table)", 16)
-    if parms.get("plots"):
-        raise _not_ported("plots", 16)
+    if sf.get("uvh5") and h5py is None:
+        raise ImportError("save_formats.uvh5 needs h5py; write UVFITS "
+                          "(save_formats.uvfits) instead")
     diag = parms.get("diagnosis") or {}
     if diag.get("jax_profile") or diag.get("resource_monitor"):
         raise _not_ported("diagnosis.jax_profile/resource_monitor", 17)
@@ -730,11 +742,15 @@ def _make_beam_fn(parms, telescope, freqs, pointing_info=None):
     """beam_fn(dircos, freqs, pc=None) -> (S, C) power pattern on dircos's
     device, masked to the run's sky sector (parms['_sector']) if it has
     one. With a phased array (`pointing_info`) it carries needs_pointing,
-    and the engines pass each snapshot's pointing dircos as `pc`.
+    and the engines pass each snapshot's pointing dircos as `pc`. In a
+    full-pol component run (parms['_mueller_component'] XX, YY or XY) the
+    beam is that unpolarized-sky Mueller weight of the beam.feeds crossed
+    dipoles (beams/jones.py; XY is sign-indefinite).
 
     Where the beam is a plain chromatic zenith Airy dish (the conditions
     of the reference, prisim_tpu/driver.py:983-1015: no sector, no
-    steering, no external beam, no ground plane), it also carries
+    steering, no external beam, no ground plane, no Mueller component),
+    it also carries
     beam_fn.df_eval(s_hi, s_lo, nu) -> (S, len(nu)) float64, the truth
     pattern of the banded engine's truth-amps path."""
     bm = parms.get("beam") or {}
@@ -762,6 +778,31 @@ def _make_beam_fn(parms, telescope, freqs, pointing_info=None):
         return pb
 
     beam_fn.needs_pointing = pointing_info is not None
+    mueller = parms.get("_mueller_component")
+    if mueller is not None:
+        comp = str(mueller).upper()
+        if comp not in ("XX", "YY", "XY"):
+            raise ValueError("_mueller_component must be XX, YY or XY")
+        fd = dict(bm.get("feeds") or {})
+        mkw = dict(
+            length=float(fd.get("length") or 1.3),
+            ground_height=(None if fd.get("height") is None
+                           else float(fd["height"])),
+            x_orientation_deg=float(fd.get("x_orientation_deg") or 0.0),
+            y_orientation_deg=float(
+                90.0 if fd.get("y_orientation_deg") is None
+                else fd["y_orientation_deg"]),
+            short_dipole=bool(fd.get("short_dipole")),
+            half_wave=bool(fd.get("half_wave", True)))
+
+        def beam_fn(dircos, f, pc=None):  # noqa: F811
+            pb = mueller_unpol_weights(dircos, f, **mkw)[comp]
+            if sector is not None:
+                pb = pb * _sector_mask(dircos, *sector)[:, None]
+            return pb
+
+        beam_fn.needs_pointing = False
+        return beam_fn
     if (sector is None and pointing_info is None and not achromatic
             and not bm.get("use_external")
             and not telescope.get("groundplane")):
@@ -874,7 +915,10 @@ def run_simulation(parms, outdir=None, verbose=True, save=True,
     VisibilitySet carries gradients["baseline"] (3, nbl, nchan, n_acc).
     Returns (VisibilitySet, output_dir or None); with
     processing.n_sky_sectors > 1, (list of one VisibilitySet per sector,
-    None for a sector no source enters, outdir)."""
+    None for a sector no source enters, outdir); with beam.pol XY (or
+    dual), ([vs_x, vs_y], the X run's output_dir); with beam.pol full,
+    ([vs_xx, vs_yy, vs_xy], the XX run's output_dir). Sectors split
+    first: each sector's run is a pol run, as in the reference."""
     if not isinstance(parms, dict) or "telescope" not in parms:
         parms = load_parms(parms)
     dev = resolve_device(device)
@@ -943,11 +987,90 @@ def _run_sectors(parms, outdir, verbose, save, dev, n_sectors):
     return outs, outdir
 
 
+def _run_components(parms, outdir, verbose, save, dev, sky_override, comps):
+    """One run_simulation per polarization component; comps holds (suffix
+    for simid and outdir, beam.pol, Mueller component or None) for each.
+    Returns [(VisibilitySet, outdir or None), ...]."""
+    outs = []
+    for suffix, pol, mueller in comps:
+        p2 = copy.deepcopy(parms)
+        p2["beam"]["pol"] = pol
+        if mueller is not None:
+            p2["_mueller_component"] = mueller
+        if p2["dirstruct"].get("simid"):
+            p2["dirstruct"]["simid"] += suffix
+        outs.append(run_simulation(
+            p2, outdir=None if outdir is None else outdir + suffix,
+            verbose=verbose, save=save, device=dev,
+            _sky_override=sky_override))
+    return outs
+
+
+def _run_dual_pol(parms, outdir, verbose, save, dev, sky_override):
+    """beam.pol XY/dual (prisim_tpu/driver.py:855-889): the X and Y feeds
+    as two simulations (the Y feed is X rotated 90 deg in azimuth), each
+    saving its own products, plus the combined 2-pol and 4-pol (XX, YY
+    and flagged zero cross-pols) UVFITS exports under the X run's
+    directory, and UVH5 where save_formats.uvh5 asks for it (the
+    reference writes UVH5 always, so a run without h5py could not save)."""
+    (vs_x, dir_x), (vs_y, _) = _run_components(
+        parms, outdir, verbose, save, dev, sky_override,
+        [("_pol" + p, p, None) for p in ("X", "Y")])
+    if save and dir_x is not None:
+        base = os.path.join(dir_x, "simdata", "simvis_dualpol")
+        base4 = os.path.join(dir_x, "simdata", "simvis_4pol")
+        kinds = _combined_exports(parms, (base, dict(vs_second=vs_y)),
+                                  (base4, dict(vs_second=vs_y,
+                                               four_pol=True)), vs0=vs_x)
+        if verbose:
+            print("[prisim_tpu_torch] dual-pol exports -> %s.{%s} + %s.{%s}"
+                  % (base, kinds, base4, kinds))
+    return [vs_x, vs_y], dir_x
+
+
+def _run_full_pol(parms, outdir, verbose, save, dev, sky_override):
+    """beam.pol full (prisim_tpu/driver.py:890-922): XX, YY and the XY = YX
+    leakage product of crossed-dipole Jones vectors (beams/jones.py) as
+    three component simulations of pol X, each with its Mueller weight as
+    the beam, plus the combined 4-pol UVFITS export with real cross-pols
+    under the XX run's directory (UVH5 where save_formats.uvh5 asks)."""
+    (vs_xx, dir_x), (vs_yy, _), (vs_xy, _) = _run_components(
+        parms, outdir, verbose, save, dev, sky_override,
+        [("_" + c.lower(), "X", c) for c in ("XX", "YY", "XY")])
+    if save and dir_x is not None:
+        base = os.path.join(dir_x, "simdata", "simvis_fullpol")
+        kinds = _combined_exports(parms, (base, dict(
+            vs_second=vs_yy, four_pol=True, vs_cross=vs_xy)), vs0=vs_xx)
+        if verbose:
+            print("[prisim_tpu_torch] full-pol exports -> %s.{%s}"
+                  % (base, kinds))
+    return [vs_xx, vs_yy, vs_xy], dir_x
+
+
+def _combined_exports(parms, *products, vs0):
+    """Write each (base, save kwargs) of `products` for the first component
+    `vs0` as UVFITS, and as UVH5 where save_formats.uvh5 is set; returns
+    the extensions written."""
+    from .io.uvfits import save_uvfits
+    from .io.uvh5 import save_uvh5
+    uvh5 = bool(parms["save_formats"].get("uvh5"))
+    for base, kw in products:
+        save_uvfits(vs0, base + ".uvfits", **kw)
+        if uvh5:
+            save_uvh5(vs0, base + ".uvh5", **kw)
+    return "uvfits,uvh5" if uvh5 else "uvfits"
+
+
 def _run_simulation_inner(parms, outdir, verbose, save, dev, sky_override):
     check_supported(parms, dev)
     n_sectors = int(parms["processing"].get("n_sky_sectors") or 1)
     if sky_override is None and n_sectors > 1:
         return _run_sectors(parms, outdir, verbose, save, dev, n_sectors)
+    pol = str((parms.get("beam") or {}).get("pol") or "X").upper()
+    if pol in ("XY", "DUAL"):
+        return _run_dual_pol(parms, outdir, verbose, save, dev, sky_override)
+    if pol == "FULL":
+        return _run_full_pol(parms, outdir, verbose, save, dev, sky_override)
     t0 = time.time()
     sim = prepare_simulation(parms, dev, verbose=verbose, sky=sky_override)
     _phase(verbose, "inputs built and on %s" % dev, t0)
@@ -1224,8 +1347,11 @@ def _write_metadata(obj, path_stem):
 
 
 def _save_products(vs, parms, outdir=None):
-    """Output directory tree + products + metadata."""
-    from .io import save_hdf5, save_npz
+    """Output directory tree + products + metadata (prisim_tpu/driver.py:
+    1793-1868): HDF5 or native FITS (save_formats.fmt), NPZ, UVFITS and
+    UVH5 (on the full redundant set with save_redundant), figures
+    (plots)."""
+    from .io import save_fits, save_hdf5, save_npz
     ds = parms["dirstruct"]
     if outdir is None:
         simid = ds.get("simid") or time.strftime("sim_%Y%m%d_%H%M%S")
@@ -1234,16 +1360,123 @@ def _save_products(vs, parms, outdir=None):
     os.makedirs(os.path.join(outdir, "simdata"), exist_ok=True)
     os.makedirs(os.path.join(outdir, "metainfo"), exist_ok=True)
     base = os.path.join(outdir, "simdata", "simvis")
-    if (parms["save_formats"].get("fmt") or "HDF5").lower() == "hdf5":
+    sf = parms["save_formats"]
+    fmt = (sf.get("fmt") or "HDF5").lower()
+    if fmt == "hdf5":
         save_hdf5(vs, base + ".hdf5")
-    if parms["save_formats"].get("npz"):
+    elif fmt == "fits":
+        save_fits(vs, base + ".fits")
+    if sf.get("npz"):
         save_npz(vs, base + ".npz")
+    if sf.get("uvfits") or sf.get("uvh5"):
+        vs_uv = vs
+        if parms.get("save_redundant") and vs.blgroups:
+            vs_uv = _expand_redundant(vs)
+        # AIPS code for the simulated feed: X -> -5 (XX), Y -> -6 (YY)
+        polcode = (-6,) if str((parms.get("beam") or {}).get("pol")
+                               or "X").upper() == "Y" else (-5,)
+        if sf.get("uvfits"):
+            from .io.uvfits import save_uvfits
+            save_uvfits(vs_uv, base + ".uvfits", pols=polcode)
+        if sf.get("uvh5"):
+            from .io.uvh5 import save_uvh5
+            save_uvh5(vs_uv, base + ".uvh5", pols=polcode)
+    if parms.get("plots"):
+        try:
+            _save_plots(vs, outdir)
+        except Exception as exc:     # diagnostics must never kill a run
+            print("[prisim_tpu_torch] plots failed: %s" % exc)
     _write_metadata(parms, os.path.join(outdir, "metainfo", "simparms"))
     _write_metadata({"user": os.environ.get("USER", "unknown"),
                      "date": time.strftime("%Y-%m-%dT%H:%M:%S"),
                      "prisim_tpu_torch_version": __version__},
                     os.path.join(outdir, "metainfo", "meta"))
     return outdir
+
+
+def _expand_redundant(vs):
+    """vs on the full redundant baseline set for the UVData-format exports
+    (prisim_tpu/driver.py:1814-1848; the reference duplicates measurements
+    before pyuvdata_write, run_prisim.py:2289-2328): every all-pairs
+    baseline of the layout takes its unique exemplar's rows. Built only
+    when a UV format is asked for: the (nbl x n_unique x 3) float64
+    distance array is ~40 GB at HERA-331's 54,615 baselines. On a failure
+    it prints why and returns vs (the unique baselines)."""
+    try:
+        vecs, pairs = baseline_generator(
+            np.asarray(vs.layout["positions"], dtype=np.float64),
+            labels=np.asarray(vs.layout["labels"], dtype=str))
+        uvec, _, _, group_of = uniq_baselines(vecs)
+        d = np.linalg.norm(np.asarray(vs.baselines)[:, None, :]
+                           - uvec[None, :, :], axis=-1)
+        match = d.argmin(axis=1)
+        inv = np.full(uvec.shape[0], -1)
+        inv[match] = np.arange(match.size)
+        expand = inv[group_of]
+        if not np.all(expand >= 0):
+            return vs
+        kw = {n: np.asarray(getattr(vs, n))[expand]
+              for n in ("skyvis", "vis", "vis_noise", "vis_rms", "bp",
+                        "bp_wts", "Tsys")
+              if getattr(vs, n) is not None}
+        return project_baselines(dataclasses.replace(
+            vs, baselines=vecs, labels=pairs, projected_baselines=None,
+            **kw))
+    except Exception as exc:
+        print("[prisim_tpu_torch] save_redundant expansion failed (%s); "
+              "writing unique baselines" % exc)
+        return vs
+
+
+def _save_plots(vs, outdir):
+    """Diagnostic figures under <outdir>/figures/ (the 'plots' flag,
+    prisim_tpu/driver.py:1871-1920): amplitude waterfalls for the
+    shortest/median/longest baseline, amplitude vs baseline length, and a
+    delay-spectrum waterfall when lags are present. matplotlib is
+    imported here."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    figdir = os.path.join(outdir, "figures")
+    os.makedirs(figdir, exist_ok=True)
+    cube = np.asarray(vs.vis if vs.vis is not None else vs.skyvis)
+    lens = vs.baseline_lengths
+    order = np.argsort(lens)
+    picks = [order[0], order[order.size // 2], order[-1]]
+    fig, axes = plt.subplots(1, len(picks), figsize=(4 * len(picks), 3),
+                             squeeze=False)
+    for ax, b in zip(axes[0], picks):
+        im = ax.imshow(np.abs(cube[b]).T, aspect="auto", origin="lower",
+                       extent=[vs.freqs[0] / 1e6, vs.freqs[-1] / 1e6,
+                               0, cube.shape[2]])
+        ax.set_title("|V| bl %.1f m" % lens[b])
+        ax.set_xlabel("freq [MHz]")
+        ax.set_ylabel("accumulation")
+        fig.colorbar(im, ax=ax)
+    fig.tight_layout()
+    fig.savefig(os.path.join(figdir, "vis_waterfall.png"), dpi=100)
+    plt.close(fig)
+    fig, ax = plt.subplots(figsize=(5, 3.5))
+    ax.semilogy(lens, np.abs(cube).mean(axis=(1, 2)), ".")
+    ax.set_xlabel("baseline length [m]")
+    ax.set_ylabel("mean |V| [Jy]")
+    fig.tight_layout()
+    fig.savefig(os.path.join(figdir, "amp_vs_baseline.png"), dpi=100)
+    plt.close(fig)
+    if vs.lags is not None and vs.skyvis_lag is not None:
+        lag = np.asarray(vs.skyvis_lag)
+        fig, ax = plt.subplots(figsize=(5, 3.5))
+        im = ax.imshow(np.log10(np.abs(lag[:, :, 0]) + 1e-12),
+                       aspect="auto", origin="lower",
+                       extent=[vs.lags[0] * 1e6, vs.lags[-1] * 1e6,
+                               0, lag.shape[0]])
+        ax.set_xlabel("delay [us]")
+        ax.set_ylabel("baseline index")
+        fig.colorbar(im, ax=ax, label="log10 |V(tau)|")
+        fig.tight_layout()
+        fig.savefig(os.path.join(figdir, "delay_waterfall.png"), dpi=100)
+        plt.close(fig)
+    return figdir
 
 
 def main(argv=None):

@@ -110,3 +110,37 @@ def sphdist(lon1, lat1, lon2, lat2, xp=np):
     dp = p2 - p1
     a = xp.sin(dp / 2.0) ** 2 + xp.cos(p1) * xp.cos(p2) * xp.sin(dl / 2.0) ** 2
     return _rad2deg(2.0 * xp.arcsin(xp.sqrt(xp.clip(a, 0.0, 1.0))), xp)
+
+
+# -- Earth-fixed (WGS84) conversions, host-side -----------------------------
+
+_WGS84_A = 6378137.0
+_WGS84_F = 1.0 / 298.257223563
+
+
+def lla2ecef(lat_deg, lon_deg, alt_m=0.0):
+    """Geodetic lat/lon/alt -> ECEF XYZ meters (WGS84). Host numpy."""
+    lat = np.radians(np.asarray(lat_deg, dtype=np.float64))
+    lon = np.radians(np.asarray(lon_deg, dtype=np.float64))
+    alt = np.asarray(alt_m, dtype=np.float64)
+    e2 = _WGS84_F * (2.0 - _WGS84_F)
+    N = _WGS84_A / np.sqrt(1.0 - e2 * np.sin(lat) ** 2)
+    x = (N + alt) * np.cos(lat) * np.cos(lon)
+    y = (N + alt) * np.cos(lat) * np.sin(lon)
+    z = (N * (1.0 - e2) + alt) * np.sin(lat)
+    return np.stack([x, y, z], axis=-1)
+
+
+def enu2ecef(enu, lat_deg, lon_deg, alt_m=0.0):
+    """Local ENU offsets at (lat, lon, alt) -> absolute ECEF XYZ meters."""
+    enu = np.asarray(enu, dtype=np.float64)
+    lat = np.radians(np.float64(lat_deg))
+    lon = np.radians(np.float64(lon_deg))
+    e, n, u = enu[..., 0], enu[..., 1], enu[..., 2]
+    x = -np.sin(lon) * e - np.sin(lat) * np.cos(lon) * n \
+        + np.cos(lat) * np.cos(lon) * u
+    y = np.cos(lon) * e - np.sin(lat) * np.sin(lon) * n \
+        + np.cos(lat) * np.sin(lon) * u
+    z = np.cos(lat) * n + np.sin(lat) * u
+    origin = lla2ecef(lat_deg, lon_deg, alt_m)
+    return np.stack([x, y, z], axis=-1) + origin

@@ -1,23 +1,26 @@
-"""Minimal pure-numpy FITS reading, binary-table and image writing.
+"""Minimal pure-numpy FITS writer/reader (random groups, binary tables,
+images).
 
-Counterpart of prisim_tpu/io/fitsio.py for the catalog skies (NVSS,
-GLEAM and DSM/GSM per-pixel tables) and the external HEALPix beams:
-2880-byte header and data blocks, big-endian data, BINTABLE and IMAGE
-extensions. It imports no jax, where importing
+Counterpart of prisim_tpu/io/fitsio.py for the UVFITS and native FITS
+products, the catalog skies (NVSS, GLEAM and DSM/GSM per-pixel tables),
+the HI cubes, the PFB tables and the external HEALPix beams: 2880-byte
+header and data blocks, big-endian data, random-groups primary HDUs,
+BINTABLE and IMAGE extensions. It imports no jax, where importing
 prisim_tpu.io.fitsio runs prisim_tpu/io/__init__.py, which does.
 
 `write_bintable` writes the same bytes as the reference's, from one
 structured array rather than row by row (a DSM table at nside 256 has
-786,432 rows). `read_fits` reads binary tables and plain images; a
-random-groups HDU (UVFITS) is not read here (ROADMAP queue 1, item 16).
+786,432 rows), and keeps the big-endian byte order of a column whose
+rows are resized to the tform repeat, where the reference's writes them
+native-endian (ROADMAP R6).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["card", "format_header", "write_bintable", "write_image",
-           "read_fits"]
+__all__ = ["card", "format_header", "write_random_groups",
+           "write_bintable", "write_image", "read_fits"]
 
 BLOCK = 2880
 
@@ -40,9 +43,14 @@ def _fmt_value(v):
     return "'%-8s'" % s
 
 
-def card(key, value, comment=None):
-    """One 80-char FITS header card, KEY = value [/ comment]."""
+def card(key, value=None, comment=None):
+    """One 80-char FITS header card: KEY = value [/ comment], a COMMENT or
+    HISTORY card, or a bare keyword."""
     key = key.upper()[:8]
+    if value is None and comment is None:
+        return "%-80s" % key
+    if key in ("COMMENT", "HISTORY"):
+        return "%-80s" % (key + " " + (str(value) if value else ""))
     vs = _fmt_value(value)
     if vs.startswith("'"):
         body = "%-8s= %-20s" % (key, vs)
@@ -62,6 +70,23 @@ def format_header(cards):
 
 def _pad_data(buf):
     return buf + b"\x00" * ((-len(buf)) % BLOCK)
+
+
+def write_random_groups(fh, pars, data, header_cards):
+    """Write a random-groups primary HDU.
+
+    pars: (GCOUNT, PCOUNT) group parameters; data: (GCOUNT, ...) per-group
+    data; both written as big-endian float32, each group its parameters
+    then its data. header_cards must hold SIMPLE, BITPIX, NAXIS*, GROUPS,
+    PCOUNT, GCOUNT, PTYPE* and the rest that match them."""
+    fh.write(format_header(header_cards))
+    pars = np.ascontiguousarray(pars, dtype=">f4")
+    gcount, pcount = pars.shape
+    rec = np.empty((gcount, pcount + int(np.prod(np.shape(data)[1:]))),
+                   dtype=">f4")
+    rec[:, :pcount] = pars
+    rec[:, pcount:] = np.asarray(data).reshape(gcount, -1)
+    fh.write(_pad_data(rec.tobytes()))
 
 
 def _repeat(tform):
@@ -176,19 +201,29 @@ def _read_blocks(fh, nbytes):
 
 
 def read_fits(path):
-    """Parse a FITS file of binary tables and images: a list of HDUs, each
-    a dict with 'header' and, for a binary table, 'columns' (name ->
-    array) or, for an image, 'data'."""
+    """Parse a FITS file: a list of HDUs, each a dict with 'header' and,
+    for a random-groups HDU, 'pars' (GCOUNT, PCOUNT) float64 and 'data'
+    (GCOUNT, NAXISn, ..., NAXIS2) float32; for a binary table, 'columns'
+    (name -> array); for an image, 'data'."""
     hdus = []
     with open(path, "rb") as fh:
         while True:
             hdr = _parse_header(fh)
             if hdr is None:
                 break
-            if hdr.get("GROUPS"):
-                raise NotImplementedError(
-                    "random-groups FITS (UVFITS) reading is not ported yet "
-                    "(ROADMAP queue 1, item 16)")
+            if hdr.get("GROUPS") and hdr.get("GCOUNT", 0) >= 1:
+                gcount, pcount = hdr["GCOUNT"], hdr["PCOUNT"]
+                dims = [hdr["NAXIS%d" % i]
+                        for i in range(2, hdr["NAXIS"] + 1)]
+                per_group = int(np.prod(dims)) if dims else 0
+                n = gcount * (pcount + per_group)
+                arr = np.frombuffer(_read_blocks(fh, n * 4), dtype=">f4")
+                arr = arr.reshape(gcount, pcount + per_group)
+                hdus.append(dict(
+                    header=hdr, pars=arr[:, :pcount].astype(np.float64),
+                    data=arr[:, pcount:].reshape([gcount] + dims[::-1])
+                    .astype(np.float32)))
+                continue
             if str(hdr.get("XTENSION", "")).strip() == "BINTABLE":
                 nrows, row_bytes = hdr["NAXIS2"], hdr["NAXIS1"]
                 fields = []

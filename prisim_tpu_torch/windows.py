@@ -60,6 +60,41 @@ def pfb_shape(nchan, coarse_channel_width=16, ntaps=8):
     return np.tile(resp, reps)[:nchan]
 
 
+def pfb_theoretical_shape(path, freqs):
+    """Measured ('theoretical') PFB bandpass shape from a FITS table.
+
+    Format per the reference's pfb_method='theoretical' branch
+    (PRISim's scripts/run_prisim.py:916-927): HDU 0 is a 2-D image of
+    per-filter responses in dB (rows = frequency samples, columns =
+    filters); HDU 1 is the 1-D frequency axis in MHz. Each column is
+    peak-normalized in dB, the columns are summed in linear units, and
+    the resulting window is interpolated onto the simulated channels (Hz)
+    within [0.9 min, 1.1 max] of the band. Peak-normalized to 1 on
+    return."""
+    from .io.fitsio import read_fits
+    hdus = [h for h in read_fits(path) if "data" in h]
+    if len(hdus) < 2:
+        raise ValueError("PFB file needs response + frequency HDUs")
+    pfbdata = np.asarray(hdus[0]["data"], dtype=np.float64)
+    pfbfreq = np.asarray(hdus[1]["data"], dtype=np.float64).ravel()
+    pfbdata = np.atleast_2d(pfbdata)
+    if pfbdata.shape[0] != pfbfreq.size and pfbdata.shape[1] == \
+            pfbfreq.size:
+        pfbdata = pfbdata.T
+    norm = pfbdata.max(axis=0, keepdims=True)
+    pfbwin = 10.0 * np.log10(np.sum(10.0 ** ((pfbdata - norm) / 10.0),
+                                    axis=1))
+    freqs = np.asarray(freqs, dtype=np.float64)
+    ghz = freqs / 1e9
+    lo, hi = 0.9 * ghz.min(), 1.1 * ghz.max()
+    use = (pfbfreq >= lo * 1e3) & (pfbfreq <= hi * 1e3)
+    if not use.any():
+        raise ValueError("PFB table does not cover the simulated band")
+    win = np.interp(ghz, pfbfreq[use] / 1e3, pfbwin[use])
+    shape = 10.0 ** (win / 10.0)
+    return shape / shape.max()
+
+
 def ifft_delay_transform(vis, df, pad=0.0, dim=1):
     """Delay transform of a complex tensor along `dim`: IFFT scaled by
     (n_padded * df), fftshifted, zero-padded by the `pad` fraction and

@@ -212,8 +212,8 @@ def test_write_bintable_reads_back_in_both(tmp_path):
 
 
 def test_read_fits_image_and_groups(tmp_path):
-    """An image HDU reads as the reference reads it; a random-groups
-    (UVFITS) HDU is not ported and says so."""
+    """An image HDU and a random-groups (UVFITS) HDU read as the reference
+    reads them."""
     path = str(tmp_path / "img.fits")
     img = np.arange(12.0).reshape(3, 4)
     with open(path, "wb") as fh:
@@ -229,11 +229,16 @@ def test_read_fits_image_and_groups(tmp_path):
     cards = [fits_jax.card(k, v) for k, v in (
         ("SIMPLE", True), ("BITPIX", -32), ("NAXIS", 2), ("NAXIS1", 0),
         ("NAXIS2", 3), ("GROUPS", True), ("PCOUNT", 2), ("GCOUNT", 4))]
+    pars = np.arange(8.0).reshape(4, 2)
     with open(path, "wb") as fh:
-        fits_jax.write_random_groups(fh, np.zeros((4, 2)), np.zeros((4, 3)),
+        fits_jax.write_random_groups(fh, pars, -np.arange(12.0).reshape(4, 3),
                                      cards)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fits_t.read_fits(path)
+    (got,), (want,) = fits_t.read_fits(path), fits_jax.read_fits(path)
+    assert got["header"] == want["header"]
+    for key in ("pars", "data"):
+        assert got[key].dtype == want[key].dtype
+        np.testing.assert_array_equal(got[key], want[key])
+    np.testing.assert_array_equal(got["pars"], pars)
 
 
 def _sky_parms(model, tmp_path, **cat):

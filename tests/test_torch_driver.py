@@ -1,7 +1,9 @@
 """The port's run_simulation against prisim_tpu.driver.run_simulation on
 the small HERA-19 example (shrunk as tests/test_driver.py shrinks it), on
 HERA-7 gradient and extended-source runs (a 7-column custom catalog, a DSM
-FITS map, an NVSS catalog), and on the banded NUFFT engine's example."""
+FITS map, an NVSS catalog), on the banded NUFFT engine's example, on the
+beam routes, and with the products (native FITS, UVFITS/UVH5 with
+save_redundant, figures) and the FITS inputs (HI cubes, PFB tables)."""
 
 import copy
 import dataclasses
@@ -141,17 +143,9 @@ def test_delay_transform_matches_jax(runs):
 
 @pytest.mark.parametrize("over", [
     {"processing.engine": "nufft", "processing.nufft_spread": "sorted"},
-    {"beam.pol": "full"},
-    {"beam.pol": "XY"},
     {"pp.mesh_axes": ["bl"]},
-    {"plots": True},
-    {"save_formats.uvfits": True},
-    {"save_formats.fmt": "FITS"},
     {"pp.n_chunks": 2},
-    {"skyparm.model": "hi_cube", "catalog.spectrum_file": "cube.fits"},
-    {"bandpass.pfb_method": "theoretical", "bandpass.pfb_file": "pfb.fits"},
     {"diagnosis.jax_profile": "profile_dir"},
-    {"save_formats.uvh5": True},
 ])
 def test_unported_branches_raise_before_compute(tmp_path, monkeypatch,
                                                 over):
@@ -932,3 +926,171 @@ def test_external_hdf5_beam_matches_fits(tmp_path):
     b, _ = drv_t.run_simulation(cfg_t.load_parms(_external(h5)),
                                 verbose=False, save=False, device="cpu")
     np.testing.assert_array_equal(a.skyvis, b.skyvis)
+
+
+# --------------------------------------------------------------------------
+# products (native FITS, UVFITS, UVH5 with save_redundant, figures) and the
+# FITS inputs (HI cubes, PFB tables), each against prisim_tpu's run
+# --------------------------------------------------------------------------
+
+def _hera7_redundant(root, **sections):
+    """tests/test_driver.py:163's run: HERA-7 redundant (9 unique of 21
+    baselines), 8 ch at 155 MHz, one 10 s accumulation, 8 random sources;
+    `sections` update the sections. An unresolved dict."""
+    p = {"dirstruct": {"rootdir": str(root), "project": "p", "simid": "s"},
+         "bandpass": {"nchan": 8, "freq": 155e6, "freq_resolution": 195312.5},
+         "array": {"layout": "HERA-7", "redundant": True},
+         "obsparm": {"n_acc": 1, "t_acc": 10.0},
+         "skyparm": {"model": "random", "nsrc": 8},
+         "pp": {"key": "none"},
+         "save_formats": {"fmt": "none", "npz": False}}
+    for sec, val in sections.items():
+        p[sec] = dict(p.get(sec, {}), **val) if isinstance(val, dict) else val
+    return p
+
+
+def _both_saved(p, root):
+    pj, pt = copy.deepcopy(p), copy.deepcopy(p)
+    pj["dirstruct"]["rootdir"] = str(root / "jax")
+    pt["dirstruct"]["rootdir"] = str(root / "torch")
+    vj, dj = drv_jax.run_simulation(cfg_jax.load_parms(pj), verbose=False)
+    vt, dt = drv_t.run_simulation(cfg_t.load_parms(pt), verbose=False,
+                                  device="cpu")
+    return vj, dj, vt, dt
+
+
+def test_fits_product_matches_jax(tmp_path):
+    """save_formats.fmt: FITS writes the native FITS product: it reads back
+    (the port's load_fits and JAX's) as the returned VisibilitySet, and
+    holds what JAX's product holds (the noiseless cube within BEAM_BAR of
+    max|V|; the noise differs value by value, R4)."""
+    from prisim_tpu_torch.io import load_fits
+    p = _hera7_redundant(tmp_path, save_formats={"fmt": "FITS", "npz": False},
+                         processing={"delay_transform": True})
+    vj, dj, vt, dt = _both_saved(p, tmp_path)
+    path = os.path.join(dt, "simdata", "simvis.fits")
+    assert sorted(os.listdir(os.path.join(dt, "simdata"))) == ["simvis.fits"]
+    for back in (load_fits(path), io_jax.load_fits(path)):
+        np.testing.assert_array_equal(back.skyvis, vt.skyvis)
+        np.testing.assert_array_equal(back.vis, vt.vis)
+        np.testing.assert_array_equal(back.skyvis_lag,
+                                      vt.skyvis_lag.astype(np.complex64))
+        np.testing.assert_array_equal(back.projected_baselines,
+                                      vt.projected_baselines)
+        np.testing.assert_array_equal(back.labels, vt.labels)
+    want = io_jax.load_fits(os.path.join(dj, "simdata", "simvis.fits"))
+    got = load_fits(path)
+    _skyvis_close(got, want)
+    for name in ("baselines", "freqs", "lst", "timestamps", "bp", "bp_wts",
+                 "Tsys", "projected_baselines", "lags"):
+        np.testing.assert_array_equal(getattr(got, name), getattr(want, name),
+                                      err_msg=name)
+
+
+@pytest.mark.parametrize("redundant", [True, False])
+def test_uv_products_with_save_redundant_match_jax(tmp_path, redundant):
+    """uvfits and uvh5 with save_redundant: the unique baselines (9 of
+    HERA-7) expanded onto all 21 pairs, each copy its exemplar's
+    visibilities, as in JAX's files: the same metadata, the noiseless data
+    within BEAM_BAR of max|V|; save_redundant: false writes the 9."""
+    from prisim_tpu.io.uvh5 import read_uvh5_arrays as read_jax
+    from prisim_tpu_torch.io.uvfits import load_uvfits
+    from prisim_tpu_torch.io.uvh5 import read_uvh5_arrays
+    p = _hera7_redundant(tmp_path, save_redundant=redundant, save_formats={
+        "fmt": "none", "npz": False, "uvfits": True, "uvh5": True})
+    vj, dj, vt, dt = _both_saved(p, tmp_path)
+    assert vt.nbl == 9
+    nbl = 21 if redundant else 9
+    got = read_uvh5_arrays(os.path.join(dt, "simdata", "simvis.uvh5"))
+    want = read_jax(os.path.join(dj, "simdata", "simvis.uvh5"))
+    assert got["Nbls"] == want["Nbls"] == nbl
+    for k in want:
+        if k != "visdata":
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    scale = np.abs(want["visdata"]).max()
+    assert np.abs(got["visdata"] - want["visdata"]).max() / scale < BEAM_BAR
+    uv = load_uvfits(os.path.join(dt, "simdata", "simvis.uvfits"))
+    assert uv.nbl == nbl
+    np.testing.assert_array_equal(uv.skyvis[:, :, 0], np.conj(
+        got["visdata"][:, :, 0]))
+    if redundant:
+        # each all-pairs baseline carries its unique exemplar's rows
+        same = np.all(uv.skyvis[:, None] == vt.skyvis[None], axis=(2, 3))
+        assert (same.sum(axis=1) == 1).all()
+        assert np.unique(same.argmax(axis=1)).size == 9
+    else:
+        np.testing.assert_array_equal(uv.labels, vt.labels)
+
+
+def test_uvh5_without_h5py_raises_before_compute(tmp_path, monkeypatch):
+    from prisim_tpu_torch.io import hdf5 as io_hdf5
+
+    def no_compute(*a, **k):
+        raise AssertionError("compute reached")
+    monkeypatch.setattr(io_hdf5, "h5py", None)
+    monkeypatch.setattr(drv_t, "prepare_simulation", no_compute)
+    p = cfg_t.load_parms(_hera7_redundant(tmp_path, save_formats={
+        "fmt": "none", "npz": True, "uvh5": True}))
+    with pytest.raises(ImportError, match="uvh5 needs h5py"):
+        drv_t.run_simulation(p, verbose=False, device="cpu")
+    p["beam"]["pol"] = "full"
+    with pytest.raises(ImportError, match="uvh5 needs h5py"):
+        drv_t.run_simulation(p, verbose=False, device="cpu")
+    p["save_formats"]["uvh5"] = False
+    p["beam"]["pol"] = "XYZ"
+    with pytest.raises(ValueError, match="beam.pol"):
+        drv_t.run_simulation(p, verbose=False, device="cpu")
+
+
+@pytest.mark.parametrize("model", ["hi_cube", "hi_fluctuations"])
+def test_fits_hi_cube_run_matches_jax(tmp_path, model):
+    """A FITS HI cube (tests/test_catalog_fits.py:74's IMAGE layout) as the
+    sky of a run in both packages."""
+    from test_catalog_fits import _write_hi_cube
+    path = str(tmp_path / "hi.fits")
+    _write_hi_cube(path)
+    p = _external(None, beam={"use_external": False},
+                  skyparm={"model": model}, catalog={"spectrum_file": path})
+    vj, vt = _both_runs(p)
+    _skyvis_close(vt, vj)
+
+
+def test_pfb_file_run_matches_jax(tmp_path):
+    """bandpass.pfb_method: theoretical with a measured PFB FITS table
+    (tests/test_aux.py:294's): the same bandpass and flags as JAX's run
+    (bp_correct false puts the shape into bp; the coarse-channel edges
+    flagged)."""
+    from test_torch_io import write_pfb_table
+    nchan, f0, df = 32, 150e6, 100e3
+    path = write_pfb_table(str(tmp_path / "pfb.fits"),
+                           f0 + df * (np.arange(nchan) - nchan / 2))
+    p = _hera7_redundant(
+        tmp_path, bandpass={"nchan": nchan, "freq": f0, "freq_resolution": df,
+                            "pfb_method": "theoretical", "pfb_file": path},
+        processing={"bp_correct": False, "coarse_channel_width": 8},
+        flags={"n_edge_flag": [1, 1], "flag_repeat_edge_channels": True})
+    vj, vt = _both_runs(p)
+    np.testing.assert_array_equal(vt.bp, vj.bp)
+    np.testing.assert_array_equal(vt.bp_wts, vj.bp_wts)
+    assert (vt.bp == 0).any() and 0 < vt.bp[vt.bp > 0].min() < 0.5
+    _skyvis_close(vt, vj)
+
+
+def test_plots_written(tmp_path, monkeypatch, capsys):
+    """plots: true writes the figures JAX writes (tests/test_driver.py:266);
+    without matplotlib the run completes and says why it has none."""
+    p = _hera7_redundant(tmp_path, plots=True,
+                         processing={"delay_transform": True})
+    vj, dj, vt, dt = _both_saved(p, tmp_path)
+    figs = sorted(os.listdir(os.path.join(dt, "figures")))
+    assert figs == sorted(os.listdir(os.path.join(dj, "figures"))) == [
+        "amp_vs_baseline.png", "delay_waterfall.png", "vis_waterfall.png"]
+    for f in figs:
+        assert os.path.getsize(os.path.join(dt, "figures", f)) > 5000
+    import sys
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    p["dirstruct"]["simid"] = "noplt"
+    _, out = drv_t.run_simulation(cfg_t.load_parms(p), verbose=False,
+                                  device="cpu")
+    assert "plots failed" in capsys.readouterr().out
+    assert not os.path.exists(os.path.join(out, "figures"))

@@ -4,9 +4,10 @@ subprocess blocks the four imports, imports every module of
 prisim_tpu_torch and runs a small simulation to NPZ, with the direct
 engine, with the banded NUFFT engine, as a gradient run, on a DSM FITS
 map that the port itself writes (extended sources), as a phased-array
-track, in sky sectors, and with an external FITS beam that the port
-writes."""
+track, in sky sectors, with an external FITS beam that the port writes,
+and as a full-polarization run written to UVFITS and read back."""
 
+import json
 import os
 import subprocess
 import sys
@@ -54,6 +55,9 @@ SCRIPT = textwrap.dedent("""
         p["pointing"] = {"track_init": {"ra": 10.0, "dec": -30.0}}
     if mode == "sectors":
         proc["n_sky_sectors"] = 2
+    if mode == "fullpol":
+        p["beam"] = {"pol": "full"}
+        p["save_formats"]["uvfits"] = True
     if mode == "external":
         from prisim_tpu_torch import healpix as hp
         from prisim_tpu_torch.io.fitsio import write_image
@@ -73,6 +77,22 @@ SCRIPT = textwrap.dedent("""
         print("SECTORS", len(vs), float(abs(tot - vf.skyvis).max()
                                         / abs(vf.skyvis).max()))
         out = root + "/proj/nojax_sector0"
+    if mode == "fullpol":
+        import json, os
+        from prisim_tpu_torch.io.fitsio import read_fits
+        from prisim_tpu_torch.io.uvfits import load_uvfits
+        xx, yy, xy = vs
+        base = out + "/simdata/simvis"
+        own = load_uvfits(base + ".uvfits")
+        (g,) = [h for h in read_fits(base + "_fullpol.uvfits") if "pars" in h]
+        d = g["data"].reshape(2, 21, 8, 4, 3)
+        cubes = np.conj(d[..., 0] + 1j * d[..., 1]).transpose(1, 2, 3, 0)
+        print("FULLPOL", json.dumps(dict(
+            own=float(abs(own.skyvis - xx.skyvis).max()),
+            combined=[float(abs(cubes[:, :, k] - v.skyvis).max())
+                      for k, v in enumerate((xx, yy, xy, xy))],
+            leak=float(abs(xy.skyvis).max() / abs(xx.skyvis).max()),
+            uvh5=os.path.exists(base + "_fullpol.uvh5"))))
     if mode == "gradient":
         print("GRAD", vs.gradients["baseline"].shape)
     if mode == "dsm":
@@ -95,7 +115,7 @@ def _run_blocked(tmp_path, mode, lines_out=None):
     assert proc.returncode == 0, proc.stderr[-3000:]
     lines = dict(line.split(" ", 1) for line in proc.stdout.splitlines()
                  if line.startswith(("LOADED", "OUT", "GRAD", "SIGMA",
-                                     "SECTORS")))
+                                     "SECTORS", "FULLPOL")))
     if lines_out is not None:
         lines_out.update(lines)
     assert lines["LOADED"] == "[]"
@@ -157,6 +177,20 @@ def test_port_runs_beam_routes_without_jax_yaml_h5py(tmp_path):
     assert int(n) == 2 and float(rel) < 2e-4
     for mode in ("phased", "external"):
         assert np.abs(runs[mode] - direct).max() > 1e-3 * np.abs(direct).max()
+
+
+def test_port_runs_full_pol_uvfits_without_jax_yaml_h5py(tmp_path):
+    """beam.pol: full with save_formats.uvfits: three component runs, each
+    with its own UVFITS, and the combined 4-pol UVFITS; all read back with
+    the port's jax-free FITS reader to the returned cubes, and no UVH5 is
+    written (save_formats.uvh5 is off, and h5py is blocked)."""
+    lines = {}
+    _run_blocked(tmp_path, "fullpol", lines)
+    got = json.loads(lines["FULLPOL"])
+    assert got["own"] == 0.0
+    assert got["combined"] == [0.0] * 4           # XX, YY, XY, YX
+    assert 0.0 < got["leak"] < 1.0                # real leakage
+    assert not got["uvh5"]
 
 
 IMPORT_ALL = textwrap.dedent("""
