@@ -113,6 +113,34 @@ g. Dual polarization on the HERA-37 slice with array.redundant (63 unique
    rows), the combined 2-pol and 4-pol UVFITS (cross-pols flagged zeros);
    then each product's writer timed alone.
 
+Then the analysis stack, chunked runs and the diagnosis section:
+
+h. BASELINE config #3 at full size (as benchmarks/bench_configs.config3
+   builds it, saved as the native FITS product in place of HDF5: the card
+   machine has no h5py): HERA-37 redundant (63 baselines), 256 ch x
+   390.625 kHz, nside-128 USM sky, 10 x 60 s, engine auto (its engine,
+   gate readings, K1a/K2 launches, wall-clock); then tools.delay_ps on the
+   FITS file with CLEAN on the card (the time of each step); CLEAN's
+   iteration counts and stop rules per cube, its identity res + cc *
+   kernel = inp on the card (1e-5 of max|inp| per spectrum), CLEAN on the
+   CPU on the same lag cubes, and delay_ps on the CPU on the same file
+   (P(k) within 1e-6 of max, z and kprll equal).
+i. BASELINE config #5 at full size (bench_configs.config5): a 16 x 32 grid
+   at 7 m (512 antennas, 976 unique baselines) x 128 ch x 8 acc, 1,024
+   sources, unit beam; engine.observe.simulate_drift on the card (K1a, one
+   launch an accumulation), 512 triad classes, closure phases, 4 days of
+   0.01 jitter binned by a median, cpds_ft and xcpdps_full (the time of
+   each step and P's shape); K1a against its plain version on
+   accumulation 0 (2e-6 of max|V|).
+j. Chunked runs on the slice cut to 256 ch x 2 acc, engine auto:
+   pp.n_chunks: 2 with key freq and with key time against the run
+   unchunked (2e-6 of the coherent scale; each chunk's noise rms within 1%
+   of the radiometer rms; the chunks' draws differ); resume with
+   _part_1.npz deleted (part 0 untouched, the merge equal to the first);
+   diagnosis.jax_profile (a torch.profiler trace) and
+   diagnosis.resource_monitor (rows with device bytes where psutil
+   imports, else ImportError before any compute).
+
 After the phases it prints the card's name and power limit, the roofline
 share (bound / time, against the H100 data-sheet peaks) of K1a, K1b, K1c
 and K2 at the slice and the north star, and the kernels line: each
@@ -1670,6 +1698,465 @@ def dualpol_phase(parms, dev):
     return dict(wall_s=wall, launches=got, components=comps, writers=times)
 
 
+# --------------------------------------------------------------------------
+# Phases h-j: BASELINE configs #3 and #5 at full size through the analysis
+# stack, chunked runs with resume, and the diagnosis section
+# --------------------------------------------------------------------------
+
+# CLEAN's identity res + cc * kernel = inp, of max|inp| per spectrum: a
+# float32 residual updated up to 200 times
+CLEAN_ID_BAR = 1e-5
+# CLEAN on the card vs on the CPU, of max|inp|, over the spectra whose
+# iteration count and stop rule agree; and the least share that agrees
+CLEAN_CPU_BAR = 1e-5
+CLEAN_SAME_SHARE = 0.95
+# delay_ps on the card vs on the CPU, P(k) of max P(k): complex64 delay
+# transforms (~1e-7), squared
+DPS_CPU_BAR = 1e-6
+# each chunk's noise rms against the radiometer rms: > 1e5 complex samples
+NOISE_RMS_BAR = 0.01
+
+
+def config3_parms(root, nchan=256, nside=128, n_acc=10):
+    """BASELINE config #3 as benchmarks/bench_configs.config3 builds it:
+    HERA-37 redundant, 14 m dish, nchan x 390.625 kHz around 150 MHz, an
+    nside-`nside` USM sky, n_acc x 60 s drift from LST 0, Trx 100 K, eff_Q
+    0.96, A_eff 154, engine as config3 leaves it (auto); the simulation is
+    saved as the native FITS product in place of HDF5 (no h5py on the card
+    machine)."""
+    from prisim_tpu_torch.config import load_parms
+    return load_parms({
+        "dirstruct": {"rootdir": root, "project": "hera37_dps",
+                      "simid": "cfg3"},
+        "telescope": {"id": "hera", "latitude": -30.7224,
+                      "A_eff": 154.0, "eff_Q": 0.96, "Trx": 100.0},
+        "array": {"layout": "HERA-37", "redundant": True},
+        "antenna": {"shape": "dish", "size": 14.0},
+        "bandpass": {"freq": 150e6, "freq_resolution": 390625.0,
+                     "nchan": nchan},
+        "obsparm": {"obs_mode": "drift", "n_acc": n_acc, "t_acc": 60.0},
+        "pointing": {"lst_init": 0.0},
+        "skyparm": {"model": "usm", "nside": nside},
+        "save_formats": {"fmt": "fits", "npz": False},
+    })
+
+
+def clean_cubes(vst):
+    """The (spectrum, lag) rows delay_clean_vs cleans, per cube present:
+    {name: (inp, kernel, horizon box)}, each (nbl * n_acc, nlag)."""
+    nlag = vst.lags.size
+    blc = vst.baseline_lengths / 299792458.0
+    box = np.abs(vst.lags)[None, None, :] <= blc[:, None, None]
+    out = {}
+    for name in ("skyvis_lag", "vis_lag", "vis_noise_lag"):
+        cube = getattr(vst, name)
+        if cube is None:
+            continue
+        x = np.transpose(cube, (0, 2, 1))
+        out[name] = (x.reshape(-1, nlag),
+                     np.transpose(vst.lag_kernel, (0, 2, 1)).reshape(-1,
+                                                                     nlag),
+                     np.broadcast_to(box, x.shape).reshape(-1, nlag))
+    return out
+
+
+def clean_identity(inp, kernel, cc, res):
+    """max over spectra of max|res + cc * kernel - inp| / max|inp|, the
+    convolution circular with the kernel normalized and rolled to its
+    peak as CLEAN rolls it (complex128 FFTs on the tensors' device)."""
+    k = kernel.to(torch.complex128)
+    k = k / k.abs().max(dim=1, keepdim=True).values
+    n = k.shape[1]
+    idx = torch.remainder(torch.arange(n, device=k.device)[None, :]
+                          + k.abs().argmax(dim=1)[:, None], n)
+    conv = torch.fft.ifft(torch.fft.fft(cc.to(torch.complex128), dim=1)
+                          * torch.fft.fft(k.gather(1, idx), dim=1), dim=1)
+    d = res.to(torch.complex128) + conv - inp.to(torch.complex128)
+    return float((d.abs().max(dim=1).values
+                  / inp.abs().max(dim=1).values.to(torch.float64)).max())
+
+
+def config3_phase(root, dev, **sizes):
+    """Phase h: config #3 at full size: the simulation (engine, gate
+    readings, K1a/K2 launches, wall-clock) saved as FITS, then the port's
+    tools.delay_ps on that file with CLEAN on the card (each step's time);
+    CLEAN's iteration counts and stop rules, its identity on the card, CLEAN
+    on the CPU on the same lag cubes, and delay_ps on the CPU on the same
+    file. Returns the numbers."""
+    from prisim_tpu_torch.analysis.clean import clean_rows
+    from prisim_tpu_torch.io import load_fits
+    from prisim_tpu_torch.tools import delay_ps
+    from prisim_tpu_torch.vis import delay_transform
+    parms = config3_parms(root, **sizes)
+    dump = os.path.join(root, "cfg3_gate.npz")
+    os.makedirs(root, exist_ok=True)
+    if os.path.exists(dump):
+        os.remove(dump)
+    os.environ["PRISIM_DEBUG_XCHECK_DUMP"] = dump
+    try:
+        (vs, outdir), log, got, wall = drive(
+            "config #3 simulation (products: native FITS in place of HDF5)",
+            parms, dev, save=True)
+    finally:
+        os.environ.pop("PRISIM_DEBUG_XCHECK_DUMP", None)
+    if os.path.exists(dump):
+        print("config #3 gate: %s; %s" % (
+            gate_readings(dump), "passed" if engine_ran(log) == "banded"
+            else "the run was demoted to the direct engine"))
+    assert np.isfinite(vs.skyvis).all() and np.isfinite(vs.vis).all()
+    fits = os.path.join(outdir, "simdata", "simvis.fits")
+    kw = dict(pad=1.0, nside_beam=32, clean=True, gain=0.1, maxiter=200,
+              threshold=5e-3)
+    times = {}
+    zero_counts()
+    t0 = time.time()
+    dps = delay_ps(fits, None, device=dev, timings=times, **kw)
+    dps_s = time.time() - t0
+    print("config #3 delay_ps on the card (%d bl x %d ch x %d acc, CLEAN on "
+          "skyvis, vis and noise): %.3f s; %s; kernel launches %s"
+          % (vs.nbl, vs.nchan, vs.n_acc, dps_s,
+             ", ".join("%s %.3f s" % kv for kv in times.items()), counts()))
+    for key in ("skyvis", "vis", "noise", "cc_skyvis_ps", "res_skyvis_ps"):
+        assert np.isfinite(dps[key]).all() and dps[key].shape == \
+            vs.skyvis.shape, key
+
+    vst = delay_transform(load_fits(fits), pad=1.0, device=dev)
+    cubes = clean_cubes(vst)
+    worst_id, same_all, d_cc, d_res, clean_ms = 0.0, [], 0.0, 0.0, {}
+    for name, (x, k, b) in cubes.items():
+        args = [torch.as_tensor(np.ascontiguousarray(a), device=dev)
+                for a in (x, k, b)]
+        ckw = dict(gain=0.1, maxiter=200, threshold=5e-3)
+        clean_rows(*args, **ckw)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = clean_rows(*args, **ckw)
+        torch.cuda.synchronize()
+        clean_ms[name] = (time.time() - t0) * 1e3
+        ident = clean_identity(args[0], args[1], out["cc"], out["res"])
+        worst_id = max(worst_id, ident)
+        t0 = time.time()
+        cpu = clean_rows(*[a.cpu() for a in args], **ckw)
+        cpu_s = time.time() - t0
+        niter, code = out["niter"].cpu(), out["terminated_by"].cpu()
+        same = (niter == cpu["niter"]) & (code == cpu["terminated_by"])
+        same_all.append(same)
+        scale = args[0].abs().max(dim=1).values.cpu()[:, None]
+        dcc = ((out["cc"].cpu() - cpu["cc"]).abs() / scale)[same].max()
+        dres = ((out["res"].cpu() - cpu["res"]).abs() / scale)[same].max()
+        d_cc, d_res = max(d_cc, float(dcc)), max(d_res, float(dres))
+        counts_ = {int(c): int((code == c).sum()) for c in (0, 1, 2)}
+        print("config #3 CLEAN %s: %d spectra x %d lags, %.3f ms on the card "
+              "(%.3f s on the CPU); niter min %d, median %d, max %d; stopped "
+              "by threshold %d, maxiter %d, box rule %d; identity res + cc * "
+              "kernel = inp: %.4e of max|inp| (bar %.0e); card vs CPU: same "
+              "niter and stop rule %.4f, max|dcc| %.4e, max|dres| %.4e of "
+              "max|inp|" % (name, x.shape[0], x.shape[1], clean_ms[name],
+                            cpu_s, int(niter.min()), int(niter.median()),
+                            int(niter.max()), counts_[0], counts_[1],
+                            counts_[2], ident, CLEAN_ID_BAR,
+                            float(same.double().mean()), float(dcc),
+                            float(dres)))
+    share = float(torch.cat(same_all).double().mean())
+    if not (worst_id <= CLEAN_ID_BAR and share >= CLEAN_SAME_SHARE
+            and d_cc <= CLEAN_CPU_BAR and d_res <= CLEAN_CPU_BAR):
+        raise SystemExit("config #3 CLEAN: identity %.3e, card vs CPU share "
+                         "%.4f, dcc %.3e, dres %.3e" % (worst_id, share, d_cc,
+                                                         d_res))
+
+    t0 = time.time()
+    ref = delay_ps(fits, None, device="cpu", **kw)
+    cpu_s = time.time() - t0
+    rel = {k: float(np.abs(dps[k] - ref[k]).max() / np.abs(ref[k]).max())
+           for k in ("skyvis", "vis", "noise", "cc_skyvis_ps",
+                     "res_skyvis_ps")}
+    same = {k: bool(np.array_equal(dps[k], ref[k]))
+            for k in ("z", "kprll", "kperp", "factor", "omega_bw")}
+    f_rel = abs(dps["factor"] / ref["factor"] - 1.0)
+    print("config #3 delay_ps card vs CPU (CPU run %.3f s): P(k) max|dP| / "
+          "max P %s (bar %.0e on skyvis, vis, noise); equal: %s; factor "
+          "relative difference %.4e" % (
+              cpu_s, ", ".join("%s %.4e" % kv for kv in rel.items()),
+              DPS_CPU_BAR, same, f_rel))
+    if not (max(rel[k] for k in ("skyvis", "vis", "noise")) <= DPS_CPU_BAR
+            and same["z"] and same["kprll"] and f_rel <= DPS_CPU_BAR):
+        raise SystemExit("config #3: delay_ps on the card disagrees with the "
+                         "CPU")
+    return dict(sim_s=wall, launches=got, delay_ps_s=dps_s, times=times,
+                clean_ms=clean_ms, engine=engine_ran(log))
+
+
+def grid_positions(shape, spacing=7.0):
+    """An ny x nx grid at `spacing` m and its labels (a copy of
+    benchmarks/bench_configs._grid_positions)."""
+    ny, nx = shape
+    xs, ys = np.meshgrid(np.arange(nx), np.arange(ny))
+    pos = np.zeros((nx * ny, 3))
+    pos[:, 0] = xs.ravel() * spacing
+    pos[:, 1] = ys.ravel() * spacing
+    labels = np.asarray([str(i) for i in range(nx * ny)])
+    return pos, labels
+
+
+def config5_phase(dev, grid=(16, 32), nchan=128, n_acc=8, nsrc=1024,
+                  max_classes=512):
+    """Phase i: config #5 at full size, as bench_configs.config5 builds it:
+    the 16 x 32 grid at 7 m (512 antennas), redundant baselines, 128 ch x
+    100 kHz from 150 MHz, 1,024 power-law sources from default_rng(1),
+    8 x 60 s, unit beam: engine.observe.simulate_drift on the card (K1a, one
+    launch an accumulation), unique_triads_fast(max_classes=512),
+    triad_baseline_indices, closure_phases; ClosurePhaseData over 4 days
+    with the 0.01 jitter of default_rng(2), smooth_in_tbins(daybinsize=2,
+    median), cpds_ft(152 MHz, 2 MHz, pad 1), xcpdps_full(cohax (2,), incohax
+    (1, 3), collapse (3,), lst shifts 0-1). Then K1a against its plain
+    version on accumulation 0. Returns the numbers."""
+    from prisim_tpu_torch.analysis.bispectrum import (ClosurePhaseData,
+                                                      cpds_ft, xcpdps_full)
+    from prisim_tpu_torch.analysis.closure import (closure_phases,
+                                                   triad_baseline_indices,
+                                                   unique_triads_fast)
+    from prisim_tpu_torch.baselines import build_baselines
+    from prisim_tpu_torch.engine import cuda_nudft, observe
+    from prisim_tpu_torch.engine.nudft import nudft_visibilities
+    from prisim_tpu_torch.layouts import ArrayLayout
+    from prisim_tpu_torch.skymodel import SkyModel
+    layout = ArrayLayout(*grid_positions(grid, spacing=7.0))
+    bset = build_baselines(layout, redundant=True)
+    freqs = 150e6 + 100e3 * np.arange(nchan)
+    inst = observe.Instrument.build(bset.vectors, freqs, dev, latitude=-30.72)
+    rng = np.random.default_rng(1)
+    loc = np.stack([rng.uniform(0, 360, nsrc),
+                    rng.uniform(-75, 15, nsrc)], axis=-1)
+    model = SkyModel(location=loc, spec_kind="power-law", spec_parms={
+        "flux-scale": rng.uniform(0.5, 3.0, nsrc),
+        "freq-ref": np.full(nsrc, 150e6),
+        "power-law-index": np.full(nsrc, -0.8)})
+    sky = observe.SkySources.from_skymodel(model, freqs, dev)
+    lsts = (np.arange(n_acc) * 60.0 / 240.0) % 360.0
+    obs = observe.Observation(
+        lst_deg=lsts, jd=np.full(n_acc, 2458000.0),
+        t_acc=np.full(n_acc, 60.0),
+        pointing_altaz=np.stack([np.full(n_acc, 90.0), np.zeros(n_acc)], -1),
+        mode="drift")
+
+    def beam_fn(s, f):
+        return torch.ones((s.shape[0], f.shape[0]), dtype=torch.float32,
+                          device=s.device)
+
+    zero_counts()
+    t0 = time.time()
+    vis = observe.simulate_drift(inst, sky, obs, beam_fn, src_block=1024)
+    vis = vis.cpu().numpy()
+    t_sim = time.time() - t0
+    got = counts()
+    if got["k1a"] != n_acc:
+        raise SystemExit("config #5: K1a launched %d times for %d "
+                         "accumulations" % (got["k1a"], n_acc))
+
+    t0 = time.time()
+    triads = unique_triads_fast(layout.labels, layout.positions,
+                                max_classes=max_classes)
+    idx, conj = triad_baseline_indices(
+        bset.labels, triads, baselines=bset.vectors,
+        ant_positions=layout.positions, ant_labels=layout.labels)
+    vis_bct = np.ascontiguousarray(np.transpose(vis, (1, 2, 0)))
+    cp, _ = closure_phases(vis_bct, idx, conj)   # (ntri, nchan, nacc)
+    t_cp = time.time() - t0
+
+    t0 = time.time()
+    ntri = cp.shape[0]
+    cp4 = np.transpose(cp, (2, 0, 1))[:, None, :, :]     # (nlst, 1, t, c)
+    ndays = 4
+    cp4 = np.repeat(cp4, ndays, axis=1)
+    cp4 = cp4 + 0.01 * np.random.default_rng(2).normal(size=cp4.shape)
+    cpd = ClosurePhaseData(cp=cp4, wts=np.ones(cp4.shape), freqs=freqs,
+                           lst=lsts / 15.0,
+                           days=2458000.0 + np.arange(ndays, dtype=float),
+                           triads=np.asarray(triads))
+    sm_cpd = cpd.smooth_in_tbins(daybinsize=2.0, stat="median")
+    ft = cpds_ft(sm_cpd.eicp * sm_cpd.wts, sm_cpd.wts, freqs,
+                 freq_center=[152e6], bw_eff=2e6, pad=1.0)
+    ps = xcpdps_full(ft, cohax=(2,), incohax=(1, 3), collapse_axes=(3,),
+                     lst_shifts=np.arange(2))
+    t_ps = time.time() - t0
+    P = np.asarray(ps["P"])
+    print("config #5: %d antennas, %d unique baselines x %d ch x %d acc, %d "
+          "sources; simulate_drift on the card %.3f s (K1a %d launches, "
+          "%s); %d triads: triads + indices + closure phases %.3f s (host); "
+          "day binning + cpds_ft + xcpdps_full %.3f s (host); P %s, finite "
+          "%s" % (layout.positions.shape[0], bset.nbl, nchan, n_acc, nsrc,
+                  t_sim, got["k1a"], got, ntri, t_cp, t_ps, P.shape,
+                  bool(np.isfinite(P[~np.isnan(P)]).all())))
+    if not (ntri == max_classes and np.isfinite(cp).all()
+            and not np.isnan(P).all()):
+        raise SystemExit("config #5: bad closure products")
+
+    Mh, Ml, pch, pcl = observe.schedule_tensors(obs, inst.latitude, dev)
+    seh, sel, amps, _ = observe.snapshot_nudft_inputs(
+        inst, sky, Mh[0], Ml[0], pch[0], pcl[0], beam_fn)
+    args = (seh, sel, inst.bl_hi, inst.bl_lo, amps, inst.grid_scalars(),
+            inst.nchan)
+    v_k = cuda_nudft.nudft_cuda(*args)
+    v_p = nudft_visibilities(*args)
+    rel, d = rel_err(v_k, v_p, float(v_p.abs().max()))
+    coherent = float(amps.abs().sum(dim=0).max())
+    same0 = bool(np.array_equal(v_k.cpu().numpy(), vis[0]))
+    print("config #5 K1a vs plain, accumulation 0 (%d sources x %d bl x %d "
+          "ch): max|dV|=%.4e  /max|V|=%.4e  /max_c sum_s|A|=%.4e (bar %.0e); "
+          "the run's accumulation 0 equals this launch: %s"
+          % (seh.shape[0], inst.nbl, inst.nchan, d, rel, d / coherent, BAR,
+             same0))
+    if not (rel < BAR and same0):
+        raise SystemExit("config #5: K1a disagrees with its plain version")
+    return dict(sim_s=t_sim, closure_s=t_cp, xcpdps_s=t_ps, launches=got,
+                nbl=bset.nbl, ntri=ntri, P_shape=P.shape)
+
+
+def drive_chunked(label, parms, dev, **kw):
+    """run_simulation_chunked with the kernel counts set to 0 just before
+    and read just after; prints its log, wall-clock and launches. Returns
+    (result, log, counts, seconds)."""
+    from prisim_tpu_torch.driver import run_simulation_chunked
+    log = io.StringIO()
+    zero_counts()
+    t0 = time.time()
+    with contextlib.redirect_stdout(log):
+        out = run_simulation_chunked(parms, verbose=True, device=dev, **kw)
+    wall = time.time() - t0
+    got = counts()
+    print(log.getvalue().rstrip())
+    print("%s: wall-clock %.3f s, launches K1a %d, K2 %d (%s)"
+          % (label, wall, got["k1a"], got["k2"], got))
+    if got["k1a"] == 0:
+        raise SystemExit("%s: K1a never launched" % label)
+    return out, log.getvalue(), got, wall
+
+
+def chunk_noise(vs, axis, n_chunks=2):
+    """Each chunk's noise block along `axis`, and its rms against the
+    radiometer rms of its samples."""
+    edges = np.linspace(0, vs.vis_noise.shape[axis], n_chunks + 1).astype(int)
+    out = []
+    for i in range(n_chunks):
+        sl = [slice(None)] * 3
+        sl[axis] = slice(edges[i], edges[i + 1])
+        n = vs.vis_noise[tuple(sl)]
+        r = np.asarray(vs.vis_rms)[tuple(sl)]
+        out.append((n, float(np.sqrt(np.mean(np.abs(n) ** 2))
+                             / np.sqrt(np.mean(r ** 2)))))
+    return out
+
+
+def chunked_phase(root, dev, have_h5py, nchan=256, n_acc=2, **sections):
+    """Phase j: the slice's HERA-37 config cut to 2 accumulations and 256
+    channels, engine auto: the run unchunked, then pp.n_chunks: 2 with key
+    freq and with key time (skyvis against the unchunked run in both
+    normalizations, each chunk's noise rms against the radiometer rms, the
+    chunks' draws differ); resume (part 1 deleted, part 0 kept untouched,
+    the merge equal to the first); diagnosis.jax_profile (a torch.profiler
+    trace) and diagnosis.resource_monitor (JSONL rows with device bytes
+    where psutil imports; without it, ImportError before any compute).
+    `sections` update the parameter sections. Returns the numbers."""
+    import copy
+    base = slice_parms(root, have_h5py, "auto", "chunks_single",
+                       bandpass={"nchan": nchan}, obsparm={"n_acc": n_acc},
+                       save_formats={"fmt": "none", "npz": False},
+                       processing={"engine": "auto", "cleanup": 0},
+                       **sections)
+    (single, _), _, got_u, wall_u = drive("chunked phase, unchunked run",
+                                          base, dev)
+    coh, _ = coherent_scale(base, dev)
+    vmax = float(np.abs(single.skyvis).max())
+    res = {}
+    for key, axis in (("freq", 1), ("time", 2)):
+        parms = copy.deepcopy(base)
+        parms["dirstruct"]["simid"] = "chunks_" + key
+        parms["pp"].update(n_chunks=2, key=key)
+        outdir = os.path.join(root, "chip_smoke", "chunks_" + key)
+        for i in range(2):
+            part = os.path.join(outdir, "simdata", "_part_%d.npz" % i)
+            if os.path.exists(part):
+                os.remove(part)
+        (vs, outdir), log, got, wall = drive_chunked(
+            "chunked phase, pp.key %s, 2 chunks" % key, parms, dev)
+        d = float(np.abs(vs.skyvis - single.skyvis).max())
+        noise = chunk_noise(vs, axis)
+        differ = not np.array_equal(noise[0][0], noise[1][0])
+        print("chunked (%s) vs unchunked: max|dV|=%.4e  /max|V|=%.4e  "
+              "/max_c sum_s|A|=%.4e (bar %.0e); noise rms / radiometer rms "
+              "per chunk %s (bar %.0e); the chunks' draws differ: %s"
+              % (key, d, d / vmax, d / coh, BAR,
+                 ", ".join("%.5f" % r for _, r in noise), NOISE_RMS_BAR,
+                 differ))
+        if not (d / coh <= BAR and differ and all(
+                abs(r - 1.0) <= NOISE_RMS_BAR for _, r in noise)):
+            raise SystemExit("chunked (%s) run disagrees" % key)
+        res[key] = dict(wall=wall, launches=got, rel_coherent=d / coh)
+        if key == "freq":
+            first, parms_f = vs, parms
+            p0 = os.path.join(outdir, "simdata", "_part_0.npz")
+            p1 = os.path.join(outdir, "simdata", "_part_1.npz")
+
+    mtime = os.stat(p0).st_mtime_ns
+    os.remove(p1)
+    (again, _), log, got, wall = drive_chunked(
+        "chunked phase, resume with _part_1.npz deleted", parms_f, dev)
+    kept = os.stat(p0).st_mtime_ns == mtime and "resume: part 0" in log
+    same = {n: bool(np.array_equal(getattr(again, n), getattr(first, n)))
+            for n in ("skyvis", "vis", "vis_noise")}
+    d = float(np.abs(again.skyvis - first.skyvis).max())
+    print("resume: part 0 skipped and untouched %s; merge equal to the first "
+          "run %s (skyvis max|dV|/max_c sum_s|A| = %.4e)" % (kept, same,
+                                                             d / coh))
+    if not (kept and same["vis_noise"] and d / coh <= 1e-7):
+        raise SystemExit("chunked phase: resume changed the product")
+
+    prof_dir = os.path.join(root, "torch_profile")
+    if os.path.isdir(prof_dir):
+        for f in os.listdir(prof_dir):
+            os.remove(os.path.join(prof_dir, f))
+    prof = copy.deepcopy(base)
+    prof["diagnosis"]["jax_profile"] = prof_dir
+    _, _, got_p, wall_p = drive("chunked phase, diagnosis.jax_profile",
+                                prof, dev)
+    files = os.listdir(prof_dir)
+    size = sum(os.path.getsize(os.path.join(prof_dir, f)) for f in files)
+    print("diagnosis.jax_profile: %d trace file(s), %.1f MB, run %.3f s "
+          "(unprofiled %.3f s)" % (len(files), size / 1e6, wall_p, wall_u))
+    if not (files and size > 0):
+        raise SystemExit("diagnosis.jax_profile wrote no trace")
+
+    mon = copy.deepcopy(base)
+    mon["diagnosis"].update(resource_monitor=True, refresh_interval=0.1)
+    path = os.path.join(root, "resource_monitor.jsonl")
+    if os.path.exists(path):
+        os.remove(path)
+    if importable("psutil"):
+        drive("chunked phase, diagnosis.resource_monitor", mon, dev)
+        with open(path) as f:
+            rows = [json.loads(line) for line in f]
+        peak = max(r.get("device_bytes_in_use", -1) for r in rows)
+        print("diagnosis.resource_monitor: %d rows, device bytes in use up "
+              "to %d" % (len(rows), peak))
+        if not (rows and all("device_bytes_in_use" in r for r in rows)):
+            raise SystemExit("resource monitor rows lack device bytes")
+    else:
+        from prisim_tpu_torch.driver import run_simulation
+        zero_counts()
+        try:
+            run_simulation(mon, verbose=False, save=False, device=dev)
+        except ImportError as exc:
+            print("diagnosis.resource_monitor without psutil: ImportError "
+                  "(%s) before any compute, launches %s" % (exc, counts()))
+        else:
+            raise SystemExit("resource_monitor ran without psutil")
+        if any(counts().values()):
+            raise SystemExit("resource_monitor: compute ran before the "
+                             "ImportError")
+    return dict(single_s=wall_u, launches=got_u, runs=res,
+                resume_s=wall, profile_s=wall_p)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -1890,6 +2377,21 @@ def main():
         save_formats={"fmt": "fits", "npz": False, "uvfits": True}), cuda)
     torch.cuda.empty_cache()
     print("[dual polarization phase: %.2f s]" % (time.time() - t0))
+
+    t0 = time.time()
+    config3_phase(os.path.join(out_root, "cfg3"), cuda)
+    torch.cuda.empty_cache()
+    print("[config #3 phase: %.2f s]" % (time.time() - t0))
+
+    t0 = time.time()
+    config5_phase(cuda)
+    torch.cuda.empty_cache()
+    print("[config #5 phase: %.2f s]" % (time.time() - t0))
+
+    t0 = time.time()
+    chunked_phase(os.path.join(out_root, "chunks"), cuda, have_h5py)
+    torch.cuda.empty_cache()
+    print("[chunked runs and diagnosis phase: %.2f s]" % (time.time() - t0))
 
     print(smi)
     for label, ms, bd in (

@@ -30,15 +30,22 @@ weights of crossed dipoles (beams/jones.py) as three, each through the
 same engines (the XY weight is sign-indefinite), and writes the combined
 2-pol and 4-pol UVFITS (and UVH5, where save_formats.uvh5 asks for it).
 
+run_simulation_chunked splits a run along channels or accumulations
+(pp.n_chunks, pp.key) into part files (simdata/_part_<i>.npz, skipped when
+present: resume), merges them and writes the products. diagnosis.
+jax_profile writes a torch.profiler trace around the run,
+diagnosis.resource_monitor samples CPU, RSS and device memory to JSONL.
+
 The device is explicit: run_simulation(..., device="cuda") raises when no
 card is present and never carries on on the CPU. Branches that are not
-ported yet (the sorted spread, multi-device and chunked runs,
-diagnostics) raise NotImplementedError before any compute, naming the
-ROADMAP item that ports them.
+ported yet (the sorted spread, multi-device runs) raise
+NotImplementedError before any compute, naming the ROADMAP item that ports
+them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import functools
@@ -76,7 +83,8 @@ from .engine.observe import Instrument, Observation, SkySources, \
 from .vis import VisibilitySet, delay_transform, phase_centering, \
     project_baselines
 
-__all__ = ["run_simulation", "prepare_simulation", "resolve_device",
+__all__ = ["run_simulation", "run_simulation_chunked",
+           "prepare_simulation", "resolve_device",
            "banded_engine",
            "build_layout", "build_frequencies", "build_schedule",
            "build_sky", "build_observed_sky", "build_tsys",
@@ -557,7 +565,27 @@ def _blgroups_dict(bls):
 
 def _bandpass_weights(parms, nbl, freqs, n_acc):
     """Channel flagging -> bp; window shape -> bp_wts (run_prisim.py:908-981
-    flags; processing.bpass_shape)."""
+    flags; processing.bpass_shape).
+
+    For frequency-chunked runs the reference builds the bandpass once
+    over the FULL band before chunking (run_prisim.py:898-981): flag
+    indices, edge flags, and window shapes are global-band quantities.
+    When pp._chunk metadata is present, compute on the full grid and
+    slice this chunk's channels."""
+    chunk = (parms.get("pp") or {}).get("_chunk")
+    if chunk and int(chunk.get("axis", -1)) == 1:
+        nchan_total = int(chunk["nchan_total"])
+        chan0 = int(chunk["chan0"])
+        df = float(parms["bandpass"]["freq_resolution"])
+        freqs_full = (freqs[0] - df * chan0) + df * np.arange(nchan_total)
+        bp, wts = _bandpass_weights_full(parms, nbl, freqs_full, n_acc)
+        sl = slice(chan0, chan0 + freqs.size)
+        return (np.ascontiguousarray(bp[:, sl, :]),
+                np.ascontiguousarray(wts[:, sl, :]))
+    return _bandpass_weights_full(parms, nbl, freqs, n_acc)
+
+
+def _bandpass_weights_full(parms, nbl, freqs, n_acc):
     nchan = freqs.size
     bp = np.ones((nbl, nchan, n_acc))
     pfb = (parms.get("bandpass") or {}).get("pfb_method")
@@ -676,8 +704,6 @@ def check_supported(parms, device):
                          "NUDFT, but on a CUDA device the direct engine "
                          "always runs kernel K1a")
     pp = parms.get("pp") or {}
-    if int(pp.get("n_chunks") or 1) > 1:
-        raise _not_ported("pp.n_chunks > 1 (chunked runs)", 17)
     if pp.get("mesh_axes"):
         raise _not_ported("pp.mesh_axes (multi-device runs)", 13)
     bm = parms.get("beam") or {}
@@ -696,9 +722,6 @@ def check_supported(parms, device):
     if sf.get("uvh5") and h5py is None:
         raise ImportError("save_formats.uvh5 needs h5py; write UVFITS "
                           "(save_formats.uvfits) instead")
-    diag = parms.get("diagnosis") or {}
-    if diag.get("jax_profile") or diag.get("resource_monitor"):
-        raise _not_ported("diagnosis.jax_profile/resource_monitor", 17)
 
 
 def _fits_beam(path):
@@ -922,16 +945,50 @@ def run_simulation(parms, outdir=None, verbose=True, save=True,
     if not isinstance(parms, dict) or "telescope" not in parms:
         parms = load_parms(parms)
     dev = resolve_device(device)
-    cur = parms
-    while True:
-        try:
-            return _run_simulation_inner(cur, outdir, verbose, save, dev,
-                                         _sky_override)
-        except _EngineDemotion as dem:
-            cur = dem.parms
-            gc.collect()
-            if dev.type == "cuda":
-                torch.cuda.empty_cache()
+    with _diagnosis(parms, dev):
+        cur = parms
+        while True:
+            try:
+                return _run_simulation_inner(cur, outdir, verbose, save, dev,
+                                             _sky_override)
+            except _EngineDemotion as dem:
+                cur = dem.parms
+                gc.collect()
+                if dev.type == "cuda":
+                    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def _diagnosis(parms, dev):
+    """The diagnosis section around a run (prisim_tpu/driver.py:647-665):
+    jax_profile names a directory that receives a torch.profiler trace of
+    the run (CPU activity, and CUDA activity on a card; view it in
+    chrome://tracing or Perfetto), resource_monitor samples CPU, RSS and
+    device memory to <rootdir>/resource_monitor.jsonl every
+    refresh_interval seconds (psutil, imported before any compute)."""
+    diag = parms.get("diagnosis") or {}
+    with contextlib.ExitStack() as stack:
+        if diag.get("resource_monitor"):
+            from .diagnostics import ResourceMonitor
+            root = parms["dirstruct"].get("rootdir") or "./"
+            os.makedirs(root, exist_ok=True)
+            stack.enter_context(ResourceMonitor(
+                os.path.join(root, "resource_monitor.jsonl"),
+                interval=float(diag.get("refresh_interval") or 1.0),
+                device=dev))
+        profile_dir = diag.get("jax_profile")
+        if profile_dir:
+            from torch.profiler import ProfilerActivity, profile
+            os.makedirs(profile_dir, exist_ok=True)
+            acts = [ProfilerActivity.CPU] + (
+                [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+            prof = profile(activities=acts)
+            # registered first, so it runs after the profiler has stopped
+            stack.callback(lambda: prof.export_chrome_trace(os.path.join(
+                profile_dir, "trace_%d_%d.json" % (os.getpid(),
+                                                   time.time_ns()))))
+            stack.enter_context(prof)
+        yield
 
 
 def _run_sectors(parms, outdir, verbose, save, dev, n_sectors):
@@ -1260,6 +1317,20 @@ def _simulate_external(parms, sim, verbose):
     return torch.stack(snaps)
 
 
+def _noise_generator(parms):
+    """The CPU torch.Generator of a run's thermal noise, seeded from
+    skyparm.seed; a chunk of a chunked run (pp._chunk) seeds it from
+    (seed, chunk index), so each chunk draws its own noise and a resumed
+    chunk repeats its draw (JAX folds the index into its key,
+    prisim_tpu/driver.py:1735-1738)."""
+    seed = int(parms["skyparm"].get("seed") or 0)
+    chunk = (parms.get("pp") or {}).get("_chunk")
+    if chunk is not None:
+        seed = int(np.random.SeedSequence(
+            [seed, int(chunk["index"])]).generate_state(1, np.uint64)[0])
+    return torch.Generator().manual_seed(seed)
+
+
 def _phase(verbose, label, since):
     if verbose:
         print("[prisim_tpu_torch] ... %s (%.2f s)"
@@ -1280,9 +1351,7 @@ def _finalize_simulation(parms, sim, skyvis, outdir, verbose, save, t0,
         float(tp.get("A_eff") or 154.0), df, float(obs.t_acc[0]),
         tsys, nbl=bls.nbl, nchan=freqs.size, ntimes=obs.n_acc,
         eff_Q=float(tp.get("eff_Q") or 1.0))
-    gen = torch.Generator().manual_seed(int(parms["skyparm"].get("seed")
-                                            or 0))
-    noise = generate_noise(gen, rms).numpy()
+    noise = generate_noise(_noise_generator(parms), rms).numpy()
     _phase(verbose, "Tsys, rms and noise", t1)
     t1 = time.time()
     gains = 1.0
@@ -1491,8 +1560,109 @@ def main(argv=None):
                    help="'cuda' (the CUDA kernels; raises without a card) "
                         "or 'cpu' (their plain versions)")
     args = p.parse_args(argv)
-    run_simulation(load_parms(args.infile), outdir=args.outdir,
-                   verbose=not args.quiet, device=args.device)
+    parms = load_parms(args.infile)
+    run = (run_simulation_chunked
+           if int((parms.get("pp") or {}).get("n_chunks") or 1) > 1
+           else run_simulation)
+    run(parms, outdir=args.outdir, verbose=not args.quiet,
+        device=args.device)
+
+
+def run_simulation_chunked(parms, outdir=None, verbose=True, device="cuda"):
+    """Chunked execution with checkpoint/resume (prisim_tpu/driver.py:
+    1944-2030).
+
+    The reference writes per-chunk ``simdata/_part_N`` files and
+    concatenates on rank 0 (run_prisim.py:1995, 2224-2287), which doubles
+    as crash recovery. Here: split the run along pp.key ('freq': the
+    channel axis, otherwise the accumulation axis) into pp.n_chunks
+    pieces, simulate each on `device` to ``simdata/_part_<i>.npz`` (a
+    lossless NPZ, io.parts) - skipping parts that already exist (resume) -
+    then concatenate, redo the delay transform when
+    processing.delay_transform asks for it, save the final products,
+    record metainfo/chunkinfo (YAML, or JSON without pyyaml) and apply
+    processing.cleanup (>= 1 removes the part files). Returns
+    (VisibilitySet, output_dir)."""
+    from .io.parts import load_part_npz, save_part_npz
+    from .vis import concatenate
+    if not isinstance(parms, dict) or "telescope" not in parms:
+        parms = load_parms(parms)
+    pp = parms.get("pp") or {}
+    n_chunks = int(pp.get("n_chunks") or 1)
+    if n_chunks <= 1:
+        return run_simulation(parms, outdir=outdir, verbose=verbose,
+                              device=device)
+    dev = resolve_device(device)
+    ds = parms["dirstruct"]
+    if outdir is None:
+        simid = ds.get("simid") or time.strftime("sim_%Y%m%d_%H%M%S")
+        outdir = os.path.join(ds.get("rootdir") or "./",
+                              ds.get("project") or "prisim_tpu_torch", simid)
+    os.makedirs(os.path.join(outdir, "simdata"), exist_ok=True)
+    key = (pp.get("key") or "freq").lower()
+    axis = 1 if key == "freq" else 2
+    if axis == 1:
+        edges = np.linspace(0, int(parms["bandpass"]["nchan"]),
+                            n_chunks + 1).astype(int)
+    else:
+        edges = np.linspace(0, int(parms["obsparm"]["n_acc"]),
+                            n_chunks + 1).astype(int)
+    parts = []
+    for i in range(n_chunks):
+        part_path = os.path.join(outdir, "simdata", "_part_%d.npz" % i)
+        if os.path.exists(part_path):
+            if verbose:
+                print("[prisim_tpu_torch] resume: part %d exists, skipping"
+                      % i)
+            parts.append(part_path)
+            continue
+        p2 = copy.deepcopy(parms)
+        p2["pp"]["n_chunks"] = 1
+        p2["pp"]["_chunk"] = {
+            "index": i, "axis": axis,
+            "chan0": int(edges[i]) if axis == 1 else 0,
+            "nchan_total": int(parms["bandpass"]["nchan"])}
+        if axis == 1:
+            nchan = int(parms["bandpass"]["nchan"])
+            df = float(parms["bandpass"]["freq_resolution"])
+            f_center = float(parms["bandpass"]["freq"])
+            f_lo = f_center + df * (-nchan / 2)
+            nloc = int(edges[i + 1] - edges[i])
+            p2["bandpass"]["nchan"] = nloc
+            p2["bandpass"]["freq"] = f_lo + df * (edges[i] + nloc / 2)
+        else:
+            n_acc = int(parms["obsparm"]["n_acc"])
+            p2["obsparm"]["n_acc"] = n_acc     # schedule then pick
+            p2["snapshot"]["pick"] = list(range(int(edges[i]),
+                                                int(edges[i + 1])))
+            p2["snapshot"]["all"] = False
+        vs_i, _ = run_simulation(p2, verbose=False, save=False, device=dev)
+        if not isinstance(vs_i, VisibilitySet):
+            raise ValueError("chunked runs take one single-polarization "
+                             "run without sky sectors")
+        save_part_npz(vs_i, part_path)
+        parts.append(part_path)
+        if verbose:
+            print("[prisim_tpu_torch] chunk %d/%d -> %s"
+                  % (i + 1, n_chunks, part_path))
+    vs = concatenate([load_part_npz(p) for p in parts], axis)
+    if parms["processing"].get("delay_transform"):
+        # lag-domain products were dropped by concatenate (partial-band
+        # spectra are invalid); recompute over the merged band
+        vs = delay_transform(vs, pad=float(
+            parms["processing"].get("f_pad") or 1.0), device=dev)
+    outpath = _save_products(vs, parms, outdir)
+    # record the decomposition (run_prisim.py:1793-1801 chunkinfo.yaml)
+    os.makedirs(os.path.join(outpath, "metainfo"), exist_ok=True)
+    _write_metadata({"key": key, "n_chunks": n_chunks,
+                     "chunk_edges": [int(e) for e in edges],
+                     "parts": [os.path.basename(p) for p in parts]},
+                    os.path.join(outpath, "metainfo", "chunkinfo"))
+    cleanup = int(parms["processing"].get("cleanup") or 0)
+    if cleanup >= 1:
+        for p in parts:
+            os.remove(p)
+    return vs, outpath
 
 
 if __name__ == "__main__":

@@ -3,7 +3,8 @@
 Counterpart of prisim_tpu/vis.py: ``VisibilitySet`` is a plain dataclass
 of host numpy arrays (complex cubes are (nbl, nchan, n_acc), the
 reference's on-disk order) with the same fields, so the port's products
-carry the same schema. ``phase_centering``, ``project_baselines`` and
+carry the same schema. ``phase_centering``, ``project_baselines``,
+``conjugate``, ``concatenate`` (the chunk merge) and
 ``apply_baseline_gradients`` are host numpy; ``delay_transform`` runs on
 torch.fft.
 
@@ -23,7 +24,8 @@ from . import geometry as geom
 from . import windows as win
 
 __all__ = ["VisibilitySet", "phase_centering", "project_baselines",
-           "delay_transform", "apply_baseline_gradients", "to_dircos"]
+           "conjugate", "concatenate", "delay_transform",
+           "apply_baseline_gradients", "to_dircos"]
 
 
 @dataclass
@@ -132,12 +134,14 @@ def to_dircos(location, coords, lst_deg, latitude):
     raise ValueError("invalid coordinate system '%s'" % coords)
 
 
-def phase_centering(vs, phase_center_new, phase_center_coords_new):
+def phase_centering(vs, phase_center_new, phase_center_coords_new,
+                    do_delay_transform=False, device="cuda"):
     """Re-phase all visibility cubes to a new phase center.
 
     V' = V * exp(-2 pi i (b . (l_old - l_new)) nu / c)
     (PRISim prisim/interferometry.py:7841-7852). Returns a new
-    VisibilitySet with updated phase_center."""
+    VisibilitySet with updated phase_center; with do_delay_transform, also
+    delay-transformed (delay_transform on `device`)."""
     lnew = to_dircos(phase_center_new, phase_center_coords_new,
                      vs.lst, vs.latitude)
     if vs.phase_center is None:
@@ -165,11 +169,14 @@ def phase_centering(vs, phase_center_new, phase_center_coords_new):
                        np.asarray(vs.freqs).reshape(1, -1, 1) / CNST.c)
     updates = {name: np.asarray(arr) * phase
                for name, arr in cubes}
-    return replace(vs, phase_center=np.atleast_2d(
+    out = replace(vs, phase_center=np.atleast_2d(
         np.broadcast_to(np.atleast_2d(phase_center_new),
                         (vs.n_acc, np.atleast_2d(
                             np.asarray(phase_center_new)).shape[1]))).copy(),
         phase_center_coords=phase_center_coords_new, **updates)
+    if do_delay_transform:
+        out = delay_transform(out, device=device)
+    return out
 
 
 def project_baselines(vs, ref_location=None, ref_coords=None):
@@ -201,14 +208,131 @@ def project_baselines(vs, ref_location=None, ref_coords=None):
     return replace(vs, projected_baselines=proj)
 
 
+def conjugate(vs, ind="all"):
+    """Flip baseline vectors and conjugate visibilities for the selected
+    baselines (PRISim prisim/interferometry.py:7999-8050)."""
+    if isinstance(ind, str):
+        if ind != "all":
+            raise ValueError('ind must be "all" if a string')
+        ind = np.arange(vs.nbl)
+    ind = np.asarray(ind).ravel()
+    if np.any(ind >= vs.nbl):
+        raise IndexError("baseline index out of range")
+    mask = np.zeros(vs.nbl, dtype=bool)
+    mask[ind] = True
+    bl = np.asarray(vs.baselines).copy()
+    bl[mask] = -bl[mask]
+    labels = np.asarray(vs.labels).copy()
+    labels[mask] = labels[mask][:, ::-1]
+    updates = {}
+    for name, arr in vs._vis_cubes():
+        arr = np.asarray(arr).copy()
+        arr[mask] = np.conj(arr[mask])
+        updates[name] = arr
+    proj = vs.projected_baselines
+    if proj is not None:
+        proj = np.asarray(proj).copy()
+        proj[mask] = -proj[mask]
+    return replace(vs, baselines=bl, labels=labels,
+                   projected_baselines=proj, **updates)
 
-def delay_transform(vs, pad=1.0, device="cuda"):
+
+def concatenate(parts, axis):
+    """Stitch partial sims along axis 0 (baselines), 1 (channels), or
+    2 (accumulations) - the chunk merge of the reference's MPI driver
+    (PRISim prisim/interferometry.py:8291; run_prisim.py:2256-2267)."""
+    if not parts:
+        raise ValueError("no parts to concatenate")
+    first = parts[0]
+
+    def cat(get, ax):
+        arrs = [get(p) for p in parts]
+        if any(a is None for a in arrs):
+            return None
+        return np.concatenate([np.asarray(a) for a in arrs], axis=ax)
+
+    kw = {}
+    for name in ("skyvis", "vis", "vis_noise", "vis_rms", "bp", "bp_wts",
+                 "Tsys"):
+        kw[name] = cat(lambda p, n=name: getattr(p, n), axis)
+    if axis == 0:
+        kw["baselines"] = np.concatenate(
+            [np.asarray(p.baselines) for p in parts], axis=0)
+        kw["labels"] = np.concatenate(
+            [np.asarray(p.labels) for p in parts], axis=0)
+        kw["freqs"] = first.freqs
+        kw["lst"] = first.lst
+        kw["timestamps"] = first.timestamps
+        kw["t_acc"] = first.t_acc
+        if all(p.projected_baselines is not None for p in parts):
+            kw["projected_baselines"] = np.concatenate(
+                [np.asarray(p.projected_baselines) for p in parts], axis=0)
+    elif axis == 1:
+        kw["baselines"] = first.baselines
+        kw["labels"] = first.labels
+        kw["freqs"] = np.concatenate(
+            [np.asarray(p.freqs) for p in parts])
+        kw["lst"] = first.lst
+        kw["timestamps"] = first.timestamps
+        kw["t_acc"] = first.t_acc
+        kw["projected_baselines"] = first.projected_baselines
+    elif axis == 2:
+        kw["baselines"] = first.baselines
+        kw["labels"] = first.labels
+        kw["freqs"] = first.freqs
+        kw["lst"] = np.concatenate([np.asarray(p.lst) for p in parts])
+
+        def cat_t(get):
+            arrs = [get(p) for p in parts]
+            if any(a is None for a in arrs):
+                return None
+            return np.concatenate([np.asarray(a) for a in arrs])
+        kw["timestamps"] = cat_t(lambda p: p.timestamps)
+        kw["t_acc"] = cat_t(lambda p: p.t_acc)
+        if all(p.projected_baselines is not None for p in parts):
+            kw["projected_baselines"] = np.concatenate(
+                [np.asarray(p.projected_baselines) for p in parts], axis=2)
+        for name in ("pointing_center", "phase_center"):
+            arrs = [getattr(p, name) for p in parts]
+            if all(a is not None for a in arrs):
+                kw[name] = np.concatenate(
+                    [np.atleast_2d(np.asarray(a)) for a in arrs], axis=0)
+    else:
+        raise ValueError("axis must be 0, 1 or 2")
+    # lag-domain products are not concatenable (a partial-band delay
+    # spectrum has the wrong lag axis): drop them; callers re-run
+    # delay_transform on the merged set.
+    for name in ("lags", "skyvis_lag", "vis_lag", "vis_noise_lag",
+                 "lag_kernel"):
+        kw[name] = None
+    return replace(first, **kw)
+
+
+def delay_transform(vs, pad=1.0, freq_wts=None, device="cuda"):
     """Windowed IFFT along the frequency axis with zero-padding and
-    Fourier downsampling back to nchan lag bins (torch.fft on `device`).
-    Returns a new VisibilitySet with lags / *_lag / lag_kernel filled."""
+    Fourier downsampling back to nchan lag bins (torch.fft on `device`;
+    PRISim prisim/interferometry.py:8052-8139). freq_wts replaces the
+    bandpass weights: (nchan,), (nbl, nchan) or (nbl, nchan, n_acc)
+    values. Returns a new VisibilitySet with lags / *_lag / lag_kernel
+    filled."""
+    from .driver import resolve_device
+    device = resolve_device(device)
     nchan = vs.nchan
     df = vs.freq_resolution
     bp, bp_wts = vs.default_bp()
+    if freq_wts is not None:
+        freq_wts = np.asarray(freq_wts)
+        if freq_wts.size == nchan:
+            bp_wts = np.broadcast_to(
+                freq_wts.reshape(1, nchan, 1),
+                (vs.nbl, nchan, vs.n_acc))
+        elif freq_wts.size == nchan * vs.nbl:
+            bp_wts = np.repeat(freq_wts.reshape(vs.nbl, nchan, 1),
+                               vs.n_acc, axis=2)
+        elif freq_wts.size == nchan * vs.nbl * vs.n_acc:
+            bp_wts = freq_wts.reshape(vs.nbl, nchan, vs.n_acc)
+        else:
+            raise ValueError("window shape incompatible with data")
     lags = win.spectral_axis(nchan, delx=df, shift=True)
     updates = {"lags": lags, "bp_wts": np.asarray(bp_wts)}
 
@@ -221,7 +345,6 @@ def delay_transform(vs, pad=1.0, device="cuda"):
         updates[name + "_lag"] = _dt(np.asarray(arr))
     updates["lag_kernel"] = _dt(np.ones((vs.nbl, nchan, vs.n_acc)))
     return replace(vs, **updates)
-
 
 def apply_baseline_gradients(vs, delta_b):
     """First-order perturbed visibilities from the stored baseline

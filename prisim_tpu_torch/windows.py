@@ -1,8 +1,8 @@
 """Spectral windows, delay-axis and delay-transform helpers.
 
-Counterpart of the parts of prisim_tpu/windows.py that the visibility
-container and the driver's bandpass weights use. Window and axis tables
-are host numpy; the delay transform runs on torch tensors (torch.fft).
+Counterpart of prisim_tpu/windows.py. Window, subband and axis tables are
+host numpy; the delay transform and the Fourier resampling run on torch
+tensors (torch.fft).
 
 The delay transform is an inverse FFT along the frequency axis scaled by
 (n * df), with an fftshifted lag axis, optionally zero-padded by `pad`
@@ -42,6 +42,47 @@ def window_vals(n_window, shape="bhw", fftpow=1.0):
     if fftpow != 1.0:
         w = w ** fftpow
     return w
+
+
+def window_frac_width(shape="bhw", fftpow=1.0, n=4096):
+    """Noise-equivalent fractional width (sum w)^2/(N sum w^2) of a window."""
+    w = window_vals(n, shape=shape, fftpow=fftpow)
+    return float(np.sum(w) ** 2 / (n * np.sum(w ** 2)))
+
+
+def window_n2width(shape="bhw", fftpow=1.0):
+    """Alias matching the reference's DSP.window_N2width semantics
+    (fractional effective width; PRISim's
+    prisim/interferometry.py:7320-7324)."""
+    return window_frac_width(shape=shape, fftpow=fftpow)
+
+
+def subband_window(channels, freq_center, bw_eff, shape="bhw", fftpow=1.0):
+    """Frequency weights for one spectral subband over the full channel axis.
+
+    Builds a window of effective bandwidth bw_eff centered at freq_center,
+    normalized so sum(w^2) = frac_width * n_window (the reference's
+    sqrt(frac_width*n_window) x power-normalized scaling, PRISim's
+    prisim/interferometry.py:7329-7342). Host numpy; the result is a static
+    weight vector.
+    """
+    channels = np.asarray(channels, dtype=np.float64)
+    df = channels[1] - channels[0]
+    nchan = channels.size
+    frac_width = window_frac_width(shape=shape, fftpow=fftpow)
+    n_window = int(np.round(bw_eff / df / frac_width))
+    n_window = max(1, min(n_window, nchan))
+    w = window_vals(n_window, shape=shape, fftpow=fftpow)
+    w = w / np.sqrt(np.sum(w ** 2))  # power normalize
+    w = np.sqrt(frac_width * n_window) * w
+    ic = int(np.argmin(np.abs(channels - freq_center)))
+    full = np.zeros(nchan, dtype=np.float64)
+    lo = ic - n_window // 2
+    for j in range(n_window):
+        k = lo + j
+        if 0 <= k < nchan:
+            full[k] = w[j]
+    return full
 
 
 def pfb_shape(nchan, coarse_channel_width=16, ntaps=8):

@@ -144,8 +144,6 @@ def test_delay_transform_matches_jax(runs):
 @pytest.mark.parametrize("over", [
     {"processing.engine": "nufft", "processing.nufft_spread": "sorted"},
     {"pp.mesh_axes": ["bl"]},
-    {"pp.n_chunks": 2},
-    {"diagnosis.jax_profile": "profile_dir"},
 ])
 def test_unported_branches_raise_before_compute(tmp_path, monkeypatch,
                                                 over):
@@ -155,6 +153,17 @@ def test_unported_branches_raise_before_compute(tmp_path, monkeypatch,
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         drv_t.run_simulation(_parms(tmp_path, **over), verbose=False,
                              device="cpu")
+
+
+@pytest.mark.parametrize("over", [
+    {"pp.n_chunks": 2},
+    {"diagnosis.jax_profile": "profile_dir"},
+    {"diagnosis.resource_monitor": True},
+])
+def test_chunked_and_diagnosis_branches_are_accepted(tmp_path, over):
+    """pp.n_chunks and the diagnosis section are ported (chunked runs,
+    tests/test_torch_chunked.py): check_supported lets them through."""
+    drv_t.check_supported(_parms(tmp_path, **over), torch.device("cpu"))
 
 
 def test_cuda_device_without_card_raises(tmp_path):

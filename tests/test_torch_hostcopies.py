@@ -1,6 +1,8 @@
 """The port's copies of the JAX package's numpy host modules (healpix,
-layouts, baselines, ephemeris, skymodel, gains and the catalog helpers)
-give the reference's results: each case runs one function of both
+layouts, baselines, ephemeris, skymodel, gains, the catalog helpers, the
+window helpers, vis.conjugate/concatenate and the analysis modules
+cosmology, closure, power_spectrum and bispectrum) give the reference's
+results: each case runs one function of both
 packages on the same seeded numpy inputs and expects equal outputs, field
 for field (the classes differ, the contents may not)."""
 
@@ -16,6 +18,12 @@ from prisim_tpu import gains as gn_j
 from prisim_tpu import healpix as hp_j
 from prisim_tpu import layouts as lay_j
 from prisim_tpu import skymodel as sm_j
+from prisim_tpu import vis as vis_j
+from prisim_tpu import windows as win_j
+from prisim_tpu.analysis import bispectrum as bsp_j
+from prisim_tpu.analysis import closure as cl_j
+from prisim_tpu.analysis import cosmology as cos_j
+from prisim_tpu.analysis import power_spectrum as ps_j
 from prisim_tpu_torch import baselines as bl_t
 from prisim_tpu_torch import catalogs as cat_t
 from prisim_tpu_torch import ephemeris as eph_t
@@ -23,6 +31,12 @@ from prisim_tpu_torch import gains as gn_t
 from prisim_tpu_torch import healpix as hp_t
 from prisim_tpu_torch import layouts as lay_t
 from prisim_tpu_torch import skymodel as sm_t
+from prisim_tpu_torch import vis as vis_t
+from prisim_tpu_torch import windows as win_t
+from prisim_tpu_torch.analysis import bispectrum as bsp_t
+from prisim_tpu_torch.analysis import closure as cl_t
+from prisim_tpu_torch.analysis import cosmology as cos_t
+from prisim_tpu_torch.analysis import power_spectrum as ps_t
 
 
 def assert_same(a, b, where="result"):
@@ -130,7 +144,142 @@ def _catalogs(cat_sm, rng):
                          flux_min=5.0))
 
 
+def _windows(win, rng):
+    chans = 150e6 + 1e5 * np.arange(64)
+    return [(win.window_frac_width(shape, fftpow),
+             win.window_n2width(shape, fftpow),
+             win.subband_window(chans, fc, bw, shape=shape, fftpow=fftpow))
+            for shape in ("bhw", "bnw", "rect") for fftpow in (1.0, 2.0)
+            for fc, bw in ((151e6, 2e6), (153.3e6, 1.2e6), (149e6, 8e6))]
+
+
+def _vis_set(vis, rng, nbl=5, nchan=6, nacc=3, lst0=10.0, f0=150e6):
+    shp = (nbl, nchan, nacc)
+    return vis.VisibilitySet(
+        baselines=rng.normal(0, 40, (nbl, 3)),
+        labels=np.asarray([[str(i + 1), str(i)] for i in range(nbl)]),
+        freqs=f0 + 1e5 * np.arange(nchan),
+        lst=lst0 + 0.25 * np.arange(nacc),
+        skyvis=rng.normal(size=shp) + 1j * rng.normal(size=shp),
+        vis=rng.normal(size=shp) + 1j * rng.normal(size=shp),
+        vis_rms=rng.uniform(1, 2, shp), bp=rng.uniform(0.5, 1, shp),
+        timestamps=2458000.0 + np.arange(nacc) / 1440.0,
+        t_acc=np.full(nacc, 60.0),
+        projected_baselines=rng.normal(0, 40, (nbl, 3, nacc)),
+        pointing_center=np.tile([[90.0, 0.0]], (nacc, 1)),
+        phase_center=np.tile([[85.0, 10.0]], (nacc, 1)), latitude=-30.7,
+        lags=np.arange(nchan, dtype=float),
+        skyvis_lag=np.ones(shp, complex))
+
+
+def _vis_merge(vis, rng):
+    vs = _vis_set(vis, rng)
+    parts = (vs, _vis_set(vis, rng, lst0=11.0, f0=151e6))
+    return ([vis.conjugate(vs), vis.conjugate(vs, [0, 3])]
+            + [vis.concatenate(parts, axis) for axis in (0, 1, 2)])
+
+
+def _cosmology(cos, rng):
+    z = rng.uniform(6, 12, 5)
+    lcdm = cos.FlatLCDM(H0=70.0, Om0=0.3)
+    return (cos.cosmo100.efunc(z), cos.cosmo100.comoving_distance(z),
+            lcdm.comoving_distance(z[0]), lcdm.Ogamma0, lcdm.Ode0,
+            cos.dkprll_deta(z), cos.k_parallel(rng.normal(0, 1e-6, 9), 8.5),
+            cos.k_perp(rng.uniform(10, 900, 4), 8.5, 2.0),
+            cos.comoving_depth(8e6, z), cos.jy2k(rng.uniform(1, 3, 3)),
+            cos.freq_to_z(150e6), cos.z_to_freq(z))
+
+
+def _closure(mods, rng):
+    cl, vis, lay, bl = mods
+    pos = np.zeros((9, 3))
+    pos[:, 0] = 14.6 * (np.arange(9) % 3)
+    pos[:, 1] = 12.6 * (np.arange(9) // 3)
+    labels = np.asarray([str(i) for i in range(9)])
+    bset = bl.build_baselines(lay.ArrayLayout(pos, labels), redundant=True)
+    cube = (rng.normal(size=(bset.nbl, 8, 2))
+            + 1j * rng.normal(size=(bset.nbl, 8, 2)))
+    vs = vis.VisibilitySet(
+        baselines=bset.vectors, labels=bset.labels,
+        freqs=150e6 + 1e5 * np.arange(8), lst=np.asarray([10.0, 10.5]),
+        skyvis=cube, vis=cube * 1.1, latitude=-30.7,
+        layout=dict(positions=pos, labels=labels, ids=np.arange(9),
+                    coords="ENU"))
+    fast = cl.unique_triads_fast(labels, pos, max_classes=12)
+    out = cl.closure_phases_vs(vs)
+    out.pop("triads")
+    return (cl.all_triads(labels[:5]), cl.unique_triads(labels, pos), fast,
+            cl.triad_baseline_indices(bset.labels, fast,
+                                      baselines=bset.vectors,
+                                      ant_positions=pos, ant_labels=labels),
+            out, cl.delay_filter(cube, 1e5, 2e-6),
+            cl.delay_filter(cube, 1e5, rng.uniform(0, 5e-6, bset.nbl),
+                            mode="retain", freq_wts=np.hanning(8)),
+            cl.spectral_smooth(cube, window_size=3),
+            cl.spectral_smooth(cube, mode="interp", flag_chans=[2, 5]))
+
+
+def _power_spectrum(mods, rng):
+    ps, vis = mods
+    beam = rng.uniform(0, 1, (768, 8))
+    freqs = 150e6 + 1e5 * np.arange(8)
+    sbds = dict(freq_center=np.asarray([150.3e6, 150.5e6]),
+                bw_eff=np.asarray([3e5, 4e5]),
+                lags=np.fft.fftshift(np.fft.fftfreq(16, 1e5)),
+                freq_wts=rng.uniform(0, 1, (2, 8)),
+                skyvis_lag=rng.normal(size=(3, 2, 16, 2)) + 0j)
+    vs = vis.VisibilitySet(baselines=rng.normal(0, 30, (3, 3)),
+                           labels=np.asarray([["1", "0"]] * 3), freqs=freqs,
+                           lst=np.asarray([1.0, 2.0]))
+    return (ps.beam3Dvol(beam, freqs),
+            ps.beam3Dvol(beam[:, 0], freqs, freq_wts=sbds["freq_wts"],
+                         hemisphere=False),
+            ps.subband_power_spectra(vs, sbds, beam),
+            ps.baseline_orientation_bins(rng.normal(0, 30, (20, 3)), 6))
+
+
+def _bispectrum(bsp, rng):
+    nlst, ndays, ntri, nchan = 4, 4, 5, 32
+    cpd = bsp.ClosurePhaseData(
+        cp=rng.uniform(-0.5, 0.5, (nlst, ndays, ntri, nchan)),
+        wts=(rng.uniform(size=(nlst, ndays, ntri, nchan)) > 0.1) * 1.0,
+        freqs=150e6 + 1e5 * np.arange(nchan),
+        lst=np.linspace(1.0, 1.6, nlst), days=2458000.0 + np.arange(ndays),
+        triads=np.asarray([[str(i), str(i + 1), str(i + 2)]
+                           for i in range(ntri)]))
+    ft = bsp.cpds_ft(cpd.eicp, cpd.wts, cpd.freqs, [151e6, 152e6], 1e6)
+    ps = bsp.cross_power_spectrum(ft, ft)
+    full = [bsp.xcpdps_full(ft, **kw) for kw in (
+        dict(cohax=(2,), incohax=(1, 3), collapse_axes=(3,),
+             lst_shifts=np.arange(2)),
+        dict(incohax=(1, 3), collapse_axes=(1, 3), avgcov=True),
+        dict(incohax=(3,), collapse_axes=(3,), stat="median"))]
+    ps["lst"] = cpd.lst
+    vis_triad = rng.normal(size=(3, 3, nchan)) + 1j
+    return (cpd.smooth_in_tbins(lstbinsize=0.3),
+            cpd.smooth_in_tbins(lstbinsize=0.3, daybinsize=2.0,
+                                stat="median"),
+            cpd.tbin_stats(daybinsize=2.0), cpd.tbin_stats(lstbinsize=0.3),
+            cpd.subtract(cpd.cp[:, :1]), cpd.subsample_differencing(2, 3),
+            ft, ps, bsp.kbin_average(ps["kprll"], np.abs(ps["P"]),
+                                     num_kbins=6),
+            bsp.cross_power_diagonal(ft, cpd.lst, axis=1), full,
+            bsp.incoherent_average([np.abs(ps["P"])] * 2, [1.0, 3.0]),
+            bsp.power_spectrum_uncertainty(cpd, [151e6], [1e6], ndaybins=2),
+            bsp.rescale_power_spectrum(ps, ft["freq_wts"], vis_triad,
+                                       np.asarray([1.0, 1.3, 1.6])),
+            bsp.average_rescaled_power_spectrum(np.abs(ps["P"]),
+                                                ps["kprll"], (1, 2), 0.1))
+
+
 CASES = {
+    "windows": (_windows, win_j, win_t),
+    "vis_conjugate_concatenate": (_vis_merge, vis_j, vis_t),
+    "cosmology": (_cosmology, cos_j, cos_t),
+    "closure": (_closure, (cl_j, vis_j, lay_j, bl_j),
+                (cl_t, vis_t, lay_t, bl_t)),
+    "power_spectrum": (_power_spectrum, (ps_j, vis_j), (ps_t, vis_t)),
+    "bispectrum": (_bispectrum, bsp_j, bsp_t),
     "healpix": (_healpix, hp_j, hp_t),
     "layouts": (_layouts, lay_j, lay_t),
     "baselines": (_baselines, (lay_j, bl_j), (lay_t, bl_t)),

@@ -222,3 +222,76 @@ def test_every_port_module_imports_without_prisim_tpu():
     lines = dict(line.split(" ", 1) for line in proc.stdout.splitlines())
     assert lines["LOADED"] == "[]"
     assert int(lines["MODULES"]) >= 30
+
+
+ANALYSIS = textwrap.dedent("""
+    import json, os, sys
+    for name in %r:
+        sys.modules[name] = None
+    import numpy as np
+    from prisim_tpu_torch import driver, tools
+    from prisim_tpu_torch.config import load_parms
+    root = sys.argv[1]
+    p = load_parms({
+        "dirstruct": {"rootdir": root, "project": "proj", "simid": "ana"},
+        "telescope": {"id": "hera", "Trx": 100.0},
+        "array": {"layout": "HERA-7", "redundant": True},
+        "bandpass": {"nchan": 16, "freq_resolution": 390625.0},
+        "obsparm": {"n_acc": 2, "t_acc": 60.0},
+        "skyparm": {"model": "usm", "nside": 4},
+        "save_formats": {"fmt": "fits", "npz": False}})
+    vs, out = driver.run_simulation(p, verbose=False, device="cpu")
+    fits = os.path.join(out, "simdata", "simvis.fits")
+    dps = tools.delay_ps(fits, None, nside_beam=4, clean=True, maxiter=50,
+                         device="cpu")
+    cpd = tools.closure_npz(fits, os.path.join(root, "cp.npz"))
+    ps = tools.xcpdps(os.path.join(root, "cp.npz"), None)
+    p["pp"]["n_chunks"] = 2
+    p["dirstruct"]["simid"] = "chunks"
+    p["processing"]["cleanup"] = 0
+    v1, cdir = driver.run_simulation_chunked(p, verbose=False, device="cpu")
+    part = os.path.join(cdir, "simdata", "_part_1.npz")
+    os.remove(part)
+    v2, _ = driver.run_simulation_chunked(p, verbose=False, device="cpu")
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib") + %r
+                    and sys.modules[m] is not None)
+    print("ANALYSIS", json.dumps(dict(
+        dps=sorted(dps), cc_shape=list(dps["cc_skyvis_ps"].shape),
+        finite=bool(np.isfinite(dps["skyvis"]).all()),
+        cp_shape=list(cpd.cp.shape), P_shape=list(ps["P"].shape),
+        resumed=bool(os.path.exists(part)),
+        same=bool(np.array_equal(v1.vis, v2.vis)),
+        chunked_vs_single=float(np.abs(v1.skyvis - vs.skyvis).max()
+                                / np.abs(vs.skyvis).max()),
+        products=sorted(os.listdir(os.path.join(cdir, "simdata"))),
+        meta=sorted(os.listdir(os.path.join(cdir, "metainfo"))))))
+    print("LOADED", loaded)
+""" % (BLOCKED, BLOCKED))
+
+
+def test_port_analysis_and_chunked_runs_without_jax_yaml_h5py(tmp_path):
+    """The analysis entry points and a chunked run with resume on a machine
+    without jax, yaml or h5py: a HERA-7 redundant run saved as native FITS,
+    delay_ps on it with CLEAN (product returned, nothing written),
+    closure_npz to an NPZ and xcpdps on that, then a 2-chunk run whose
+    part 1 is deleted and rebuilt, equal to the first merge and to the
+    single-shot run; the chunk table is written as JSON."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", ANALYSIS, str(tmp_path)],
+                          capture_output=True, text=True, env=env,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = dict(line.split(" ", 1) for line in proc.stdout.splitlines()
+                 if line.startswith(("ANALYSIS", "LOADED")))
+    assert lines["LOADED"] == "[]"
+    got = json.loads(lines["ANALYSIS"])
+    assert {"skyvis", "vis", "noise", "cc_skyvis_ps", "res_skyvis_ps",
+            "omega_bw"} <= set(got["dps"])
+    assert got["cc_shape"] == [9, 16, 2] and got["finite"]
+    assert got["cp_shape"][:2] == [2, 1] and got["cp_shape"][3] == 16
+    assert got["P_shape"][0] == 1 and got["P_shape"][-1] == 32
+    assert got["resumed"] and got["same"]
+    assert got["chunked_vs_single"] < 2e-6
+    assert got["products"] == ["_part_0.npz", "_part_1.npz", "simvis.fits"]
+    assert "chunkinfo.json" in got["meta"]
