@@ -141,12 +141,42 @@ j. Chunked runs on the slice cut to 256 ch x 2 acc, engine auto:
    diagnosis.resource_monitor (rows with device bytes where psutil
    imports, else ImportError before any compute).
 
+Then the device mesh, the tools and the example:
+
+k. Mesh on the card: the slice cut to 2 accumulations on 4 shards that
+   all sit on the one card, devices=[cuda:0] * 4 (torch.cuda.device_count()
+   printed): the direct engine with pp.key freq (1, 4), bl (4, 1), src
+   (1, 1, 4) and pp.mesh_axes [2, 2], each against the one-device direct
+   run in both normalizations (bl/chan shards 1e-6 of max|V|, src shards
+   2e-6 of the coherent scale), K1a launching once per shard and
+   accumulation; engine auto on the banded (4, 1) 'bl' mesh: the mesh
+   gate's readings, K2 launches (the gate's 1 + one per shard and
+   accumulation), against the one-device banded run (2e-6 of the coherent
+   scale); each run timed (the shards run one after another on one card:
+   no scaling); the host synchronizations inside one K1a and one K2
+   launch (torch.cuda's sync debug mode); tools.mesh_check on the 4
+   entries.
+l. Tools and BASELINE config #4: bench_configs._write_synthetic_feko's
+   pattern (8 frequencies, 100-200 MHz) written by this script, then
+   tools.feko_to_healpix to FITS (nside 64, spline), timed; config #4 at
+   full width (HERA-331 redundant, 630 bl x 1024 ch x nside-256 USM) on
+   that beam through run_simulation, accumulations cut from 100 to 4,
+   saved as native FITS, with phase d's per-snapshot split; on that
+   product convert to NPZ and UVFITS (read back), update_noise to FITS on
+   the card twice with one seed (bit-identical, rms against the
+   radiometer rms), replicate 4 realizations; expand_redundant_file on
+   phase g's redundant FITS product (63 -> 666 baselines); list_sims and
+   grep_sims over the phases' project directories.
+m. The example: examples.full_pipeline.main(device="cuda") with its UVFITS
+   round trip.
+
 After the phases it prints the card's name and power limit, the roofline
 share (bound / time, against the H100 data-sheet peaks) of K1a, K1b, K1c
 and K2 at the slice and the north star, and the kernels line: each
-kernel's launches in its slice run, error against its plain version,
-time, plain time, bound (from this run's inputs) and library time (null:
-no single PyTorch call computes any of them).
+kernel's launches in its slice run (K1a and K2 also in phases k-m's runs),
+error against its plain version, time, plain time, bound (from this run's
+inputs) and library time (null: no single PyTorch call computes any of
+them).
 
 Exits non-zero on any failure, and without a CUDA card. The last line is
 {"ok": true, "device": {...}}; the line before it lists the kernels.
@@ -1052,17 +1082,19 @@ def engine_ran(log):
     return "banded" if "banded NUFFT:" in log else "direct"
 
 
-def drive(label, parms, dev, save=False):
+def drive(label, parms, dev, save=False, devices=None):
     """run_simulation(parms) with the kernel counts set to 0 just before
-    and read just after. Prints its log, wall-clock, engine and K1a and K2
-    launches; every route of this slice launches K1a (the direct engine,
-    or the banded engine's gate). Returns (result, log, counts, seconds)."""
+    and read just after (on `devices`, a mesh, where given). Prints its
+    log, wall-clock, engine and K1a and K2 launches; every route of this
+    slice launches K1a (the direct engine, or the banded engine's gate).
+    Returns (result, log, counts, seconds)."""
     from prisim_tpu_torch.driver import run_simulation
     log = io.StringIO()
     zero_counts()
     t0 = time.time()
     with contextlib.redirect_stdout(log):
-        out = run_simulation(parms, verbose=True, save=save, device=dev)
+        out = run_simulation(parms, verbose=True, save=save, device=dev,
+                             devices=devices)
     wall = time.time() - t0
     got = counts()
     text = log.getvalue()
@@ -1309,14 +1341,16 @@ def sync(dev):
         torch.cuda.synchronize(dev)
 
 
-def external_phase(parms, dev, host_chans=EXT_HOST_CHANS):
+def external_phase(parms, dev, host_chans=EXT_HOST_CHANS, save=False):
     """Phase d: the external-beam route (beam.use_external with a FITS
-    file), which runs the direct engine (K1a): the run, then its snapshots
-    again as the route runs them, each split into host weights (rotate on
-    the card, fetch the directions, angular weights on the host, upload),
-    device beam (ExternalBeam.device_evaluate) and K1a; snapshot 0 against
-    the run's, and against K1a on the beam of ExternalBeam.evaluate (host,
-    float64) over the channels `host_chans`. Returns the times."""
+    file), which runs the direct engine (K1a): the run (with its products
+    where `save`), then its snapshots again as the route runs them, each
+    split into host weights (rotate on the card, fetch the directions,
+    angular weights on the host, upload), device beam
+    (ExternalBeam.device_evaluate) and K1a; snapshot 0 against the run's,
+    and against K1a on the beam of ExternalBeam.evaluate (host, float64)
+    over the channels `host_chans`. Returns the times, the run's launches
+    and its output directory."""
     from prisim_tpu_torch import geometry as geom
     from prisim_tpu_torch.beams import ExternalBeam
     from prisim_tpu_torch.driver import prepare_simulation
@@ -1325,7 +1359,7 @@ def external_phase(parms, dev, host_chans=EXT_HOST_CHANS):
                                                  schedule_tensors,
                                                  snapshot_nudft_inputs)
     n_acc = parms["obsparm"]["n_acc"]
-    (vs, _), _, got, wall = drive("external beam", parms, dev)
+    (vs, outdir), _, got, wall = drive("external beam", parms, dev, save=save)
     assert got == dict(dict.fromkeys(got, 0), k1a=n_acc), got
     assert np.isfinite(vs.skyvis).all()
     sim = prepare_simulation(parms, dev)
@@ -1397,7 +1431,7 @@ def external_phase(parms, dev, host_chans=EXT_HOST_CHANS):
                                  "the host beam: %.3e" % (dh / coh))
             del pb, amps_h, v_h
         del seh, sel, amps, args, v, pix, wgt
-    return dict(wall_s=wall, snapshots=times)
+    return dict(wall_s=wall, snapshots=times, launches=got, outdir=outdir)
 
 
 def sectors_phase(parms, full, dev):
@@ -2157,6 +2191,350 @@ def chunked_phase(root, dev, have_h5py, nchan=256, n_acc=2, **sections):
                 resume_s=wall, profile_s=wall_p)
 
 
+# --------------------------------------------------------------------------
+# Phases k-m: the device mesh on the card, the tools with BASELINE config #4
+# through feko2hpx, and the example
+# --------------------------------------------------------------------------
+
+MESH_SHARDS = 4
+# a bl or chan mesh run against the single-device run, max|dV| / max|V|:
+# the same float64 sums per (baseline, channel), split across the grid in
+# other source splits, each rounded once to complex64
+MESH_BAR = 1e-6
+# a src mesh run: the sum of the shards' complex64 partial visibilities,
+# each up to the coherent scale, max|dV| / max_c sum_s |A|: the f32 engines'
+# bar
+MESH_SRC_BAR = 2e-6
+# config #4's product converted to UVFITS and read back, max|dV| / max|V|:
+# both hold float32 cubes
+CONVERT_BAR = 1e-7
+
+
+def sync_warnings(fn):
+    """The host synchronizations of a second call of fn() on the card (the
+    first uploads what its wrapper caches), as torch.cuda's sync debug
+    mode reports them (one message line each; its note that the mode is a
+    prototype is not one)."""
+    import warnings
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    msgs = [str(w.message).strip().splitlines()[0] for w in caught]
+    return [m for m in msgs if "prototype feature" not in m]
+
+
+def mesh_phase(root, dev, have_h5py, n_acc=2):
+    """Phase k: the slice cut to n_acc accumulations on a mesh of
+    MESH_SHARDS shards that all sit on `dev` (devices=[dev] * 4): the
+    direct engine with pp.key freq (1, 4), bl (4, 1), src (1, 1, 4) and
+    pp.mesh_axes [2, 2], each against the single-device direct run in both
+    normalizations, K1a launching once per shard and accumulation; engine
+    auto on the banded 'bl' mesh (the mesh gate's readings, K2 launches
+    per shard) against the single-device banded run; the host
+    synchronizations of one K1a and one K2 launch; tools.mesh_check on the
+    same entries. Shards on one card run one after another, so the times
+    say nothing about scaling. Returns the numbers and the launches."""
+    from prisim_tpu_torch import tools
+    from prisim_tpu_torch.driver import banded_engine, prepare_simulation
+    from prisim_tpu_torch.engine import cuda_banded, cuda_nudft
+    from prisim_tpu_torch.engine.observe import (schedule_tensors,
+                                                 snapshot_nudft_inputs)
+    devs = [dev] * MESH_SHARDS
+    print("mesh phase: torch.cuda.device_count() = %d; %d shards on %s; "
+          "shards on one card run one after another, so these times show "
+          "no scaling" % (torch.cuda.device_count(), MESH_SHARDS, dev))
+
+    def parms(engine, simid, **pp):
+        return slice_parms(root, have_h5py, engine, simid,
+                           obsparm={"n_acc": n_acc},
+                           save_formats={"fmt": "none", "npz": False}, pp=pp)
+
+    base = parms("direct", "mesh_single_direct", key="none")
+    (one, _), _, got, wall1 = drive("mesh phase, one device, engine direct",
+                                    base, dev)
+    assert got == dict(dict.fromkeys(got, 0), k1a=n_acc), got
+    coh, _ = coherent_scale(base, dev)
+    vmax = float(np.abs(one.skyvis).max())
+    out = dict(single_direct_s=wall1, runs={}, k1a=0, k2=0)
+    for label, pp, src in (
+            ("freq (1, 4)", {"key": "freq"}, False),
+            ("bl (4, 1)", {"key": "bl"}, False),
+            ("src (1, 1, 4)", {"key": "src"}, True),
+            ("freq, mesh_axes [2, 2]", {"key": "freq", "mesh_axes": [2, 2]},
+             False)):
+        simid = "mesh_" + label.split()[0].strip(",") + (
+            "_axes" if "mesh_axes" in pp else "")
+        (vs, _), log, got, wall = drive(
+            "mesh phase, pp.key %s, engine direct" % label,
+            parms("direct", simid, **pp), dev, devices=devs)
+        d = float(np.abs(vs.skyvis - one.skyvis).max())
+        rel, bar = (d / coh, MESH_SRC_BAR) if src else (d / vmax, MESH_BAR)
+        want = MESH_SHARDS * n_acc
+        print("mesh %s vs one device: max|dV|=%.4e  /max|V|=%.4e  "
+              "/max_c sum_s|A|=%.4e (bar %.0e of %s); K1a launches %d "
+              "(shards x accumulations: %d); %.3f s against %.3f s on one "
+              "device" % (label, d, d / vmax, d / coh, bar,
+                          "max_c sum_s|A|" if src else "max|V|", got["k1a"],
+                          want, wall, wall1))
+        if not (rel <= bar and got == dict(dict.fromkeys(got, 0),
+                                           k1a=want)
+                and "direct engine on a" in log):
+            raise SystemExit("mesh %s disagrees with one device" % label)
+        out["runs"][label] = dict(wall_s=wall, rel_v=d / vmax, rel_c=d / coh)
+        out["k1a"] += got["k1a"]
+
+    bone = parms("auto", "mesh_single_banded", key="none")
+    (b1, _), _, got1, wall_b1 = drive("mesh phase, one device, engine auto",
+                                      bone, dev)
+    dump = os.path.join(root, "mesh_gate.npz")
+    os.makedirs(root, exist_ok=True)
+    if os.path.exists(dump):
+        os.remove(dump)
+    os.environ["PRISIM_DEBUG_XCHECK_DUMP"] = dump
+    try:
+        (bm, _), log, got, wall_bm = drive(
+            "mesh phase, engine auto on the 'bl' mesh",
+            parms("auto", "mesh_banded", key="freq"), dev, devices=devs)
+    finally:
+        os.environ.pop("PRISIM_DEBUG_XCHECK_DUMP", None)
+    d = float(np.abs(bm.skyvis - b1.skyvis).max())
+    dd = float(np.abs(bm.skyvis - one.skyvis).max())
+    gate_ok = "mesh shared-amps cross-check ok" in log
+    print("mesh gate: %s; %s" % (gate_readings(dump), "passed" if gate_ok
+                                 else "FAILED"))
+    print("banded mesh: K2 launches %d (the gate 1 + %d shards x %d "
+          "accumulations), K1a %d (the gate); vs the one-device banded run "
+          "max|dV|/max|V|=%.4e  /max_c sum_s|A|=%.4e (bar %.0e of "
+          "max_c sum_s|A|), vs the one-device direct run %.4e of "
+          "max_c sum_s|A|; %.3f s against %.3f s on one device (K2 %d)"
+          % (got["k2"], MESH_SHARDS, n_acc, got["k1a"], d / vmax, d / coh,
+             GATE_TOL, dd / coh, wall_bm, wall_b1, got1["k2"]))
+    if not (gate_ok and engine_ran(log) == "banded" and d / coh <= GATE_TOL
+            and got["k2"] == 1 + MESH_SHARDS * n_acc):
+        raise SystemExit("banded mesh run disagrees")
+    out.update(banded_s=wall_bm, single_banded_s=wall_b1,
+               banded_rel_c=d / coh, k2=got["k2"], k1a=out["k1a"] + got["k1a"])
+
+    sim = prepare_simulation(base, dev)
+    Mh, Ml, pch, pcl = schedule_tensors(sim.obs, sim.inst.latitude, dev)
+    seh, sel, amps, _ = snapshot_nudft_inputs(sim.inst, sim.sky, Mh[0],
+                                              Ml[0], pch[0], pcl[0],
+                                              sim.beam_fn)
+    nb = -(-sim.inst.nbl // MESH_SHARDS)
+    k1a_syncs = sync_warnings(lambda: cuda_nudft.nudft_cuda(
+        seh, sel, sim.inst.bl_hi[:nb].contiguous(),
+        sim.inst.bl_lo[:nb].contiguous(), amps, sim.inst.grid_scalars(),
+        sim.inst.nchan))
+    del seh, sel, amps
+    bsim = prepare_simulation(bone, dev)
+    plan, snap = banded_engine(bone, bsim)
+    prep = snap.prep_chunk(0, Mh[0], Ml[0], pch[0], pcl[0])
+    k2_syncs = sync_warnings(lambda: cuda_banded.banded_spread_cuda(
+        plan, *prep[:3]))
+    for name, msgs in (("K1a (one bl shard's launch)", k1a_syncs),
+                       ("K2 (one launch)", k2_syncs)):
+        print("host synchronizations inside the %s wrapper, warmed up: %d%s"
+              % (name, len(msgs), "".join("\n  " + m for m in msgs[:4])))
+    del sim, bsim, plan, snap, prep
+    t0 = time.time()
+    ok = tools.mesh_check(MESH_SHARDS, device=str(dev))
+    print("tools.mesh_check on [%s] * %d: %s (%.3f s)"
+          % (dev, MESH_SHARDS, ok, time.time() - t0))
+    if not ok:
+        raise SystemExit("mesh_check failed")
+    out.update(k1a_syncs=len(k1a_syncs), k2_syncs=len(k2_syncs))
+    return out
+
+
+def write_synthetic_feko(path, freqs_hz, ntheta=91, nphi=73, d_eff=14.0):
+    """A FEKO far-field text export: benchmarks/bench_configs.
+    _write_synthetic_feko's pattern (per-frequency '#Frequency' blocks over
+    a (theta, phi) grid, gain dB in the last column: an elliptical
+    gaussian-in-sin(theta) beam of width ~ lambda/D with a first-sidelobe
+    ripple), on the port's constants. Returns `path`."""
+    from prisim_tpu_torch.constants import c
+    theta = np.linspace(0.0, 90.0, ntheta)
+    phi = np.linspace(0.0, 360.0, nphi)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        for nu in freqs_hz:
+            f.write('#Request Name: FarField\n')
+            f.write('#Frequency: %.1f\n' % nu)
+            f.write('#No. of Theta Samples: %d\n' % ntheta)
+            f.write('#No. of Phi Samples: %d\n' % nphi)
+            f.write('#  "Theta" "Phi" "Gain(Total)"\n')
+            tt = np.radians(theta)[:, None]
+            pp = np.radians(phi)[None, :]
+            sig0 = 0.42 * c / (nu * d_eff)
+            sx = sig0 * 1.08
+            sy = sig0 * 0.94
+            st = np.sin(tt)
+            arg = ((st * np.cos(pp)) / sx) ** 2 \
+                + ((st * np.sin(pp)) / sy) ** 2
+            gdb = -10.0 * arg / np.log(10.0)
+            gdb = gdb + 3.0 * np.sin(4.0 * st / sig0) ** 2 \
+                * np.exp(-0.5 * arg) * 0.05
+            for j in range(nphi):
+                for i in range(ntheta):
+                    f.write("%.4f %.4f %.6f\n"
+                            % (theta[i], phi[j], gdb[i, j]))
+    return path
+
+
+def config4_parms(root, beam, n_acc=4):
+    """BASELINE config #4 as benchmarks/bench_configs.config4 builds it:
+    HERA-331 redundant (630 baselines), 14 m dish, 1024 ch x 97,656.25 Hz
+    around 150 MHz, an nside-256 USM sky, the FEKO beam (chromatic) as the
+    external beam, n_acc x 60 s drift from LST 0 (cut from 100), Trx 100 K;
+    saved as the native FITS product in place of HDF5 (no h5py on the card
+    machine)."""
+    from prisim_tpu_torch.config import load_parms
+    return load_parms({
+        "dirstruct": {"rootdir": root, "project": "hera331_feko",
+                      "simid": "cfg4"},
+        "telescope": {"id": "hera", "latitude": -30.7224,
+                      "A_eff": 154.0, "eff_Q": 0.96, "Trx": 100.0},
+        "array": {"layout": "HERA-331", "redundant": True},
+        "antenna": {"shape": "dish", "size": 14.0},
+        "beam": {"use_external": True, "file": beam, "chromatic": True},
+        "bandpass": {"freq": 150e6, "freq_resolution": 97656.25,
+                     "nchan": 1024},
+        "obsparm": {"obs_mode": "drift", "n_acc": n_acc, "t_acc": 60.0},
+        "pointing": {"lst_init": 0.0},
+        "skyparm": {"model": "usm", "nside": 256},
+        "save_formats": {"fmt": "fits", "npz": False},
+    })
+
+
+def config4_phase(root, dev, redundant_fits, projects):
+    """Phase l: the synthetic FEKO export (8 frequencies, 100-200 MHz)
+    through tools.feko_to_healpix to a FITS beam (nside 64, spline), then
+    BASELINE config #4 at full width on that beam through run_simulation
+    (the external-beam route, K1a; per snapshot host weights, device beam
+    and K1a, as phase d), saved as native FITS; on that product convert to
+    NPZ and UVFITS (read back), update_noise to FITS on the card twice with
+    one seed, replicate 4 realizations; expand_redundant_file on phase g's
+    redundant FITS product (`redundant_fits`); list_sims and grep_sims over
+    `projects`. Returns the numbers and the launches."""
+    from prisim_tpu_torch import tools
+    from prisim_tpu_torch.io import load_fits, load_npz
+    from prisim_tpu_torch.io.uvfits import load_uvfits
+    t0 = time.time()
+    txt = write_synthetic_feko(os.path.join(root, "feko_beam.txt"),
+                               np.linspace(100e6, 200e6, 8))
+    t_txt = time.time() - t0
+    t0 = time.time()
+    beam = os.path.join(root, "feko_beam.fits")
+    maps = tools.feko_to_healpix(txt, beam, nside=64, interp="spline")
+    t_beam = time.time() - t0
+    print("config #4 beam: FEKO text (8 frequencies x 91 x 73) written in "
+          "%.3f s; feko_to_healpix -> %s (nside 64, spline) %.3f s; maps %s, "
+          "peak %.4f, min %.4e" % (t_txt, os.path.basename(beam), t_beam,
+                                   maps.shape, maps.max(), maps.min()))
+    parms = config4_parms(root, beam)
+    print("config #4: HERA-331 redundant x 1024 ch x nside-256 USM on the "
+          "FEKO FITS beam; cut: accumulations 100 -> %d; products: native "
+          "FITS in place of HDF5" % parms["obsparm"]["n_acc"])
+    ext = external_phase(parms, dev, save=True)
+    fits = os.path.join(ext["outdir"], "simdata", "simvis.fits")
+    vs = load_fits(fits)
+    print("config #4: %d bl x %d ch x %d acc, wall-clock %.3f s, K1a %d"
+          % (vs.nbl, vs.nchan, vs.n_acc, ext["wall_s"],
+             ext["launches"]["k1a"]))
+    if not (vs.n_acc == parms["obsparm"]["n_acc"]
+            and np.isfinite(vs.skyvis).all()):
+        raise SystemExit("config #4: bad product")
+    times = {}
+    t0 = time.time()
+    conv = tools.convert(fits, os.path.join(root, "cfg4_converted"),
+                         ["npz", "uvfits"])
+    times["convert (npz + uvfits)"] = time.time() - t0
+    eq_npz = np.array_equal(load_npz(conv[0]).skyvis, vs.skyvis)
+    d_uv = float(np.abs(load_uvfits(conv[1]).skyvis - vs.skyvis).max()
+                 / np.abs(vs.skyvis).max())
+    noisy = []
+    for k in range(2):
+        t0 = time.time()
+        noisy.append(tools.update_noise(
+            fits, os.path.join(root, "cfg4_noise%d.fits" % k), seed=7,
+            device=dev))
+        times["update_noise run %d" % (k + 1)] = time.time() - t0
+    same = np.array_equal(noisy[0].vis_noise, noisy[1].vis_noise)
+    ratio = float(np.sqrt(np.mean(np.abs(noisy[0].vis_noise) ** 2))
+                  / np.sqrt(np.mean(np.asarray(noisy[0].vis_rms) ** 2)))
+    back = load_fits(os.path.join(root, "cfg4_noise0.fits"))
+    t0 = time.time()
+    rep = tools.replicate(fits, os.path.join(root, "cfg4_replicas"),
+                          n_realize=4, seed=100, device=dev)
+    times["replicate (4)"] = time.time() - t0
+    with np.load(rep[0]) as r:
+        rep_shape = r["vis"].shape
+        rep_differ = not np.array_equal(r["noise"][0], r["noise"][1])
+    t0 = time.time()
+    full = tools.expand_redundant_file(
+        redundant_fits, os.path.join(root, "hera37_redundant_full.fits"))
+    times["expand_redundant_file"] = time.time() - t0
+    src = load_fits(redundant_fits)
+    print("config #4 tools: convert -> NPZ equal %s, UVFITS read back "
+          "max|dV|/max|V| = %.4e (bar %.0e); update_noise on %s twice with "
+          "seed 7 bit-identical %s, noise rms / radiometer rms %.5f, the "
+          "FITS read back equal %s; replicate %s, realizations differ %s; "
+          "expand_redundant_file %d -> %d baselines; times %s"
+          % (eq_npz, d_uv, CONVERT_BAR, dev, same, ratio,
+             np.array_equal(back.vis_noise, noisy[0].vis_noise), rep_shape,
+             rep_differ, src.nbl, full.nbl,
+             "; ".join("%s %.3f s" % kv for kv in times.items())))
+    if not (eq_npz and d_uv <= CONVERT_BAR and same
+            and abs(ratio - 1.0) <= NOISE_RMS_BAR and rep_differ
+            and full.nbl == 666 and src.nbl == 63):
+        raise SystemExit("config #4 tools disagree")
+    for proj in projects:
+        t0 = time.time()
+        listing = tools.list_sims(proj)
+        hits = tools.grep_sims(proj, **{"array.layout": "HERA-331"})
+        print("list_sims %s: %d sims, %d parameters differ; grep_sims "
+              "array.layout=HERA-331: %s (%.3f s)"
+              % (proj, len(listing["sims"]), len(listing["diffs"]), hits,
+                 time.time() - t0))
+        if not listing["sims"]:
+            raise SystemExit("list_sims found no sims in %s" % proj)
+    return dict(beam_s=t_beam, sim_s=ext["wall_s"],
+                snapshots=ext["snapshots"], tools_s=times,
+                k1a=ext["launches"]["k1a"], k2=ext["launches"]["k2"])
+
+
+def example_phase(root, dev):
+    """Phase m: examples.full_pipeline.main on the card (simulation with
+    engine auto, delay power spectrum with CLEAN, closure phases, the
+    UVFITS round trip), with the kernel counts set to 0 just before and
+    read just after. Returns the numbers and the launches."""
+    from prisim_tpu_torch.examples import full_pipeline
+    log = io.StringIO()
+    zero_counts()
+    t0 = time.time()
+    with contextlib.redirect_stdout(log):
+        out = full_pipeline.main(os.path.join(root, "example"), device=dev)
+    wall = time.time() - t0
+    got = counts()
+    print(log.getvalue().rstrip())
+    dps = np.asarray(out["dps"]["skyvis"])
+    print("example: wall-clock %.3f s, engine %s, launches %s; UVFITS round "
+          "trip %.3e of max|V| (bar %.0e); P(k) finite %s"
+          % (wall, engine_ran(log.getvalue()), got, out["round_trip"],
+             full_pipeline.ROUND_TRIP_BAR, bool(np.isfinite(dps).all())))
+    if not (got["k1a"] > 0 and np.isfinite(dps).all()
+            and out["round_trip"] < full_pipeline.ROUND_TRIP_BAR):
+        raise SystemExit("example failed")
+    return dict(wall_s=wall, k1a=got["k1a"], k2=got["k2"])
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -2392,6 +2770,28 @@ def main():
     chunked_phase(os.path.join(out_root, "chunks"), cuda, have_h5py)
     torch.cuda.empty_cache()
     print("[chunked runs and diagnosis phase: %.2f s]" % (time.time() - t0))
+
+    t0 = time.time()
+    mesh = mesh_phase(out_root, cuda, have_h5py)
+    torch.cuda.empty_cache()
+    print("[mesh phase: %.2f s]" % (time.time() - t0))
+
+    t0 = time.time()
+    cfg4 = config4_phase(
+        os.path.join(out_root, "cfg4"), cuda,
+        os.path.join(out_root, "chip_smoke", "hera37_dualpol_polX",
+                     "simdata", "simvis.fits"),
+        [os.path.join(out_root, "chip_smoke"),
+         os.path.join(out_root, "cfg4", "hera331_feko")])
+    torch.cuda.empty_cache()
+    print("[config #4 and tools phase: %.2f s]" % (time.time() - t0))
+
+    t0 = time.time()
+    ex = example_phase(out_root, cuda)
+    torch.cuda.empty_cache()
+    print("[example phase: %.2f s]" % (time.time() - t0))
+    k1a_launches += mesh["k1a"] + cfg4["k1a"] + ex["k1a"]
+    k2_launches += mesh["k2"] + cfg4["k2"] + ex["k2"]
 
     print(smi)
     for label, ms, bd in (

@@ -36,11 +36,15 @@ present: resume), merges them and writes the products. diagnosis.
 jax_profile writes a torch.profiler trace around the run,
 diagnosis.resource_monitor samples CPU, RSS and device memory to JSONL.
 
+Multi-device runs (prisim_tpu/driver.py:1214-1345, :1567-1597): with more
+than one device (device="cuda" is every visible card; `devices` lists them
+explicitly, and may repeat one) and pp.key not 'none', a plain direct run
+takes the bl/chan/src mesh of parallel/mesh.py, shaped by pp.key or
+pp.mesh_axes, and the banded engine a 'bl' mesh behind its own gate.
+
 The device is explicit: run_simulation(..., device="cuda") raises when no
-card is present and never carries on on the CPU. Branches that are not
-ported yet (the sorted spread, multi-device runs) raise
-NotImplementedError before any compute, naming the ROADMAP item that ports
-them.
+card is present and never carries on on the CPU. The sorted spread, which
+the port does not have, raises NotImplementedError before any compute.
 """
 
 from __future__ import annotations
@@ -84,7 +88,7 @@ from .vis import VisibilitySet, delay_transform, phase_centering, \
     project_baselines
 
 __all__ = ["run_simulation", "run_simulation_chunked",
-           "prepare_simulation", "resolve_device",
+           "prepare_simulation", "resolve_device", "resolve_devices",
            "banded_engine",
            "build_layout", "build_frequencies", "build_schedule",
            "build_sky", "build_observed_sky", "build_tsys",
@@ -109,6 +113,24 @@ def resolve_device(device):
         raise ValueError("device must be 'cuda' or 'cpu', got %r"
                          % str(device))
     return dev
+
+
+def resolve_devices(device, devices=None):
+    """The devices of a run, the port's counterpart of jax.devices():
+    `devices` when given (a list, which may repeat a device), else every
+    visible card for 'cuda' without an index, else [resolve_device(device)].
+    """
+    if devices is not None:
+        devs = [resolve_device(d) for d in devices]
+        if not devs:
+            raise ValueError("devices is empty")
+    else:
+        dev = resolve_device(device)
+        devs = ([torch.device("cuda", i)
+                 for i in range(torch.cuda.device_count())]
+                if dev.type == "cuda" and dev.index is None else [dev])
+    return [torch.device("cuda", torch.cuda.current_device())
+            if d.type == "cuda" and d.index is None else d for d in devs]
 
 
 def build_layout(parms):
@@ -687,8 +709,9 @@ def _resolve_engine(parms, device):
     return engine
 
 
-def check_supported(parms, device):
-    """Raise, before any compute, for every branch the port lacks."""
+def check_supported(parms, device, n_devices=1):
+    """Raise, before any compute, for every branch the port lacks, and for
+    a pp.mesh_axes that does not fit the run's `n_devices`."""
     proc = parms["processing"]
     engine = _resolve_engine(parms, device)
     if engine == "nufft" and not proc.get("gradient_mode"):
@@ -704,8 +727,13 @@ def check_supported(parms, device):
                          "NUDFT, but on a CUDA device the direct engine "
                          "always runs kernel K1a")
     pp = parms.get("pp") or {}
-    if pp.get("mesh_axes"):
-        raise _not_ported("pp.mesh_axes (multi-device runs)", 13)
+    axes = pp.get("mesh_axes")
+    if axes:
+        n_axes = 3 if (pp.get("key") or "freq").lower() == "src" else 2
+        if len(axes) != n_axes or int(np.prod(axes)) != n_devices:
+            raise ValueError("pp.mesh_axes %s needs %d axes whose product is "
+                             "the run's %d devices" % (list(axes), n_axes,
+                                                        n_devices))
     bm = parms.get("beam") or {}
     pol = str(bm.get("pol") or "X").upper()
     if pol not in ("X", "Y", "XY", "DUAL", "FULL"):
@@ -927,9 +955,17 @@ def _demote(parms, reason):
 
 
 def run_simulation(parms, outdir=None, verbose=True, save=True,
-                   device="cuda", _sky_override=None):
+                   device="cuda", devices=None, _sky_override=None):
     """Run a full simulation from a parameter source (path, YAML string
-    or dict) on `device` ('cuda' or 'cpu').
+    or dict) on `device` ('cuda': every visible card, 'cuda:k': that card,
+    or 'cpu'), or on the list `devices` (resolve_devices; it may repeat a
+    device, as ["cpu"] * 8 does). With more than one device and pp.key not
+    'none', a plain run takes a device mesh (parallel/mesh.py): the direct
+    engine on the ("bl", "chan") mesh of pp.key freq (1, n) or bl (n, 1),
+    or the ("bl", "chan", "src") mesh of src (1, 1, n), pp.mesh_axes
+    overriding the shape; the banded engine on a (n, 1) 'bl' mesh whatever
+    the key. Gradient runs, shaped skies and external beams run on the
+    first device.
 
     processing.engine 'auto' runs the banded NUFFT engine (kernel K2,
     gated against the direct engine) on a CUDA card and the direct engine
@@ -944,12 +980,13 @@ def run_simulation(parms, outdir=None, verbose=True, save=True,
     first: each sector's run is a pol run, as in the reference."""
     if not isinstance(parms, dict) or "telescope" not in parms:
         parms = load_parms(parms)
-    dev = resolve_device(device)
+    devs = resolve_devices(device, devices)
+    dev = devs[0]
     with _diagnosis(parms, dev):
         cur = parms
         while True:
             try:
-                return _run_simulation_inner(cur, outdir, verbose, save, dev,
+                return _run_simulation_inner(cur, outdir, verbose, save, devs,
                                              _sky_override)
             except _EngineDemotion as dem:
                 cur = dem.parms
@@ -991,7 +1028,7 @@ def _diagnosis(parms, dev):
         yield
 
 
-def _run_sectors(parms, outdir, verbose, save, dev, n_sectors):
+def _run_sectors(parms, outdir, verbose, save, devs, n_sectors):
     """processing.n_sky_sectors > 1: one simulation per azimuthal sky
     sector (prisim_tpu/driver.py:751-802). The sector's wedge is applied
     inside the beam as an amplitude mask on each snapshot's current source
@@ -1039,12 +1076,13 @@ def _run_sectors(parms, outdir, verbose, save, dev, n_sectors):
             p2["dirstruct"]["simid"] += "_sector%d" % k
         outs.append(run_simulation(
             p2, outdir=None if outdir is None else outdir + "_sector%d" % k,
-            verbose=verbose, save=save, device=dev,
+            verbose=verbose, save=save, devices=devs,
             _sky_override=sky.subset(keep))[0])
     return outs, outdir
 
 
-def _run_components(parms, outdir, verbose, save, dev, sky_override, comps):
+def _run_components(parms, outdir, verbose, save, devs, sky_override,
+                    comps):
     """One run_simulation per polarization component; comps holds (suffix
     for simid and outdir, beam.pol, Mueller component or None) for each.
     Returns [(VisibilitySet, outdir or None), ...]."""
@@ -1058,12 +1096,12 @@ def _run_components(parms, outdir, verbose, save, dev, sky_override, comps):
             p2["dirstruct"]["simid"] += suffix
         outs.append(run_simulation(
             p2, outdir=None if outdir is None else outdir + suffix,
-            verbose=verbose, save=save, device=dev,
+            verbose=verbose, save=save, devices=devs,
             _sky_override=sky_override))
     return outs
 
 
-def _run_dual_pol(parms, outdir, verbose, save, dev, sky_override):
+def _run_dual_pol(parms, outdir, verbose, save, devs, sky_override):
     """beam.pol XY/dual (prisim_tpu/driver.py:855-889): the X and Y feeds
     as two simulations (the Y feed is X rotated 90 deg in azimuth), each
     saving its own products, plus the combined 2-pol and 4-pol (XX, YY
@@ -1071,7 +1109,7 @@ def _run_dual_pol(parms, outdir, verbose, save, dev, sky_override):
     directory, and UVH5 where save_formats.uvh5 asks for it (the
     reference writes UVH5 always, so a run without h5py could not save)."""
     (vs_x, dir_x), (vs_y, _) = _run_components(
-        parms, outdir, verbose, save, dev, sky_override,
+        parms, outdir, verbose, save, devs, sky_override,
         [("_pol" + p, p, None) for p in ("X", "Y")])
     if save and dir_x is not None:
         base = os.path.join(dir_x, "simdata", "simvis_dualpol")
@@ -1085,14 +1123,14 @@ def _run_dual_pol(parms, outdir, verbose, save, dev, sky_override):
     return [vs_x, vs_y], dir_x
 
 
-def _run_full_pol(parms, outdir, verbose, save, dev, sky_override):
+def _run_full_pol(parms, outdir, verbose, save, devs, sky_override):
     """beam.pol full (prisim_tpu/driver.py:890-922): XX, YY and the XY = YX
     leakage product of crossed-dipole Jones vectors (beams/jones.py) as
     three component simulations of pol X, each with its Mueller weight as
     the beam, plus the combined 4-pol UVFITS export with real cross-pols
     under the XX run's directory (UVH5 where save_formats.uvh5 asks)."""
     (vs_xx, dir_x), (vs_yy, _), (vs_xy, _) = _run_components(
-        parms, outdir, verbose, save, dev, sky_override,
+        parms, outdir, verbose, save, devs, sky_override,
         [("_" + c.lower(), "X", c) for c in ("XX", "YY", "XY")])
     if save and dir_x is not None:
         base = os.path.join(dir_x, "simdata", "simvis_fullpol")
@@ -1118,16 +1156,17 @@ def _combined_exports(parms, *products, vs0):
     return "uvfits,uvh5" if uvh5 else "uvfits"
 
 
-def _run_simulation_inner(parms, outdir, verbose, save, dev, sky_override):
-    check_supported(parms, dev)
+def _run_simulation_inner(parms, outdir, verbose, save, devs, sky_override):
+    dev = devs[0]
+    check_supported(parms, dev, len(devs))
     n_sectors = int(parms["processing"].get("n_sky_sectors") or 1)
     if sky_override is None and n_sectors > 1:
-        return _run_sectors(parms, outdir, verbose, save, dev, n_sectors)
+        return _run_sectors(parms, outdir, verbose, save, devs, n_sectors)
     pol = str((parms.get("beam") or {}).get("pol") or "X").upper()
     if pol in ("XY", "DUAL"):
-        return _run_dual_pol(parms, outdir, verbose, save, dev, sky_override)
+        return _run_dual_pol(parms, outdir, verbose, save, devs, sky_override)
     if pol == "FULL":
-        return _run_full_pol(parms, outdir, verbose, save, dev, sky_override)
+        return _run_full_pol(parms, outdir, verbose, save, devs, sky_override)
     t0 = time.time()
     sim = prepare_simulation(parms, dev, verbose=verbose, sky=sky_override)
     _phase(verbose, "inputs built and on %s" % dev, t0)
@@ -1147,10 +1186,15 @@ def _run_simulation_inner(parms, outdir, verbose, save, dev, sky_override):
                  "sources)"))
         engine = "direct"
     gradients = None
+    mesh = None
+    if not (external or grad or sim.sky.src_shape_sigma is not None):
+        mesh = _mesh(parms, devs, engine)
     if external:
         vis_tbc = _simulate_external(parms, sim, verbose)
     elif engine == "nufft":
-        vis_tbc = _simulate_banded(parms, sim, verbose)
+        vis_tbc = _simulate_banded(parms, sim, verbose, mesh)
+    elif mesh is not None:
+        vis_tbc = _simulate_direct_mesh(parms, sim, verbose, mesh)
     else:
         out = simulate_drift(sim.inst, sim.sky, sim.obs, sim.beam_fn,
                              src_block=sim.src_block, gradient=grad)
@@ -1169,13 +1213,13 @@ def _run_simulation_inner(parms, outdir, verbose, save, dev, sky_override):
 _ON = ("auto", "true", "1", "yes", "on")
 
 
-def banded_engine(parms, sim):
-    """(plan, snapshot functions) of the banded NUFFT engine for `sim`,
-    built as the driver builds them (prisim_tpu/driver.py:1139-1410):
-    rank 16 for a fractional bandwidth <= 0.4, else 32, capped at half
-    the channels; the node model; truth amps where the beam has a truth
-    form (beam_fn.df_eval), with dot_split 4 in the plan. Raises
-    PlanRejected when the plan is rejected."""
+def _banded_settings(parms, sim):
+    """(rank, node_model, truth, plan_kw) of the banded NUFFT engine for
+    `sim`, as the reference's driver picks them (prisim_tpu/driver.py:
+    1139-1410): rank 16 for a fractional bandwidth <= 0.4, else 32, capped
+    at half the channels; the node model; truth amps ({"beam_df",
+    "flux_nodes"}) where the beam has a truth form (beam_fn.df_eval), with
+    dot_split 4 in the plan keywords. Prints the reference's warnings."""
     proc = parms["processing"]
     freqs = sim.freqs
     frac_bw = (freqs[-1] - freqs[0]) / freqs[freqs.size // 2]
@@ -1197,26 +1241,80 @@ def banded_engine(parms, sim):
     plan_kw = {k: v for k, v in dict(
         beta=proc.get("nufft_beta"),
         dot_split=proc.get("nufft_dot_split")).items() if v}
-    if truth_on:
-        plan_kw.setdefault("dot_split", 4)
-    plan = make_banded_plan(np.asarray(sim.bls.vectors), sim.inst.nu0,
-                            sim.inst.dnu, freqs.size, rank=rank, **plan_kw)
-    pinvQ, Q = chebyshev_projection(freqs, rank)
     truth = None
     if truth_on:
+        plan_kw.setdefault("dot_split", 4)
         nm = chebyshev_node_model(freqs, rank)
         truth = {"beam_df": sim.beam_fn.df_eval,
                  "flux_nodes": sim.skymodel.generate_spectrum(nm.nu_nodes)}
+    return rank, node_model, truth, plan_kw
+
+
+def banded_engine(parms, sim, collapse=True, settings=None):
+    """(plan, snapshot functions) of the banded NUFFT engine for `sim`,
+    built as the driver builds them, with the `settings` of
+    _banded_settings (computed when not given); `collapse` as in
+    make_banded_plan. Raises PlanRejected when the plan is rejected."""
+    rank, node_model, truth, plan_kw = (settings if settings is not None
+                                        else _banded_settings(parms, sim))
+    plan = make_banded_plan(np.asarray(sim.bls.vectors), sim.inst.nu0,
+                            sim.inst.dnu, sim.freqs.size, rank=rank,
+                            collapse=collapse, **plan_kw)
+    pinvQ, Q = chebyshev_projection(sim.freqs, rank)
     return plan, make_banded_snapshot_fns(
         sim.inst, sim.sky, sim.beam_fn, plan, pinvQ, Q,
         gate_src_block=sim.src_block, node_model=node_model, truth=truth)
 
 
-def _simulate_banded(parms, sim, verbose):
-    """All accumulations through the banded NUFFT engine, behind its
-    shared-amps gate on snapshot 0 (prisim_tpu/driver.py:1346-1500).
-    Returns (T, B, C) complex64 or raises _EngineDemotion."""
+def _banded_gate(parms, sim, plan, snap, sched, verbose, label=""):
+    """The shared-amps gate of the banded engine on snapshot 0
+    (processing.nufft_crosscheck, on by default): raises _EngineDemotion
+    when it fails. `label` ("mesh " on the mesh) goes into its lines."""
     proc = parms["processing"]
+    if not proc.get("nufft_crosscheck", True):
+        return
+    Mh, Ml, pch, pcl = sched
+    t1 = time.time()
+    tol = float(proc.get("nufft_crosscheck_tol") or 2e-6)
+    rtol = float(proc.get("nufft_resid_tol") or 1e-4)
+    direct0, banded0, ok0, resid0, cs0 = snap.gate_fn(
+        Mh[0], Ml[0], pch[0], pcl[0])
+    dump = os.environ.get("PRISIM_DEBUG_XCHECK_DUMP")
+    if dump:
+        np.savez(dump, fast0=banded0, direct0=direct0,
+                 Mh0=Mh[0].cpu().numpy(), Ml0=Ml[0].cpu().numpy(),
+                 pch0=pch[0].cpu().numpy(), pcl0=pcl[0].cpu().numpy(),
+                 freqs=sim.freqs, bl=np.asarray(sim.bls.vectors),
+                 rank=plan.rank, resid0=resid0, csA0=cs0, ok0=ok0,
+                 truth_on=snap.truth)
+    dmax = float(np.abs(banded0 - direct0).max())
+    vmax = float(np.abs(direct0).max())
+    # relative to the coherent flux scale max_c sum_s |A_sc| (>= max|V|),
+    # which an f32 engine's absolute error scales with; both forms print
+    rel = dmax / max(vmax, cs0, 1e-30)
+    norms = ("max|dV|/max_c sum_s|A| = %.2e, max|dV|/max|V| = %.2e"
+             % (dmax / max(cs0, 1e-30), dmax / max(vmax, 1e-30)))
+    resid_bad = snap.truth and resid0 > rtol
+    if not ok0 or rel > tol or resid_bad:
+        raise _demote(parms, "banded NUFFT %sshared-amps cross-check "
+                      "FAILED (%s; rel=%.2e > %.0e, ok=%s%s)"
+                      % (label, norms, rel, tol, ok0,
+                         ", model resid=%.2e > %.0e" % (resid0, rtol)
+                         if resid_bad else ""))
+    if verbose:
+        print("[prisim_tpu_torch] banded/direct %sshared-amps cross-check "
+              "ok (%s%s)" % (label, norms, ", truth amps, model resid=%.2e"
+                             % resid0 if snap.truth else ""))
+    _phase(verbose, "banded %sshared-amps gate" % label, t1)
+
+
+def _simulate_banded(parms, sim, verbose, mesh=None):
+    """All accumulations through the banded NUFFT engine, behind its
+    shared-amps gate on snapshot 0 (prisim_tpu/driver.py:1346-1500), on
+    `mesh` when one is given. Returns (T, B, C) complex64 or raises
+    _EngineDemotion."""
+    if mesh is not None:
+        return _simulate_banded_mesh(parms, sim, verbose, mesh)
     try:
         plan, snap = banded_engine(parms, sim)
     except PlanRejected as exc:
@@ -1228,49 +1326,91 @@ def _simulate_banded(parms, sim, verbose):
               % (plan.nbl_full, plan.nbl, plan.ndir, plan.rank, plan.R_max,
                  plan.n_blk_max, snap.n_chunks, snap.src_chunk,
                  ", truth amps" if snap.truth else ""))
-    Mh, Ml, pch, pcl = schedule_tensors(sim.obs, sim.inst.latitude,
-                                        sim.inst.device)
-    if proc.get("nufft_crosscheck", True):
-        t1 = time.time()
-        tol = float(proc.get("nufft_crosscheck_tol") or 2e-6)
-        rtol = float(proc.get("nufft_resid_tol") or 1e-4)
-        direct0, banded0, ok0, resid0, cs0 = snap.gate_fn(
-            Mh[0], Ml[0], pch[0], pcl[0])
-        dump = os.environ.get("PRISIM_DEBUG_XCHECK_DUMP")
-        if dump:
-            np.savez(dump, fast0=banded0, direct0=direct0,
-                     Mh0=Mh[0].cpu().numpy(), Ml0=Ml[0].cpu().numpy(),
-                     pch0=pch[0].cpu().numpy(), pcl0=pcl[0].cpu().numpy(),
-                     freqs=sim.freqs, bl=np.asarray(sim.bls.vectors),
-                     rank=plan.rank, resid0=resid0, csA0=cs0, ok0=ok0,
-                     truth_on=snap.truth)
-        dmax = float(np.abs(banded0 - direct0).max())
-        vmax = float(np.abs(direct0).max())
-        # relative to the coherent flux scale max_c sum_s |A_sc| (>= max|V|),
-        # which an f32 engine's absolute error scales with; both forms print
-        rel = dmax / max(vmax, cs0, 1e-30)
-        norms = ("max|dV|/max_c sum_s|A| = %.2e, max|dV|/max|V| = %.2e"
-                 % (dmax / max(cs0, 1e-30), dmax / max(vmax, 1e-30)))
-        resid_bad = snap.truth and resid0 > rtol
-        if not ok0 or rel > tol or resid_bad:
-            raise _demote(parms, "banded NUFFT shared-amps cross-check "
-                          "FAILED (%s; rel=%.2e > %.0e, ok=%s%s)"
-                          % (norms, rel, tol, ok0,
-                             ", model resid=%.2e > %.0e" % (resid0, rtol)
-                             if resid_bad else ""))
-        if verbose:
-            print("[prisim_tpu_torch] banded/direct shared-amps cross-check "
-                  "ok (%s%s)" % (norms, ", truth amps, model resid=%.2e"
-                                 % resid0 if snap.truth else ""))
-        _phase(verbose, "banded shared-amps gate", t1)
+    sched = schedule_tensors(sim.obs, sim.inst.latitude, sim.inst.device)
+    _banded_gate(parms, sim, plan, snap, sched, verbose)
     snaps, oks = [], []
     for t in range(sim.obs.n_acc):
-        v, ok = snap(Mh[t], Ml[t], pch[t], pcl[t])
+        v, ok = snap(*(a[t] for a in sched))
         snaps.append(v)
         oks.append(ok)
     if not bool(torch.stack(oks).all()):
         raise _demote(parms, "banded NUFFT unit-source check failed")
     return torch.stack(snaps)
+
+
+def _simulate_banded_mesh(parms, sim, verbose, mesh):
+    """The banded engine on a 'bl' mesh (prisim_tpu/driver.py:1214-1318):
+    the shared-amps gate on a collapse=False plan (the shards' geometry) on
+    the mesh's first device, then simulate_drift_banded_sharded. A rejected
+    plan, a failed gate or a failed unit-source check demotes the run to
+    the direct engine, which then takes the direct mesh. Returns (T, B, C)
+    complex64."""
+    from .parallel.mesh import simulate_drift_banded_sharded
+    key = ((parms.get("pp") or {}).get("key") or "").lower()
+    n = mesh.devices.size
+    if verbose and key != "bl":
+        print("[prisim_tpu_torch] banded NUFFT on %d devices: mesh rides "
+              "the 'bl' axis (full band per shard)" % n)
+    settings = _banded_settings(parms, sim)
+    rank, node_model, truth, plan_kw = settings
+    try:
+        plan, snap = banded_engine(parms, sim, collapse=False,
+                                   settings=settings)
+    except PlanRejected as exc:
+        raise _demote(parms, "banded NUFFT plan rejected (%s)" % exc)
+    if verbose:
+        print("[prisim_tpu_torch] banded NUFFT: %d bl, %d directions, rank "
+              "%d, R_max %d, n_blk max %d, on a (%d, 1) 'bl' mesh of %s%s"
+              % (plan.nbl, plan.ndir, plan.rank, plan.R_max, plan.n_blk_max,
+                 n, ", ".join(str(d) for d in mesh.devices.flat),
+                 ", truth amps" if snap.truth else ""))
+    sched = schedule_tensors(sim.obs, sim.inst.latitude, sim.inst.device)
+    _banded_gate(parms, sim, plan, snap, sched, verbose, label="mesh ")
+    del plan, snap, sched
+    vis, ok = simulate_drift_banded_sharded(
+        sim.inst, sim.sky, sim.obs, sim.beam_fn, mesh, rank=rank,
+        node_model=node_model, truth=truth, plan_kw=plan_kw)
+    if not ok:
+        raise _demote(parms, "banded NUFFT unit-source check failed")
+    return vis
+
+
+def _simulate_direct_mesh(parms, sim, verbose, mesh):
+    """All accumulations on the direct engine over `mesh` (prisim_tpu/
+    driver.py:1567-1597): K1a on every CUDA shard, its plain version on
+    every CPU shard. Returns (T, B, C) complex64."""
+    from .parallel.mesh import (simulate_drift_sharded,
+                                simulate_drift_src_sharded)
+    src = "src" in mesh.axis_names
+    if verbose:
+        print("[prisim_tpu_torch] direct engine on a %s mesh of %s"
+              % (mesh.shape, ", ".join(str(d) for d in mesh.devices.flat)))
+    fn = simulate_drift_src_sharded if src else simulate_drift_sharded
+    return fn(sim.inst, sim.sky, sim.obs, sim.beam_fn, mesh,
+              src_block=sim.src_block)
+
+
+def _mesh(parms, devs, engine):
+    """The device mesh of a plain run on `devs`, or None on one device or
+    with pp.key: none. The banded engine rides the 'bl' axis, (n, 1),
+    whatever the key (each shard FFTs the full band); the direct engine
+    takes pp.key's: src (1, 1, n) over ("bl", "chan", "src"), freq (1, n)
+    and any other key (n, 1) over ("bl", "chan"), pp.mesh_axes overriding
+    the shape."""
+    from .parallel.mesh import make_mesh
+    pp = parms.get("pp") or {}
+    key = (pp.get("key") or "freq").lower()
+    n = len(devs)
+    if n < 2 or key == "none":
+        return None
+    if engine == "nufft":
+        return make_mesh((n, 1), ("bl", "chan"), devs)
+    axes = pp.get("mesh_axes")
+    if key == "src":
+        return make_mesh(tuple(axes) if axes else (1, 1, n),
+                         ("bl", "chan", "src"), devs)
+    shape = tuple(axes) if axes else ((1, n) if key == "freq" else (n, 1))
+    return make_mesh(shape, ("bl", "chan"), devs)
 
 
 def _simulate_external(parms, sim, verbose):
@@ -1568,7 +1708,8 @@ def main(argv=None):
         device=args.device)
 
 
-def run_simulation_chunked(parms, outdir=None, verbose=True, device="cuda"):
+def run_simulation_chunked(parms, outdir=None, verbose=True, device="cuda",
+                           devices=None):
     """Chunked execution with checkpoint/resume (prisim_tpu/driver.py:
     1944-2030).
 
@@ -1581,8 +1722,9 @@ def run_simulation_chunked(parms, outdir=None, verbose=True, device="cuda"):
     then concatenate, redo the delay transform when
     processing.delay_transform asks for it, save the final products,
     record metainfo/chunkinfo (YAML, or JSON without pyyaml) and apply
-    processing.cleanup (>= 1 removes the part files). Returns
-    (VisibilitySet, output_dir)."""
+    processing.cleanup (>= 1 removes the part files). `devices` as in
+    run_simulation: each chunk runs on them. Returns (VisibilitySet,
+    output_dir)."""
     from .io.parts import load_part_npz, save_part_npz
     from .vis import concatenate
     if not isinstance(parms, dict) or "telescope" not in parms:
@@ -1591,8 +1733,9 @@ def run_simulation_chunked(parms, outdir=None, verbose=True, device="cuda"):
     n_chunks = int(pp.get("n_chunks") or 1)
     if n_chunks <= 1:
         return run_simulation(parms, outdir=outdir, verbose=verbose,
-                              device=device)
-    dev = resolve_device(device)
+                              device=device, devices=devices)
+    devs = resolve_devices(device, devices)
+    dev = devs[0]
     ds = parms["dirstruct"]
     if outdir is None:
         simid = ds.get("simid") or time.strftime("sim_%Y%m%d_%H%M%S")
@@ -1636,7 +1779,7 @@ def run_simulation_chunked(parms, outdir=None, verbose=True, device="cuda"):
             p2["snapshot"]["pick"] = list(range(int(edges[i]),
                                                 int(edges[i + 1])))
             p2["snapshot"]["all"] = False
-        vs_i, _ = run_simulation(p2, verbose=False, save=False, device=dev)
+        vs_i, _ = run_simulation(p2, verbose=False, save=False, devices=devs)
         if not isinstance(vs_i, VisibilitySet):
             raise ValueError("chunked runs take one single-polarization "
                              "run without sky sectors")

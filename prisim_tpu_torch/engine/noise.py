@@ -7,7 +7,7 @@ rms is
   sigma(K)  = Tsys / (eff_Q sqrt(dt df))
 
 with 1/sqrt(2) of sigma in each of the real and imaginary parts. Draws
-come from an explicit torch.Generator on the host: they cannot reproduce
+come from an explicit torch.Generator, on its device: they cannot reproduce
 the JAX package's threefry bits, so they are checked by their statistics
 and by same-seed reproducibility.
 """
@@ -42,9 +42,12 @@ def thermal_noise_rms(A_eff, df, dt, Tsys, nbl=1, nchan=1, ntimes=1,
 
 def generate_noise(generator, noise_rms):
     """Complex64 gaussian noise with per-sample rms `noise_rms` (array or
-    tensor), drawn with `generator` (a CPU torch.Generator) on the host."""
-    rms = torch.from_numpy(np.array(noise_rms, dtype=np.float32))
+    tensor), drawn with `generator` (a torch.Generator) on its device."""
+    dev = generator.device
+    rms = torch.as_tensor(np.array(noise_rms, dtype=np.float32), device=dev)
     scale = rms / np.sqrt(2.0)
-    re = torch.randn(rms.shape, generator=generator, dtype=torch.float32)
-    im = torch.randn(rms.shape, generator=generator, dtype=torch.float32)
+    re = torch.randn(rms.shape, generator=generator, dtype=torch.float32,
+                     device=dev)
+    im = torch.randn(rms.shape, generator=generator, dtype=torch.float32,
+                     device=dev)
     return torch.complex(scale * re, scale * im)

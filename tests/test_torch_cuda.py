@@ -224,6 +224,37 @@ def test_run_simulation_cuda_matches_cpu(cuda, tmp_path):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("key", ["freq", "bl", "src"])
+def test_direct_mesh_on_one_card_matches_single_device(cuda, key):
+    """A 2-shard mesh on one card, devices=[cuda:0] * 2: K1a on each shard
+    (2 launches an accumulation; chan0 = 16 on the second freq shard),
+    against the single-device run on the card, within 1e-6 of max|V|: the
+    same float64 sums, split across the grid in another number of source
+    splits (or across two src shards) before their complex64 rounding."""
+    from prisim_tpu_torch.config import load_parms
+    from prisim_tpu_torch.driver import run_simulation
+
+    def parms(k):
+        return load_parms({
+            "telescope": {"id": "hera"},
+            "array": {"layout": "HERA-7", "redundant": False},
+            "bandpass": {"nchan": 32, "freq_resolution": 97656.25},
+            "obsparm": {"n_acc": 2, "t_acc": 60.0},
+            "skyparm": {"model": "usm", "nside": 8},
+            "processing": {"engine": "direct"}, "pp": {"key": k},
+            "save_formats": {"fmt": "none", "npz": False}})
+    one, _ = run_simulation(parms("none"), verbose=False, save=False,
+                            device="cuda:0")
+    n0 = nudft_cuda.launches
+    two, _ = run_simulation(parms(key), verbose=False, save=False,
+                            devices=["cuda:0"] * 2)
+    assert nudft_cuda.launches == n0 + 4
+    scale = np.abs(one.skyvis).max()
+    d = np.abs(two.skyvis - one.skyvis).max() / scale
+    assert d <= 1e-6, d
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("case", ["gradient", "dsm_fits"])
 def test_shaped_and_gradient_runs_cuda_match_cpu(cuda, tmp_path, case):
     """A gradient run (K1b) and a DSM FITS run (K1c), each with engine auto,

@@ -147,10 +147,15 @@ def test_delay_transform_matches_jax(runs):
 ])
 def test_unported_branches_raise_before_compute(tmp_path, monkeypatch,
                                                 over):
+    """The sorted spread is not ported (NotImplementedError); pp.mesh_axes
+    is (tests/test_torch_mesh.py), and one that does not fit the run's
+    devices (here one axis for one CPU device) raises ValueError."""
     def no_compute(*a, **k):
         raise AssertionError("compute reached")
     monkeypatch.setattr(drv_t, "simulate_drift", no_compute)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    exc, match = ((ValueError, "mesh_axes") if "pp.mesh_axes" in over
+                  else (NotImplementedError, "ROADMAP"))
+    with pytest.raises(exc, match=match):
         drv_t.run_simulation(_parms(tmp_path, **over), verbose=False,
                              device="cpu")
 

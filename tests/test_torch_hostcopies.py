@@ -1,7 +1,8 @@
 """The port's copies of the JAX package's numpy host modules (healpix,
 layouts, baselines, ephemeris, skymodel, gains, the catalog helpers, the
-window helpers, vis.conjugate/concatenate and the analysis modules
-cosmology, closure, power_spectrum and bispectrum) give the reference's
+window helpers, vis.conjugate/concatenate, aperture_synthesis and the
+analysis modules cosmology, closure, power_spectrum and bispectrum) give
+the reference's
 results: each case runs one function of both
 packages on the same seeded numpy inputs and expects equal outputs, field
 for field (the classes differ, the contents may not)."""
@@ -11,6 +12,7 @@ import dataclasses
 import numpy as np
 import pytest
 
+from prisim_tpu import aperture_synthesis as ap_j
 from prisim_tpu import baselines as bl_j
 from prisim_tpu import catalogs as cat_j
 from prisim_tpu import ephemeris as eph_j
@@ -24,6 +26,7 @@ from prisim_tpu.analysis import bispectrum as bsp_j
 from prisim_tpu.analysis import closure as cl_j
 from prisim_tpu.analysis import cosmology as cos_j
 from prisim_tpu.analysis import power_spectrum as ps_j
+from prisim_tpu_torch import aperture_synthesis as ap_t
 from prisim_tpu_torch import baselines as bl_t
 from prisim_tpu_torch import catalogs as cat_t
 from prisim_tpu_torch import ephemeris as eph_t
@@ -272,7 +275,30 @@ def _bispectrum(bsp, rng):
                                                 ps["kprll"], (1, 2), 0.1))
 
 
+def _aperture(ap, rng):
+    """tests/test_aux.py's uvw cases, and random baselines, LSTs and phase
+    centers in every coordinate system."""
+    bl = rng.normal(0, 60, (7, 3))
+    lst = rng.uniform(0, 360, 4)
+    freqs = np.asarray([150e6, 300e6])
+    out = [ap.gen_uvw(np.asarray([[100.0, 0.0, 0.0], [0.0, 50.0, 0.0]]),
+                      -30.7, [10.0], np.asarray([[0.0, -30.7]]), "hadec"),
+           ap.gen_uvw(np.asarray([[100.0, 0.0, 0.0]]), -30.7, [0.0],
+                      np.asarray([[0.0, -30.7]]), "hadec", freqs=freqs)]
+    for coords, pc in (("hadec", rng.uniform(-40, 40, (4, 2))),
+                       ("radec", rng.uniform(0, 60, (1, 2))),
+                       ("altaz", np.stack([rng.uniform(40, 90, 4),
+                                           rng.uniform(0, 360, 4)], -1))):
+        out.append(ap.gen_uvw(bl, -26.7, lst, pc, coords,
+                              freqs=150e6 + 1e6 * np.arange(3)))
+    uvw_l = out[-1][1]
+    return (out, ap.reorder_uvw(uvw_l), ap.uvw_grid(uvw_l),
+            ap.uvw_grid(uvw_l, spacing=2.0, pad=[1.0, 2.0], pow2=False),
+            ap.uvw_grid(ap.reorder_uvw(uvw_l), pad=3.0))
+
+
 CASES = {
+    "aperture_synthesis": (_aperture, ap_j, ap_t),
     "windows": (_windows, win_j, win_t),
     "vis_conjugate_concatenate": (_vis_merge, vis_j, vis_t),
     "cosmology": (_cosmology, cos_j, cos_t),

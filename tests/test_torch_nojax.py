@@ -295,3 +295,99 @@ def test_port_analysis_and_chunked_runs_without_jax_yaml_h5py(tmp_path):
     assert got["chunked_vs_single"] < 2e-6
     assert got["products"] == ["_part_0.npz", "_part_1.npz", "simvis.fits"]
     assert "chunkinfo.json" in got["meta"]
+
+
+MESH_TOOLS = textwrap.dedent("""
+    import contextlib, io, json, os, sys
+    for name in %r:
+        sys.modules[name] = None
+    import numpy as np
+    from prisim_tpu_torch import altsim, driver, tools
+    from prisim_tpu_torch.config import load_parms
+    from prisim_tpu_torch.examples import full_pipeline
+    root = sys.argv[1]
+
+    def parms(simid, key, **proc):
+        return load_parms({
+            "dirstruct": {"rootdir": root, "project": "proj",
+                          "simid": simid},
+            "telescope": {"id": "hera"},
+            "array": {"layout": "HERA-7", "redundant": True},
+            "bandpass": {"nchan": 8, "freq_resolution": 97656.25},
+            "obsparm": {"n_acc": 2, "t_acc": 60.0},
+            "skyparm": {"model": "usm", "nside": 4},
+            "pp": {"key": key}, "processing": proc,
+            "save_formats": {"fmt": "fits", "npz": False}})
+
+    one, _ = driver.run_simulation(parms("one", "none"), verbose=False,
+                                   device="cpu")
+    runs = {}
+    for key, proc in (("freq", {}), ("bl", {}), ("src", {}),
+                      ("freq", {"engine": "nufft"})):
+        vs, _ = driver.run_simulation(
+            parms(key + proc.get("engine", ""), key, **proc), verbose=False,
+            devices=["cpu"] * 4)
+        runs[key + proc.get("engine", "")] = float(
+            abs(vs.skyvis - one.skyvis).max() / abs(one.skyvis).max())
+    def output(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            tools.main(argv)
+        return buf.getvalue()
+
+    listing = json.loads(output(["ls", os.path.join(root, "proj")]))
+    grep = output(["grep", os.path.join(root, "proj"), "pp.key=bl"])
+    ok = tools.mesh_check(4, device="cpu")
+    fits = os.path.join(root, "proj", "one", "simdata", "simvis.fits")
+    tools.update_noise(fits, os.path.join(root, "noisy.fits"), seed=1,
+                       device="cpu")
+    tools.expand_redundant_file(fits, os.path.join(root, "full.npz"))
+    errors = []
+    for call in (lambda: altsim.parms_to_pyuvsim(parms("x", "none"), root),
+                 lambda: tools.convert(fits, os.path.join(root, "c"),
+                                       ["hdf5"])):
+        try:
+            call()
+        except ImportError as exc:
+            errors.append(str(exc))
+    ex = full_pipeline.main(os.path.join(root, "example"), verbose=False,
+                            device="cpu")
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib") + %r
+                    and sys.modules[m] is not None)
+    print("MESHTOOLS", json.dumps(dict(
+        runs=runs, sims=listing["sims"], diffs=sorted(listing["diffs"]),
+        grep=grep.split(), mesh_ok=ok,
+        errors=errors, example=float(ex["round_trip"]),
+        example_products=sorted(os.listdir(os.path.join(
+            ex["simdir"], "simdata"))))))
+    print("LOADED", loaded)
+""" % (BLOCKED, BLOCKED))
+
+
+def test_port_mesh_tools_and_example_without_jax_yaml_h5py(tmp_path):
+    """A 4-entry CPU mesh through the driver (pp.key freq, bl, src and the
+    banded engine's 'bl' mesh) against the single-device run (bl/chan
+    shards bit for bit, src partial sums and the banded engine within
+    2e-6 and 1e-4 of max|V|); tools.main ls and grep over the runs' JSON
+    metadata; mesh_check; update_noise and expand_redundant_file on the
+    FITS product; altsim and an HDF5 convert raise ImportError; the
+    example runs to native FITS, NPZ and UVFITS with its round trip."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", MESH_TOOLS, str(tmp_path)],
+                          capture_output=True, text=True, env=env,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = dict(line.split(" ", 1) for line in proc.stdout.splitlines()
+                 if line.startswith(("MESHTOOLS", "LOADED")))
+    assert lines["LOADED"] == "[]"
+    got = json.loads(lines["MESHTOOLS"])
+    assert got["runs"]["freq"] == 0.0 and got["runs"]["bl"] == 0.0
+    assert got["runs"]["src"] < 2e-6 and got["runs"]["freqnufft"] < 1e-4
+    assert got["sims"] == ["bl", "freq", "freqnufft", "one", "src"]
+    assert "pp.key" in got["diffs"] and got["grep"] == ["bl"]
+    assert got["mesh_ok"] and len(got["errors"]) == 2
+    assert "yaml" in got["errors"][0] and "h5py" in got["errors"][1]
+    assert got["example"] < 1e-5
+    assert got["example_products"] == ["simvis.fits", "simvis.npz",
+                                       "simvis.uvfits"]
