@@ -3,8 +3,8 @@
     python3 chip_smoke.py
 
 Builds the NUDFT kernels K1a, K1b and K1c (csrc/nudft.cu, instances of
-one kernel) and K2 (csrc/banded.cu) with nvcc (sm_90a), the two builds
-started together, then:
+one kernel), K2 (csrc/banded.cu) and delay_spread (csrc/spread.cu) with
+nvcc (sm_90a), the three builds started together, then:
 
 1. K1a phase: K1a and its plain PyTorch version on the card at the slice's
    snapshot shape (HERA-37 non-redundant: 666 baselines x 1024 channels x
@@ -170,10 +170,35 @@ l. Tools and BASELINE config #4: bench_configs._write_synthetic_feko's
 m. The example: examples.full_pipeline.main(device="cuda") with its UVFITS
    round trip.
 
+Then the delay-space NUFFT with the sorted spread (kernel delay_spread):
+
+n. The sorted route at the slice (engine nufft, nufft_spread sorted, rank
+   32: the fractional bandwidth is 0.67): delay_spread against its plain
+   version on snapshot 0's inputs (1e-12 of max|grid|), the times of the
+   kernel alone, its plain version, the wrapper's set-up, the bins and
+   sort, and the whole snapshot, and its bound; run_simulation with 4
+   accumulations and NPZ products (its gate in both normalizations,
+   passing at 1e-4 of max|V| with no demotion; delay_spread 4 launches and
+   K1a 1; snapshot 0 against phase 1's K1a snapshot at 2e-6 of the
+   coherent scale; the wall-clock); then one north-star snapshot (630 bl x
+   1024 ch x 786,432 sources, no products) timed beside phase 5's banded
+   snapshot and K1a launch, against K1a on 16 baselines from the shortest
+   to the longest (1e-4 of max|V|), the kernel's time and bound there, and
+   the kernel against its plain version on those 16 baselines.
+o. The sorted route on the mesh: the slice cut to 2 accumulations on
+   devices=[cuda:0] * 4 with pp.key freq (1, 4), bl (4, 1), src (1, 1, 4)
+   and pp.mesh_axes [2, 2], each against the one-device sorted run (2e-6
+   of the coherent scale: each shard fits its own sub-band's float32
+   basis, as the reference's mesh does, and src shards add complex64
+   partials),
+   delay_spread launching once per shard and accumulation, K1a once (the
+   gate), each run timed.
+
 After the phases it prints the card's name and power limit, the roofline
-share (bound / time, against the H100 data-sheet peaks) of K1a, K1b, K1c
-and K2 at the slice and the north star, and the kernels line: each
-kernel's launches in its slice run (K1a and K2 also in phases k-m's runs),
+share (bound / time, against the H100 data-sheet peaks) of K1a, K1b, K1c,
+K2 and delay_spread at the slice and the north star, and the kernels line:
+each kernel's launches in its slice run (K1a and K2 also in phases k-m's
+runs, K1a and delay_spread in phases n-o's),
 error against its plain version, time, plain time, bound (from this run's
 inputs) and library time (null: no single PyTorch call computes any of
 them).
@@ -657,7 +682,8 @@ def northstar_phase(cuda):
     if not g_rel_v < BAR:
         raise SystemExit("north-star K1a disagrees with the golden: %.3e "
                          "(bar %.0e)" % (g_rel_v, BAR))
-    return dict(k2_ms=t_k, k2_bound=k2_bd, k1a_ms=k1a_ms, k1a_bound=k1a_bd)
+    return dict(k2_ms=t_k, k2_bound=k2_bd, k1a_ms=k1a_ms, k1a_bound=k1a_bd,
+                snap_ms=t_snap)
 
 
 def joined(hi, lo):
@@ -827,17 +853,19 @@ def both_modes_small(sim, cuda, n_src=4096, n_bl=32):
 
 
 def counts():
-    from prisim_tpu_torch.engine import cuda_banded, cuda_nudft
+    from prisim_tpu_torch.engine import cuda_banded, cuda_nudft, cuda_spread
     f = cuda_nudft.nudft_cuda
     return dict(k1a=f.launches, k1b=f.launches_grad, k1c=f.launches_ext,
-                k2=cuda_banded.banded_spread_cuda.launches)
+                k2=cuda_banded.banded_spread_cuda.launches,
+                spread=cuda_spread.delay_spread_cuda.launches)
 
 
 def zero_counts():
-    from prisim_tpu_torch.engine import cuda_banded, cuda_nudft
+    from prisim_tpu_torch.engine import cuda_banded, cuda_nudft, cuda_spread
     f = cuda_nudft.nudft_cuda
     f.launches = f.launches_grad = f.launches_ext = 0
     cuda_banded.banded_spread_cuda.launches = 0
+    cuda_spread.delay_spread_cuda.launches = 0
 
 
 def direct_mode_slice(label, parms, have_h5py, cuda, v0, want):
@@ -1078,7 +1106,10 @@ def beams_phase(dirs, freqs, dev):
 def engine_ran(log):
     """The engine a run took, from its verbose log."""
     if "falling back to the direct engine" in log:
-        return "banded, demoted to direct"
+        return ("sorted" if "delay-space NUFFT" in log else "banded") + \
+            ", demoted to direct"
+    if "delay-space NUFFT" in log:
+        return "sorted"
     return "banded" if "banded NUFFT:" in log else "direct"
 
 
@@ -1099,12 +1130,16 @@ def drive(label, parms, dev, save=False, devices=None):
     got = counts()
     text = log.getvalue()
     print(text.rstrip())
-    print("%s: wall-clock %.3f s, engine %s, launches K1a %d, K2 %d (%s)"
-          % (label, wall, engine_ran(text), got["k1a"], got["k2"], got))
+    print("%s: wall-clock %.3f s, engine %s, launches K1a %d, K2 %d, "
+          "delay_spread %d (%s)" % (label, wall, engine_ran(text), got["k1a"],
+                                    got["k2"], got["spread"], got))
     if got["k1a"] == 0:
         raise SystemExit("%s: K1a never launched" % label)
     if engine_ran(text) == "banded" and got["k2"] == 0:
         raise SystemExit("%s: banded run without a K2 launch" % label)
+    if engine_ran(text) == "sorted" and got["spread"] == 0:
+        raise SystemExit("%s: sorted run without a delay_spread launch"
+                         % label)
     return out, text, got, wall
 
 
@@ -2535,6 +2570,315 @@ def example_phase(root, dev):
     return dict(wall_s=wall, k1a=got["k1a"], k2=got["k2"])
 
 
+# --------------------------------------------------------------------------
+# Phases n-o: the delay-space NUFFT with the sorted spread (kernel
+# delay_spread), on one card and on the mesh
+# --------------------------------------------------------------------------
+
+# delay_spread vs its plain version, max|d grid| / max|grid|: both sum in
+# float64; the kernel's atomics only change the order of the run sums
+SPREAD_BAR = 1e-12
+# the sorted route's own gate: max|dV| / max|V| against K1a's snapshot 0
+# (the reference's cross-program bar, nufft_crosscheck_tol's default)
+SORTED_GATE_TOL = 1e-4
+SORTED_RANK = 32      # the slice's fractional bandwidth is 0.67 > 0.4
+N_SPREAD_BL = 16      # north-star baselines of the kernel-vs-plain check
+
+
+def spread_bound(a):
+    """delay_spread's bound for one launch on kernel_args `a`, the larger
+    of its operations' and its bytes' least times. Per live (source,
+    baseline) pair: 4 K r float64 operations of the K taps' complex
+    products (an FMA as 2), at the FP64 tensor-core peak (each run of
+    equal bins is a dense (K x run) @ (run x 2r) product that DMMA could
+    do), and 2 K (ncoef - 1) of the tap polynomials at the FP64 vector
+    peak; the sincospi of the carrier is not counted. Bytes: the two-float
+    delays of the live pairs and the float64 payload (as the kernel reads
+    it) read once, the complex128 grid (B, n, r) written once."""
+    pairs = float(a["S"]) * a["B"]
+    K, r, nc = a["K"], a["r"], a["taps"].shape[1]
+    t_ops = (pairs * 4 * K * r / FP64_TC_FLOPS
+             + pairs * 2 * K * (nc - 1) / FP64_FLOPS) * 1e3
+    nbytes = (pairs * 8 + a["P"].numel() * a["P"].element_size()
+              + a["B"] * a["n"] * r * 16)
+    t_bytes = nbytes / HBM_BPS * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                pairs=int(pairs))
+
+
+def sorted_inputs(sim, dev, rank, t=0):
+    """Snapshot t's spread inputs as simulate_snapshot_nufft_jit makes
+    them: the two-float delays (S_live, B) of the sources above the
+    horizon with a payload, for all baselines (the snapshot takes them in
+    blocks of baselines), their float32 spectral coefficients (S_live,
+    rank), the basis Q, and the coherent scale max_c sum_s |A_sc|."""
+    from prisim_tpu_torch.engine import nufft_delay as nd
+    from prisim_tpu_torch.engine.observe import (schedule_tensors,
+                                                 snapshot_nudft_inputs)
+    sched = schedule_tensors(sim.obs, sim.inst.latitude, dev)
+    seh, sel, amps, _ = snapshot_nudft_inputs(
+        sim.inst, sim.sky, *(a[t] for a in sched), sim.beam_fn,
+        above_horizon=True)
+    coherent = float(amps.double().abs().sum(dim=0).max())
+    pinvQ, Q = nd.chebyshev_projection(sim.freqs, rank)
+    P = nd.spectral_project(amps, torch.as_tensor(pinvQ, device=dev))
+    del amps
+    keep = nd.live_sources(P)
+    th, tl = nd.delays_two_float(seh[keep], sel[keep], sim.inst.bl_hi,
+                                 sim.inst.bl_lo)
+    return th, tl, P[keep].contiguous(), Q, coherent
+
+
+def spread_vs_plain(label, th, tl, P, inst, setup=None):
+    """delay_spread against its plain version on these inputs; returns
+    (max|d grid|, max|d grid| / max|grid|)."""
+    from prisim_tpu_torch.engine.cuda_spread import (delay_spread_cuda,
+                                                     delay_spread_plain)
+    args = (th, tl, P, inst.nu0, inst.dnu, inst.nchan)
+    g_k = delay_spread_cuda(*args, setup=setup)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    g_p = delay_spread_plain(*args)
+    torch.cuda.synchronize()
+    d = float((g_k - g_p).abs().max())
+    rel = d / float(g_p.abs().max())
+    print("%s delay_spread vs plain (%d live sources x %d bl x rank %d, grid "
+          "%s; plain %.2f s): max|d grid|=%.4e  /max|grid|=%.4e (bar %.0e)"
+          % (label, th.shape[0], th.shape[1], P.shape[1], tuple(g_k.shape),
+             time.time() - t0, d, rel, SPREAD_BAR))
+    if not (rel <= SPREAD_BAR and bool(torch.isfinite(g_k).all())):
+        raise SystemExit("%s delay_spread disagrees with its plain version"
+                         % label)
+    return d, rel
+
+
+def sorted_gate(dump):
+    """The sorted route's gate readings from its PRISIM_DEBUG_XCHECK_DUMP
+    file: (max|dV| / max|V|, max|dV| / max_c sum_s|A|)."""
+    with np.load(dump) as g:
+        dmax = float(np.abs(g["fast0"] - g["direct0"]).max())
+        return (dmax / float(np.abs(g["direct0"]).max()),
+                dmax / float(g["csA0"]))
+
+
+def sorted_phase(root, dev, have_h5py, v0, ns):
+    """Phase n: the sorted route at the slice and one north-star snapshot.
+    `v0` is phase 1's K1a snapshot 0; `ns` phase 5's north-star numbers
+    (the banded snapshot and K1a times of this card)."""
+    from prisim_tpu_torch.driver import prepare_simulation
+    from prisim_tpu_torch.engine import cuda_spread as cs
+    from prisim_tpu_torch.engine import nufft_delay as nd
+    from prisim_tpu_torch.engine.cuda_nudft import nudft_cuda
+    from prisim_tpu_torch.engine.observe import (schedule_tensors,
+                                                 snapshot_nudft_inputs)
+    parms = slice_parms(root, have_h5py, "nufft", "hera37_usm64_sorted",
+                        processing={"nufft_spread": "sorted"},
+                        save_formats={"fmt": "none", "npz": True})
+    sim = prepare_simulation(parms, dev)
+    inst = sim.inst
+    th, tl, P, Q, coherent = sorted_inputs(sim, dev, SORTED_RANK)
+    m0, _, n = nd.fold_delay_bins(th, tl, inst.dnu, inst.nchan)
+    setup = nd._sorted_spread_setup(m0, n)
+    del m0
+    print("sorted phase: %d of %d sources above the horizon x %d bl, rank "
+          "%d, grid n=%d" % (th.shape[0], sim.sky.flux.shape[0], inst.nbl,
+                             P.shape[1], n))
+    d_abs, _ = spread_vs_plain("slice", th, tl, P, inst, setup)
+    spread_args = (th, tl, P, inst.nu0, inst.dnu, inst.nchan)
+    a = cs.kernel_args(*spread_args, setup=setup)
+    bd = spread_bound(a)
+    # times: plain, kernel, kernel, plain (the plain version once a turn)
+    t_p = cuda_time_ms(lambda: cs.delay_spread_plain(*spread_args), n=1)
+    t_k = cuda_time_ms(lambda: cs.launch(a))
+    t_k2 = cuda_time_ms(lambda: cs.launch(a))
+    t_p2 = cuda_time_ms(lambda: cs.delay_spread_plain(*spread_args), n=1)
+    t_args = cuda_time_ms(lambda: cs.kernel_args(*spread_args, setup=setup))
+    t_setup = cuda_time_ms(lambda: nd._sorted_spread_setup(
+        nd.fold_delay_bins(th, tl, inst.dnu, inst.nchan)[0], n))
+    pinvQ, _ = nd.chebyshev_projection(sim.freqs, SORTED_RANK)
+    Mh, Ml, pch, pcl = (x[0] for x in schedule_tensors(sim.obs, inst.latitude,
+                                                        dev))
+    t_snap = cuda_time_ms(lambda: nd.simulate_snapshot_nufft_jit(
+        inst, sim.sky, Mh, Ml, pch, pcl, sim.beam_fn, pinvQ, Q))
+    ms_k, ms_p = 0.5 * (t_k + t_k2), 0.5 * (t_p + t_p2)
+    print("delay_spread time: %.4f ms (runs %.4f, %.4f) per slice snapshot; "
+          "plain %.4f ms (runs %.4f, %.4f); the wrapper's set-up with the "
+          "sort given (bins, layouts, zeroed grid) %.4f ms; bins and sort "
+          "%.4f ms; sorted snapshot (beam, projection, delays, set-up, "
+          "kernel, FFT post) %.4f ms"
+          % (ms_k, t_k, t_k2, ms_p, t_p, t_p2, t_args, t_setup, t_snap))
+    print("delay_spread bound: %.4f ms (%s; %d live pairs); share %.4f"
+          % (bd["bound_ms"], bd["bound_by"], bd["pairs"],
+             bd["bound_ms"] / ms_k))
+    del a, setup, th, tl, P
+    torch.cuda.empty_cache()
+
+    dump = os.path.join(root, "sorted_gate.npz")
+    os.makedirs(root, exist_ok=True)
+    if os.path.exists(dump):
+        os.remove(dump)
+    os.environ["PRISIM_DEBUG_XCHECK_DUMP"] = dump
+    try:
+        (vs, outdir), log, got, wall = drive(
+            "sorted slice, engine nufft, nufft_spread sorted", parms, dev,
+            save=True)
+    finally:
+        os.environ.pop("PRISIM_DEBUG_XCHECK_DUMP", None)
+    g_v, g_c = sorted_gate(dump)
+    print("sorted slice gate (sorted vs K1a snapshot 0): /max|V|=%.4e (the "
+          "run's bar %.0e)  /max_c sum_s|A|=%.4e"
+          % (g_v, SORTED_GATE_TOL, g_c))
+    want = phased_snapshot0(vs, parms, v0)
+    d0 = float(np.abs(vs.skyvis[:, :, 0] - want).max())
+    print("sorted slice snapshot 0 vs phase 1's K1a snapshot: max|dV|=%.4e  "
+          "/max|V|=%.4e  /max_c sum_s|A|=%.4e (bar %.0e of max_c sum_s|A|)"
+          % (d0, d0 / np.abs(want).max(), d0 / coherent, BAR))
+    if not ("cross-check ok" in log and engine_ran(log) == "sorted"
+            and got["spread"] == 4 and got["k1a"] == 1 and got["k2"] == 0
+            and g_v <= SORTED_GATE_TOL and d0 / coherent <= BAR
+            and vs.skyvis.shape == np.shape(v0) + (4,)
+            and np.isfinite(vs.skyvis).all()):
+        raise SystemExit("sorted slice run failed")
+    with np.load(os.path.join(outdir, "simdata", "simvis.npz")) as f:
+        assert np.array_equal(f["skyvis_freq"], vs.skyvis)
+    launches = got["spread"]
+    del vs
+    torch.cuda.empty_cache()
+
+    # one north-star snapshot
+    nparms = northstar_parms(processing={"engine": "nufft",
+                                         "nufft_spread": "sorted"})
+    t0 = time.time()
+    nsim = prepare_simulation(nparms, dev)
+    ninst = nsim.inst
+    Mh, Ml, pch, pcl = (x[0] for x in schedule_tensors(
+        nsim.obs, ninst.latitude, dev))
+    pinvQ, Q = nd.chebyshev_projection(nsim.freqs, SORTED_RANK)
+    torch.cuda.synchronize()
+    print("north-star sorted snapshot: %d bl x %d ch x %d sources (set-up "
+          "%.2f s)" % (ninst.nbl, ninst.nchan, nsim.sky.flux.shape[0],
+                       time.time() - t0))
+
+    def snap():
+        return nd.simulate_snapshot_nufft_jit(ninst, nsim.sky, Mh, Ml, pch,
+                                              pcl, nsim.beam_fn, pinvQ, Q)
+    torch.cuda.synchronize()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    v = snap()
+    torch.cuda.synchronize()
+    first_s = time.time() - t0
+    t_ns = cuda_time_ms(snap, n=2, warm=False)
+    print("north-star sorted snapshot: peak device memory %.4f GB (%.4f GB "
+          "held before it: the sky and the instrument)"
+          % (torch.cuda.max_memory_allocated() / 1e9, base_gb))
+    assert v.shape == (ninst.nbl, ninst.nchan)
+    assert bool(torch.isfinite(v).all())
+    print("north-star sorted snapshot: first %.4f s, then %.4f ms; beside "
+          "this card's banded snapshot %.4f ms and K1a launch %.4f ms "
+          "(phase 5)" % (first_s, t_ns, ns["snap_ms"], ns["k1a_ms"]))
+    pick, lens = golden_pick(ninst)
+    pk = torch.as_tensor(pick, device=dev)
+    seh, sel, amps, _ = snapshot_nudft_inputs(ninst, nsim.sky, Mh, Ml, pch,
+                                              pcl, nsim.beam_fn)
+    ncoh = float(amps.double().abs().sum(dim=0).max())
+    bh, bl = (ninst.bl_hi[pk].contiguous(), ninst.bl_lo[pk].contiguous())
+    vd = nudft_cuda(seh, sel, bh, bl, amps, ninst.grid_scalars(),
+                    ninst.nchan)
+    dv = float((v[pk] - vd).abs().max())
+    rel_v = dv / float(vd.abs().max())
+    print("north-star sorted snapshot vs K1a on %d bl (%.1f-%.1f m): "
+          "max|dV|=%.4e  /max|V|=%.4e (bar %.0e)  /max_c sum_s|A|=%.4e"
+          % (len(pick), lens[pick[0]], lens[pick[-1]], dv, rel_v,
+             SORTED_GATE_TOL, dv / ncoh))
+    if not rel_v <= SORTED_GATE_TOL:
+        raise SystemExit("north-star sorted snapshot disagrees with K1a")
+    del seh, sel, amps, vd, v
+    torch.cuda.empty_cache()
+    th, tl, P, _, _ = sorted_inputs(nsim, dev, SORTED_RANK)
+    # the launches of one snapshot: its blocks of baselines
+    step = max(1, nd._BLOCK_PAIRS // th.shape[0])
+    blocks = [cs.kernel_args(th[:, b0:b0 + step].contiguous(),
+                             tl[:, b0:b0 + step].contiguous(), P, ninst.nu0,
+                             ninst.dnu, ninst.nchan)
+              for b0 in range(0, ninst.nbl, step)]
+    bds = [spread_bound(a) for a in blocks]
+    ns_bd = dict(bound_ms=sum(b["bound_ms"] for b in bds),
+                 bound_by="/".join(sorted({b["bound_by"] for b in bds})),
+                 pairs=sum(b["pairs"] for b in bds))
+    t_nk = cuda_time_ms(lambda: [cs.launch(a) for a in blocks], n=2)
+    del blocks
+    torch.cuda.empty_cache()
+    print("north-star delay_spread: %.4f ms per snapshot (%d launches of up "
+          "to %d baselines); bound %.4f ms (%s; %d live pairs); share %.4f"
+          % (t_nk, len(bds), min(step, ninst.nbl), ns_bd["bound_ms"],
+             ns_bd["bound_by"], ns_bd["pairs"], ns_bd["bound_ms"] / t_nk))
+    spread_vs_plain("north-star, %d bl from %.1f to %.1f m:"
+                    % (len(pick), lens[pick[0]], lens[pick[-1]]),
+                    th[:, pk].contiguous(), tl[:, pk].contiguous(), P, ninst)
+    del th, tl, P, nsim
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=d_abs, ms=ms_k, plain_ms=ms_p, launches=launches,
+                k1a=got["k1a"], wall_s=wall, snap_ms=t_snap, ns_ms=t_nk,
+                ns_snap_ms=t_ns,
+                ns_bound=ns_bd, **bd)
+
+
+def sorted_mesh_phase(root, dev, have_h5py, n_acc=2):
+    """Phase o: the sorted route on MESH_SHARDS shards of `dev` with
+    pp.key freq (1, 4), bl (4, 1), src (1, 1, 4) and pp.mesh_axes [2, 2],
+    each against the one-device sorted run; launches per shard and
+    accumulation. Returns the numbers and the launches."""
+    devs = [dev] * MESH_SHARDS
+
+    def parms(simid, **pp):
+        return slice_parms(root, have_h5py, "nufft", simid,
+                           obsparm={"n_acc": n_acc},
+                           processing={"nufft_spread": "sorted"},
+                           save_formats={"fmt": "none", "npz": False}, pp=pp)
+
+    base = parms("sorted_mesh_single", key="none")
+    (one, _), _, got1, wall1 = drive("sorted mesh phase, one device", base,
+                                     dev)
+    assert got1["spread"] == n_acc and got1["k1a"] == 1, got1
+    coh, _ = coherent_scale(base, dev)
+    vmax = float(np.abs(one.skyvis).max())
+    out = dict(single_s=wall1, runs={}, spread=got1["spread"],
+               k1a=got1["k1a"])
+    for label, pp in (
+            ("freq (1, 4)", {"key": "freq"}),
+            ("bl (4, 1)", {"key": "bl"}),
+            ("src (1, 1, 4)", {"key": "src"}),
+            ("freq, mesh_axes [2, 2]", {"key": "freq", "mesh_axes": [2, 2]})):
+        simid = "sorted_mesh_" + label.split()[0].strip(",") + (
+            "_axes" if "mesh_axes" in pp else "")
+        (vs, _), log, got, wall = drive(
+            "sorted mesh phase, pp.key %s" % label, parms(simid, **pp), dev,
+            devices=devs)
+        d = float(np.abs(vs.skyvis - one.skyvis).max())
+        # every shard fits its own (sub-)band's basis in float32
+        # (chebyshev_basis_jit, as the reference's mesh does), src shards
+        # add complex64 partials: the f32 engines' bar of the coherent scale
+        want = MESH_SHARDS * n_acc
+        print("sorted mesh %s vs one device: max|dV|=%.4e  /max|V|=%.4e  "
+              "/max_c sum_s|A|=%.4e (bar %.0e of max_c sum_s|A|); "
+              "delay_spread launches %d (shards x accumulations: %d), K1a %d "
+              "(the gate); %.3f s against %.3f s on one device"
+              % (label, d, d / vmax, d / coh, MESH_SRC_BAR, got["spread"],
+                 want, got["k1a"], wall, wall1))
+        if not (d / coh <= MESH_SRC_BAR and got["spread"] == want
+                and got["k1a"] == 1 and got["k2"] == 0
+                and "cross-check ok" in log and "mesh of" in log):
+            raise SystemExit("sorted mesh %s disagrees with one device"
+                             % label)
+        out["runs"][label] = dict(wall_s=wall, rel_v=d / vmax, rel_c=d / coh)
+        out["spread"] += got["spread"]
+        out["k1a"] += got["k1a"]
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -2542,7 +2886,7 @@ def main():
         return 1
     from prisim_tpu_torch._build import build_info, load_kernel_library
     from prisim_tpu_torch.driver import prepare_simulation, run_simulation
-    from prisim_tpu_torch.engine import cuda_banded, cuda_nudft
+    from prisim_tpu_torch.engine import cuda_banded, cuda_nudft, cuda_spread
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2558,10 +2902,10 @@ def main():
     print("h5py importable: %s; yaml importable: %s" % (have_h5py, have_yaml))
 
     t0 = time.time()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        list(pool.map(load_kernel_library, ("nudft", "banded")))
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        list(pool.map(load_kernel_library, ("nudft", "banded", "spread")))
     print("kernel builds (in parallel): %.2f s" % (time.time() - t0))
-    for kname in ("nudft", "banded"):
+    for kname in ("nudft", "banded", "spread"):
         info = build_info(kname)
         print("%s build: %.2f s (%s) -> %s"
               % (kname, info["seconds"],
@@ -2790,8 +3134,20 @@ def main():
     ex = example_phase(out_root, cuda)
     torch.cuda.empty_cache()
     print("[example phase: %.2f s]" % (time.time() - t0))
-    k1a_launches += mesh["k1a"] + cfg4["k1a"] + ex["k1a"]
+
+    t0 = time.time()
+    srt = sorted_phase(out_root, cuda, have_h5py, k["v0"], ns)
+    torch.cuda.empty_cache()
+    print("[sorted route phase: %.2f s]" % (time.time() - t0))
+
+    t0 = time.time()
+    smesh = sorted_mesh_phase(out_root, cuda, have_h5py)
+    torch.cuda.empty_cache()
+    print("[sorted mesh phase: %.2f s]" % (time.time() - t0))
+    k1a_launches += (mesh["k1a"] + cfg4["k1a"] + ex["k1a"] + srt["k1a"]
+                     + smesh["k1a"])
     k2_launches += mesh["k2"] + cfg4["k2"] + ex["k2"]
+    spread_launches = srt["launches"] + smesh["spread"]
 
     print(smi)
     for label, ms, bd in (
@@ -2802,7 +3158,10 @@ def main():
             ("K1c, slice snapshot", k1c["ms"], k1c),
             ("K1c, north-star DSM snapshot", ns_k1c["ms"], ns_k1c),
             ("K2, slice snapshot", k2["ms"], k2),
-            ("K2, north-star snapshot", ns["k2_ms"], ns["k2_bound"])):
+            ("K2, north-star snapshot", ns["k2_ms"], ns["k2_bound"]),
+            ("delay_spread, slice snapshot", srt["ms"], srt),
+            ("delay_spread, north-star snapshot", srt["ns_ms"],
+             srt["ns_bound"])):
         print("roofline share of %s: bound %.4f ms (%s) / %.4f ms = %.4f, "
               "against the data-sheet peaks (FP64 %.0f TFLOP/s, FP64 tensor "
               "%.0f TFLOP/s, HBM %.2f TB/s), on %s"
@@ -2825,7 +3184,9 @@ def main():
         row("nudft_k1c", cuda_nudft.KERNEL_SOURCE, cuda_nudft.TPU_KERNEL_EXT,
             k1c_launches, k1c),
         row("banded_k2", cuda_banded.KERNEL_SOURCE, cuda_banded.TPU_KERNEL,
-            k2_launches, k2)]}))
+            k2_launches, k2),
+        row("delay_spread", cuda_spread.KERNEL_SOURCE, cuda_spread.TPU_KERNEL,
+            spread_launches, srt)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -20,8 +20,8 @@ from .io import fitsio
 from .skymodel import SkyModel
 
 __all__ = ["read_sumss", "read_nvss", "read_gleam", "read_mwacs",
-           "read_dsm_fits", "write_dsm_fits", "read_hi_cube_fits",
-           "flux_cut"]
+           "read_custom_ascii", "read_dsm_fits", "write_dsm_fits",
+           "read_hi_cube_fits", "flux_cut"]
 
 
 def _powerlaw_model(ra, dec, flux, freq_ref, spindex, src_shape=None,
@@ -115,6 +115,18 @@ def read_mwacs(path, spindex_mean=-0.83, spindex_rms=0.0,
                        _draw_spindex(ra.size, spindex_mean, spindex_rms,
                                      spindex_seed))
     return _powerlaw_model(ra, dec, flux, 180e6, spindex, name="MWACS")
+
+
+def read_custom_ascii(path, freq_ref=150e6, spindex_default=-0.83):
+    """Custom ascii catalog: RA DEC FLUX [SPINDEX] [MAJ MIN PA]
+    (the driver's 'custom' model; run_prisim.py custom branch)."""
+    data = np.atleast_2d(np.genfromtxt(path, comments="#"))
+    ra, dec, flux = data[:, 0], data[:, 1], data[:, 2]
+    spindex = data[:, 3] if data.shape[1] > 3 else \
+        np.full(ra.size, spindex_default)
+    shape = data[:, 4:7] if data.shape[1] >= 7 else None
+    return _powerlaw_model(ra, dec, flux, freq_ref, spindex,
+                           src_shape=shape, name="custom")
 
 
 def _fits_table_columns(path):

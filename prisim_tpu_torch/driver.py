@@ -10,10 +10,12 @@ Counterpart of prisim_tpu/driver.py on one device:
 
 The drift scan runs one of two engines (processing.engine): the direct
 NUDFT (kernel K1a on a CUDA card, its plain version on the CPU) or the
-banded delay-space NUFFT (kernel K2 on a card, its plain version on the
-CPU), behind a gate against the direct engine that demotes the run to the
-direct engine when it fails. 'auto' picks the banded engine on a card and
-the direct engine on the CPU. Gradient runs (processing.gradient_mode,
+delay-space NUFFT, behind a gate against the direct engine that demotes
+the run to the direct engine when it fails. The NUFFT's spread is
+processing.nufft_spread: banded (kernel K2; 'auto' is banded) or sorted
+(kernel delay_spread; 'scatter' is the same route), each with its plain
+version on the CPU. 'auto' picks the banded engine on a card and the
+direct engine on the CPU. Gradient runs (processing.gradient_mode,
 kernel K1b) and skies with source shapes (extended sources, kernel K1c:
 the catalog and DSM FITS skies, a 7-column custom catalog) always run the
 direct engine, as the reference does.
@@ -40,11 +42,11 @@ Multi-device runs (prisim_tpu/driver.py:1214-1345, :1567-1597): with more
 than one device (device="cuda" is every visible card; `devices` lists them
 explicitly, and may repeat one) and pp.key not 'none', a plain direct run
 takes the bl/chan/src mesh of parallel/mesh.py, shaped by pp.key or
-pp.mesh_axes, and the banded engine a 'bl' mesh behind its own gate.
+pp.mesh_axes, and the banded engine a 'bl' mesh behind its own gate; the
+sorted spread takes pp.key's mesh as the direct engine does.
 
 The device is explicit: run_simulation(..., device="cuda") raises when no
-card is present and never carries on on the CPU. The sorted spread, which
-the port does not have, raises NotImplementedError before any compute.
+card is present and never carries on on the CPU.
 """
 
 from __future__ import annotations
@@ -81,9 +83,11 @@ from .config import dump_parms, load_parms
 from .engine.noise import generate_noise, thermal_noise_rms
 from .engine.nufft_banded import PlanRejected, make_banded_plan, \
     make_banded_snapshot_fns
-from .engine.nufft_delay import chebyshev_node_model, chebyshev_projection
+from .engine.nufft_delay import chebyshev_node_model, \
+    chebyshev_projection, simulate_snapshot_nufft_jit
 from .engine.observe import Instrument, Observation, SkySources, \
-    df_rotate3, schedule_tensors, simulate_drift, simulate_snapshot
+    df_rotate3, direct_visibilities, schedule_tensors, simulate_drift, \
+    simulate_snapshot, snapshot_nudft_inputs
 from .vis import VisibilitySet, delay_transform, phase_centering, \
     project_baselines
 
@@ -95,11 +99,6 @@ __all__ = ["run_simulation", "run_simulation_chunked",
            "precess_sky_to_obs_epoch", "main"]
 
 SIDEREAL_DEG_PER_SEC = 360.0 / 86164.0905
-
-
-def _not_ported(what, item):
-    return NotImplementedError("%s is not ported yet (ROADMAP queue 1, "
-                               "item %s)" % (what, item))
 
 
 def resolve_device(device):
@@ -709,19 +708,23 @@ def _resolve_engine(parms, device):
     return engine
 
 
+# processing.nufft_spread values of the sorted route (kernel delay_spread)
+_SORTED = ("sorted", "scatter")
+
+
+def _nufft_spread(parms):
+    return str(parms["processing"].get("nufft_spread") or "auto").lower()
+
+
 def check_supported(parms, device, n_devices=1):
-    """Raise, before any compute, for every branch the port lacks, and for
+    """Raise, before any compute, for a value the port does not know and for
     a pp.mesh_axes that does not fit the run's `n_devices`."""
     proc = parms["processing"]
     engine = _resolve_engine(parms, device)
     if engine == "nufft" and not proc.get("gradient_mode"):
-        spread = str(proc.get("nufft_spread") or "auto").lower()
-        if spread == "sorted":
-            raise _not_ported("processing.nufft_spread: sorted (the sorted "
-                              "spread; the port has the banded one)", 9)
-        if spread not in ("auto", "banded"):
-            raise ValueError("processing.nufft_spread must be auto, banded "
-                             "or sorted")
+        if _nufft_spread(parms) not in ("auto", "banded") + _SORTED:
+            raise ValueError("processing.nufft_spread must be auto, banded, "
+                             "sorted or scatter")
     if proc.get("use_pallas") is False and device.type == "cuda":
         raise ValueError("processing.use_pallas: false asks for the plain "
                          "NUDFT, but on a CUDA device the direct engine "
@@ -943,10 +946,10 @@ class _EngineDemotion(Exception):
 
 
 def _demote(parms, reason):
-    """Print why the banded engine is refused; the demotion to raise.
-    Every demotion goes to the direct engine: the reference's sorted
-    spread, its target for a rejected plan or a non-unit source, is not
-    ported."""
+    """Print why the NUFFT engine is refused; the demotion to raise.
+    Every demotion goes to the direct engine, where the reference sends a
+    rejected banded plan or a non-unit source to its sorted spread first
+    (and on its accelerator then on to the direct engine)."""
     print("[prisim_tpu_torch] %s; falling back to the direct engine"
           % reason)
     p2 = dict(parms)
@@ -963,13 +966,15 @@ def run_simulation(parms, outdir=None, verbose=True, save=True,
     'none', a plain run takes a device mesh (parallel/mesh.py): the direct
     engine on the ("bl", "chan") mesh of pp.key freq (1, n) or bl (n, 1),
     or the ("bl", "chan", "src") mesh of src (1, 1, n), pp.mesh_axes
-    overriding the shape; the banded engine on a (n, 1) 'bl' mesh whatever
-    the key. Gradient runs, shaped skies and external beams run on the
-    first device.
+    overriding the shape (the sorted NUFFT spread too); the banded engine
+    on a (n, 1) 'bl' mesh whatever the key. Gradient runs, shaped skies and
+    external beams run on the first device.
 
     processing.engine 'auto' runs the banded NUFFT engine (kernel K2,
     gated against the direct engine) on a CUDA card and the direct engine
-    on the CPU; a gradient run, a sky with source shapes or an external
+    on the CPU; engine nufft with nufft_spread sorted (or scatter) runs the
+    sorted spread (kernel delay_spread), gated against the direct engine's
+    snapshot 0; a gradient run, a sky with source shapes or an external
     beam runs the direct engine whatever the engine, and a gradient run's
     VisibilitySet carries gradients["baseline"] (3, nbl, nchan, n_acc).
     Returns (VisibilitySet, output_dir or None); with
@@ -1179,8 +1184,8 @@ def _run_simulation_inner(parms, outdir, verbose, save, devs, sky_override):
         print("[prisim_tpu_torch] beam.use_external: the external-beam "
               "route runs the direct engine, without gradients")
     elif engine == "nufft" and (grad or sim.sky.src_shape_sigma is not None):
-        print("[prisim_tpu_torch] %s, which the banded NUFFT engine does "
-              "not compute; running the direct engine"
+        print("[prisim_tpu_torch] %s, which the NUFFT engine does not "
+              "compute; running the direct engine"
               % ("processing.gradient_mode asks for baseline gradients"
                  if grad else "the sky has source shapes (extended "
                  "sources)"))
@@ -1191,6 +1196,8 @@ def _run_simulation_inner(parms, outdir, verbose, save, devs, sky_override):
         mesh = _mesh(parms, devs, engine)
     if external:
         vis_tbc = _simulate_external(parms, sim, verbose)
+    elif engine == "nufft" and _nufft_spread(parms) in _SORTED:
+        vis_tbc = _simulate_sorted(parms, sim, verbose, mesh)
     elif engine == "nufft":
         vis_tbc = _simulate_banded(parms, sim, verbose, mesh)
     elif mesh is not None:
@@ -1213,18 +1220,25 @@ def _run_simulation_inner(parms, outdir, verbose, save, devs, sky_override):
 _ON = ("auto", "true", "1", "yes", "on")
 
 
+def _nufft_rank(parms, freqs):
+    """The NUFFT's spectral rank: processing.nufft_rank, else 16 for a
+    fractional bandwidth <= 0.4 and 32 above, capped at half the channels
+    (prisim_tpu/driver.py:1139-1160)."""
+    frac_bw = (freqs[-1] - freqs[0]) / freqs[freqs.size // 2]
+    rank = int(parms["processing"].get("nufft_rank")
+               or (16 if frac_bw <= 0.4 else 32))
+    return min(rank, max(2, freqs.size // 2), freqs.size)
+
+
 def _banded_settings(parms, sim):
     """(rank, node_model, truth, plan_kw) of the banded NUFFT engine for
     `sim`, as the reference's driver picks them (prisim_tpu/driver.py:
-    1139-1410): rank 16 for a fractional bandwidth <= 0.4, else 32, capped
-    at half the channels; the node model; truth amps ({"beam_df",
+    1139-1410): _nufft_rank's rank; the node model; truth amps ({"beam_df",
     "flux_nodes"}) where the beam has a truth form (beam_fn.df_eval), with
     dot_split 4 in the plan keywords. Prints the reference's warnings."""
     proc = parms["processing"]
     freqs = sim.freqs
-    frac_bw = (freqs[-1] - freqs[0]) / freqs[freqs.size // 2]
-    rank = int(proc.get("nufft_rank") or (16 if frac_bw <= 0.4 else 32))
-    rank = min(rank, max(2, freqs.size // 2), freqs.size)
+    rank = _nufft_rank(parms, freqs)
     node_model = bool(proc.get("nufft_node_model", True))
     truth_req = str(proc.get("nufft_truth_amps", "auto")).lower()
     truth_on = (node_model and truth_req in _ON
@@ -1375,6 +1389,75 @@ def _simulate_banded_mesh(parms, sim, verbose, mesh):
     return vis
 
 
+def _simulate_sorted(parms, sim, verbose, mesh=None):
+    """All accumulations through the delay-space NUFFT with the sorted
+    spread (kernel delay_spread on a card), processing.nufft_spread sorted
+    or scatter (prisim_tpu/driver.py:1127-1215, :1321-1344, :1502-1545),
+    at _nufft_rank's rank; on `mesh` through simulate_drift_nufft_sharded.
+    The gate (processing.nufft_crosscheck, on by default): the direct
+    engine's snapshot 0 (K1a on a card), run
+    before the NUFFT's snapshots, against the NUFFT's snapshot 0 at
+    processing.nufft_crosscheck_tol (1e-4 of max|V|, the reference's
+    cross-program bar); a failure demotes the run to the direct engine.
+    Returns (T, B, C) complex64."""
+    proc = parms["processing"]
+    freqs = sim.freqs
+    rank = _nufft_rank(parms, freqs)
+    spread = _nufft_spread(parms)
+    sched = schedule_tensors(sim.obs, sim.inst.latitude, sim.inst.device)
+    gate = proc.get("nufft_crosscheck", True)
+    if gate:
+        # the gate's direct snapshot first, with the whole device to itself
+        t1 = time.time()
+        seh, sel, amps, _ = snapshot_nudft_inputs(
+            sim.inst, sim.sky, *(a[0] for a in sched), sim.beam_fn)
+        coherent = float(amps.double().abs().sum(dim=0).max())
+        direct0 = direct_visibilities(seh, sel, sim.inst, amps,
+                                      sim.src_block).cpu().numpy()
+        del seh, sel, amps
+        _phase(verbose, "NUFFT gate: direct snapshot 0", t1)
+    if verbose:
+        print("[prisim_tpu_torch] delay-space NUFFT, %s spread: %d bl x %d "
+              "ch, rank %d%s" % (spread, sim.inst.nbl, freqs.size, rank,
+                                 ", on a %s mesh of %s" % (
+                                     mesh.shape, ", ".join(
+                                         str(d) for d in mesh.devices.flat))
+                                 if mesh is not None else ""))
+    t1 = time.time()
+    if mesh is not None:
+        from .parallel.mesh import simulate_drift_nufft_sharded
+        vis = simulate_drift_nufft_sharded(sim.inst, sim.sky, sim.obs,
+                                           sim.beam_fn, mesh, rank=rank)
+    else:
+        pinvQ, Q = chebyshev_projection(freqs, rank)
+        vis = torch.stack([simulate_snapshot_nufft_jit(
+            sim.inst, sim.sky, *(a[t] for a in sched), sim.beam_fn, pinvQ,
+            Q, spread=spread) for t in range(sim.obs.n_acc)])
+    _phase(verbose, "NUFFT snapshots", t1)
+    if not gate:
+        return vis
+    tol = float(proc.get("nufft_crosscheck_tol") or 1e-4)
+    fast0 = vis[0].cpu().numpy()
+    dump = os.environ.get("PRISIM_DEBUG_XCHECK_DUMP")
+    if dump:
+        np.savez(dump, fast0=fast0, direct0=direct0,
+                 Mh0=sched[0][0].cpu().numpy(), Ml0=sched[1][0].cpu().numpy(),
+                 pch0=sched[2][0].cpu().numpy(),
+                 pcl0=sched[3][0].cpu().numpy(), freqs=freqs,
+                 bl=np.asarray(sim.bls.vectors), rank=rank, csA0=coherent)
+    dmax = float(np.abs(fast0 - direct0).max())
+    vmax = float(np.abs(direct0).max())
+    rel = dmax / max(vmax, 1e-30)
+    norms = ("max|dV|/max|V| = %.2e, max|dV|/max_c sum_s|A| = %.2e"
+             % (rel, dmax / max(coherent, 1e-30)))
+    if rel > tol:
+        raise _demote(parms, "NUFFT engine cross-check FAILED (%s; rel=%.2e"
+                      " > %.0e)" % (norms, rel, tol))
+    if verbose:
+        print("[prisim_tpu_torch] NUFFT/direct cross-check ok (%s)" % norms)
+    return vis
+
+
 def _simulate_direct_mesh(parms, sim, verbose, mesh):
     """All accumulations on the direct engine over `mesh` (prisim_tpu/
     driver.py:1567-1597): K1a on every CUDA shard, its plain version on
@@ -1394,16 +1477,16 @@ def _mesh(parms, devs, engine):
     """The device mesh of a plain run on `devs`, or None on one device or
     with pp.key: none. The banded engine rides the 'bl' axis, (n, 1),
     whatever the key (each shard FFTs the full band); the direct engine
-    takes pp.key's: src (1, 1, n) over ("bl", "chan", "src"), freq (1, n)
-    and any other key (n, 1) over ("bl", "chan"), pp.mesh_axes overriding
-    the shape."""
+    and the sorted spread take pp.key's: src (1, 1, n) over ("bl", "chan",
+    "src"), freq (1, n) and any other key (n, 1) over ("bl", "chan"),
+    pp.mesh_axes overriding the shape."""
     from .parallel.mesh import make_mesh
     pp = parms.get("pp") or {}
     key = (pp.get("key") or "freq").lower()
     n = len(devs)
     if n < 2 or key == "none":
         return None
-    if engine == "nufft":
+    if engine == "nufft" and _nufft_spread(parms) not in _SORTED:
         return make_mesh((n, 1), ("bl", "chan"), devs)
     axes = pp.get("mesh_axes")
     if key == "src":

@@ -19,7 +19,7 @@ import torch
 
 from .. import constants as CNST
 
-__all__ = ["thermal_noise_rms", "generate_noise"]
+__all__ = ["thermal_noise_rms", "generate_noise", "tsys_model"]
 
 
 def thermal_noise_rms(A_eff, df, dt, Tsys, nbl=1, nchan=1, ntimes=1,
@@ -51,3 +51,15 @@ def generate_noise(generator, noise_rms):
     im = torch.randn(rms.shape, generator=generator, dtype=torch.float32,
                      device=dev)
     return torch.complex(scale * re, scale * im)
+
+
+def tsys_model(Trx, Tant_T0, Tant_f0, Tant_spindex, freqs, Tnet=None):
+    """Tsys(nu) = Trx + T0 (nu/f0)^spindex, or the Tnet override broadcast
+    to freqs' shape (the reference PRISim's interferometry.py system
+    temperature): a tensor on the device of `freqs` (a host array becomes a
+    CPU tensor)."""
+    freqs = torch.as_tensor(freqs)
+    if Tnet is not None:
+        return torch.as_tensor(Tnet, dtype=freqs.dtype,
+                               device=freqs.device).broadcast_to(freqs.shape)
+    return Trx + Tant_T0 * (freqs / Tant_f0) ** Tant_spindex

@@ -45,10 +45,12 @@ from .. import healpix as hp
 from .. import twofloat as tf
 from .nufft_delay import (chebyshev_node_model, kb_fourier, kb_tap_coeffs,
                           spectral_project)
-from .observe import _beam_and_flux, df_rotate3, direct_visibilities
+from .observe import (_beam_and_flux, df_rotate3, direct_visibilities,
+                      snapshot_nudft_inputs)
 
-__all__ = ["make_banded_plan", "BandedPlan", "PlanRejected",
-           "group_directions",
+__all__ = ["banded_spread_available", "make_banded_plan", "BandedPlan",
+           "PlanRejected", "group_directions", "nufft_banded_visibilities",
+           "simulate_snapshot_nufft_banded",
            "spatial_permutation", "reorder_sources", "banded_spread_plain",
            "banded_worklist_plain", "banded_pair_count", "K2_ROWS",
            "K2_TILE",
@@ -504,6 +506,43 @@ def _post(plan, out, Qc):
             V = torch.where(plan.tensor("conj", dev)[:, None],
                             V.conj().resolve_conj(), V)
     return V
+
+
+def banded_spread_available():
+    """True when kernel K2 can run here: a CUDA card is visible and the K2
+    library is built (building it at the first call; a failed build
+    raises)."""
+    if not torch.cuda.is_available():
+        return False
+    from .cuda_banded import _library
+    return _library() is not None
+
+
+def nufft_banded_visibilities(plan, seh, sel, P, Qc, interpret=False):
+    """The banded NUFFT of one source set: _prep, the spread (K2 for CUDA
+    tensors, its plain version for CPU tensors) and _post.
+
+    seh/sel (S, 3) float32 two-float phase-centred source vectors; P (S, r)
+    spectral coefficients (amps @ pinvQ); Qc (C, r) basis. Returns ((B, C)
+    complex64, ok 0-d bool tensor); ok False: a source vector was not unit
+    (its bins could leave the static rows), and the caller must fall back.
+    `interpret` is kept for the reference's signature: the device picks
+    the kernel or its plain version."""
+    u_h, u_l, P_r, ok = _prep(plan, seh.contiguous(), sel.contiguous(), P)
+    out = _spread(plan, u_h, u_l, P_r)
+    return _post(plan, out, Qc).to(torch.complex64), ok
+
+
+def simulate_snapshot_nufft_banded(instrument, sky, Mh, Ml, pch, pcl,
+                                   beam_fn, plan, pinvQ, Q, interpret=False):
+    """One accumulation through the banded engine with the full-channel
+    projection (P = spectral_project(beam x flux, pinvQ)), as the
+    reference's entry of the same name. Returns ((B, C) complex64, ok);
+    `interpret` as in nufft_banded_visibilities."""
+    seh, sel, amps, _ = snapshot_nudft_inputs(instrument, sky, Mh, Ml, pch,
+                                              pcl, beam_fn)
+    P = spectral_project(amps, torch.as_tensor(pinvQ, device=seh.device))
+    return nufft_banded_visibilities(plan, seh, sel, P, Q)
 
 
 # --------------------------------------------------------------------------

@@ -27,7 +27,8 @@ from .cuda_nudft import nudft_cuda
 from .nudft import freq_grid_scalars, nudft_visibilities
 
 __all__ = ["Instrument", "Observation", "SkySources", "enu_rotation_from_eq",
-           "df_rotate3", "snapshot_nudft_inputs", "direct_visibilities",
+           "df_rotate3", "rotated_sources", "snapshot_nudft_inputs",
+           "direct_visibilities",
            "simulate_snapshot",
            "simulate_drift_rotations", "simulate_drift", "schedule_tensors"]
 
@@ -195,19 +196,33 @@ def _beam_and_flux(s_enu_hi, flux, freqs_f32, beam_fn, pc=None):
     return torch.where(above, pb * flux, torch.zeros_like(flux))
 
 
-def snapshot_nudft_inputs(instrument, sky, Mh, Ml, pch, pcl, beam_fn):
-    """(seh, sel, amps, sh) of one accumulation: the rotated effective
-    direction cosines s - pc (two-float), the beam-weighted fluxes and the
-    rotated sky directions s (the hi part, which the gradient moments and
-    the gaussian weights take). Mh/Ml (3, 3) and pch/pcl (3,) are float32
-    tensors on the device."""
-    sh, sl = df_rotate3(Mh, Ml, sky.s_eq_hi, sky.s_eq_lo)
+def rotated_sources(Mh, Ml, pch, pcl, s_eq_hi, s_eq_lo, flux, freqs_f32,
+                    beam_fn, above_horizon=False):
+    """(seh, sel, amps, sh) of sources s_eq_hi/s_eq_lo (S, 3) with spectra
+    flux (S, C) at freqs_f32 (C,) in one accumulation: the rotated
+    effective direction cosines s - pc (two-float), the beam-weighted
+    fluxes and the rotated sky directions s (the hi part, which the
+    gradient moments and the gaussian weights take). Mh/Ml (3, 3) and
+    pch/pcl (3,) are float32 tensors on the device. With `above_horizon`
+    only the sources above the horizon are kept, before the beam is
+    evaluated (the others' rows would be zero)."""
+    sh, sl = df_rotate3(Mh, Ml, s_eq_hi, s_eq_lo)
+    if above_horizon:
+        up = torch.nonzero(sh[:, 2] > 0.0).reshape(-1)
+        sh, sl, flux = sh[up], sl[up], flux[up]
     seh, sel = tf.df_add(sh, sl, -pch[None, :], -pcl[None, :])
+    return seh, sel, _beam_and_flux(sh, flux, freqs_f32, beam_fn, pc=pch), sh
+
+
+def snapshot_nudft_inputs(instrument, sky, Mh, Ml, pch, pcl, beam_fn,
+                          above_horizon=False):
+    """rotated_sources of `sky` on `instrument`'s channels, each tensor
+    contiguous."""
     freqs_f32 = torch.as_tensor(instrument.freqs, dtype=torch.float32,
-                                device=sh.device)
-    amps = _beam_and_flux(sh, sky.flux, freqs_f32, beam_fn, pc=pch)
-    return (seh.contiguous(), sel.contiguous(), amps.contiguous(),
-            sh.contiguous())
+                                device=sky.flux.device)
+    return tuple(t.contiguous() for t in rotated_sources(
+        Mh, Ml, pch, pcl, sky.s_eq_hi, sky.s_eq_lo, sky.flux, freqs_f32,
+        beam_fn, above_horizon=above_horizon))
 
 
 def direct_visibilities(seh, sel, instrument, amps, src_block=512,

@@ -118,6 +118,27 @@ _WGS84_A = 6378137.0
 _WGS84_F = 1.0 / 298.257223563
 
 
+def spherematch_host(lon1, lat1, lon2, lat2, matchrad_deg):
+    """Host-side cone match: indices of (lon2, lat2) within matchrad of any
+    (lon1, lat1) point. Replaces astroutils GEOM.spherematch as used for the
+    per-snapshot ROI source cut (PRISim's run_prisim.py).
+
+    Returns (idx1, idx2, dist_deg) like the reference's maxmatches=0 mode.
+    """
+    lon1 = np.atleast_1d(np.asarray(lon1, dtype=np.float64))
+    lat1 = np.atleast_1d(np.asarray(lat1, dtype=np.float64))
+    lon2 = np.asarray(lon2, dtype=np.float64)
+    lat2 = np.asarray(lat2, dtype=np.float64)
+    v1 = altaz2dircos(np.stack([lat1, lon1], axis=-1), xp=np)  # reuse math:
+    # note altaz2dircos(lat, lon) gives unit vectors for any spherical frame.
+    v2 = altaz2dircos(np.stack([lat2, lon2], axis=-1), xp=np)
+    cosr = np.cos(np.radians(matchrad_deg))
+    dots = v1 @ v2.T  # (N1, N2)
+    i1, i2 = np.where(dots >= cosr)
+    d = np.degrees(np.arccos(np.clip(dots[i1, i2], -1.0, 1.0)))
+    return i1, i2, d
+
+
 def lla2ecef(lat_deg, lon_deg, alt_m=0.0):
     """Geodetic lat/lon/alt -> ECEF XYZ meters (WGS84). Host numpy."""
     lat = np.radians(np.asarray(lat_deg, dtype=np.float64))

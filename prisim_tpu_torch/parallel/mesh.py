@@ -15,21 +15,25 @@ rank-aware IO that the reference does not have).
   * src shards -> partial visibilities of each source block, summed in a
     fixed shard order on the device of the block's first shard (JAX's
     psum over 'src');
+  * the NUFFT with the sorted spread takes the same bl/chan/src shards:
+    a chan shard spreads its own sub-band (the carrier offset by chan0
+    dnu tau cycles) with its own Chebyshev basis;
   * the banded engine shards over 'bl' only: one collapse=False plan over
     the padded baselines, whose per-baseline tables each shard slices, so
     that every shard has the gate's G, R_max and FFT length.
 
 Every shard's launches of a snapshot are issued before any result is read
 back: on a host with several cards a read inside one shard would hold the
-others. On a CUDA shard the kernels run (K1a, K2), on a CPU shard their
-plain versions. A device may appear more than once in a mesh: that is how a
-multi-shard mesh is built on the CPU (torch has one CPU device) or on a
+others. On a CUDA shard the kernels run (K1a, K2, delay_spread), on a CPU
+shard their plain versions. A device may appear more than once in a mesh:
+that is how a multi-shard mesh is built on the CPU (torch has one CPU device) or on a
 one-card host, where the shards run one after another.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -37,7 +41,7 @@ import torch
 from .. import twofloat as tf
 from ..engine.cuda_nudft import nudft_cuda
 from ..engine.nudft import nudft_visibilities
-from ..engine.observe import _beam_and_flux, df_rotate3, schedule_tensors
+from ..engine.observe import rotated_sources, schedule_tensors
 
 __all__ = ["make_mesh", "pad_to_multiple", "simulate_drift_sharded",
            "simulate_drift_src_sharded", "simulate_drift_nufft_sharded",
@@ -145,8 +149,14 @@ def _zero_pad(t, rows, cols=0):
         else t
 
 
-def _sharded_drift(mesh, instrument, sky, observation, beam_fn, src_block,
-                   src_axis):
+def _sharded_drift(mesh, instrument, sky, observation, beam_fn, shard_fn,
+                   src_axis, edge_channels=False):
+    """The drift scan on `mesh`: pads and slices the inputs, runs
+    shard_fn(x, sched_t) for every shard and accumulation (x the shard's
+    inputs: blh/bll, seqh/seql, flux, freqs, chan0; sched_t its device's
+    (Mh, Ml, pch, pcl) of the accumulation) and assembles the (T, B, C)
+    complex64 result on the mesh's first device. Padded channels carry
+    zero flux, or with `edge_channels` the last channel's."""
     axis_sizes = mesh.shape
     has_src = src_axis and "src" in axis_sizes
     if src_axis and not has_src:
@@ -159,7 +169,8 @@ def _sharded_drift(mesh, instrument, sky, observation, beam_fn, src_block,
     n_src = axis_sizes.get("src", 1) if has_src else 1
 
     # Padding to divisible sizes, on the sky's device: zero baseline rows
-    # (trimmed), zero flux on padded channels and on padded sources.
+    # (trimmed), zero flux on padded sources and on padded channels (or
+    # the edge channel's, trimmed).
     nchan, nbl = instrument.nchan, instrument.nbl
     S = int(sky.s_eq_hi.shape[0])
     B_pad = -(-nbl // n_bl) * n_bl
@@ -169,12 +180,15 @@ def _sharded_drift(mesh, instrument, sky, observation, beam_fn, src_block,
     bll = _zero_pad(instrument.bl_lo, B_pad - nbl)
     seqh = _zero_pad(sky.s_eq_hi, S_pad - S)
     seql = _zero_pad(sky.s_eq_lo, S_pad - S)
-    flux = _zero_pad(sky.flux, S_pad - S, nchan_pad - nchan)
+    flux = sky.flux
+    if edge_channels and nchan_pad != nchan:
+        flux = torch.cat([flux, flux[:, -1:].expand(-1, nchan_pad - nchan)],
+                         dim=1)
+    flux = _zero_pad(flux, S_pad - S, nchan_pad - flux.shape[1])
     freqs = np.concatenate([instrument.freqs, instrument.nu0 + instrument.dnu
                             * np.arange(nchan, nchan_pad)])
 
     nb, nc, ns = B_pad // n_bl, nchan_pad // n_ch, S_pad // n_src
-    gs = instrument.grid_scalars()
     shards = _shards(mesh, ("bl", "chan", "src") if has_src
                      else ("bl", "chan"))
     inputs = {}
@@ -192,25 +206,13 @@ def _sharded_drift(mesh, instrument, sky, observation, beam_fn, src_block,
             sched[dev] = schedule_tensors(observation, instrument.latitude,
                                           dev)
 
-    def shard_vis(t, x, dev):
-        Mh, Ml, pch, pcl = (a[t] for a in sched[dev])
-        sh, sl = df_rotate3(Mh, Ml, x["seqh"], x["seql"])
-        seh, sel = tf.df_add(sh, sl, -pch[None, :], -pcl[None, :])
-        amps = _beam_and_flux(sh, x["flux"], x["freqs"], beam_fn, pc=pch)
-        args = (seh.contiguous(), sel.contiguous(), x["blh"], x["bll"],
-                amps.contiguous(), gs, nc)
-        if dev.type == "cuda":
-            return nudft_cuda(*args, chan0=x["chan0"])
-        return nudft_visibilities(*args, chan0=x["chan0"],
-                                  src_block=src_block)
-
     first = mesh.first
     T = observation.n_acc
     out = torch.empty((T, n_bl * nb, nchan_pad), dtype=torch.complex64,
                       device=first)
     for t in range(T):
         # every shard's launches first, then the reads
-        parts = {key: shard_vis(t, inputs[key], dev)
+        parts = {key: shard_fn(inputs[key], tuple(a[t] for a in sched[dev]))
                  for key, dev in shards.items()}
         for i in range(n_bl):
             for j in range(n_ch):
@@ -222,14 +224,67 @@ def _sharded_drift(mesh, instrument, sky, observation, beam_fn, src_block,
     return out[:, :nbl, :nchan]
 
 
+def _nudft_shard(instrument, beam_fn, src_block):
+    """shard_fn of the direct engine: K1a on a CUDA shard, its plain
+    version (in blocks of src_block sources) on a CPU shard, each shard on
+    its own channel sub-grid (chan0)."""
+    gs = instrument.grid_scalars()
+
+    def shard_vis(x, sched_t):
+        seh, sel, amps, _ = rotated_sources(*sched_t, x["seqh"], x["seql"],
+                                            x["flux"], x["freqs"], beam_fn)
+        args = (seh.contiguous(), sel.contiguous(), x["blh"], x["bll"],
+                amps.contiguous(), gs, x["freqs"].shape[0])
+        if seh.is_cuda:
+            return nudft_cuda(*args, chan0=x["chan0"])
+        return nudft_visibilities(*args, chan0=x["chan0"],
+                                  src_block=src_block)
+
+    return shard_vis
+
+
+def _nufft_drift_core(x, sched_t, *, nu0, dnu, rank, K, beta, has_chan,
+                      beam_fn):
+    """One shard's accumulation of the NUFFT drift scan (sorted spread,
+    kernel delay_spread on a card): the shard's baselines and sources on
+    its own sub-band, whose Chebyshev basis it fits (chebyshev_basis_jit,
+    kept in x), with the carrier offset by chan0 dnu tau cycles for a
+    'chan' shard; the shard's sources below the horizon are left out
+    before the beam. Returns (B_shard, C_shard) complex64."""
+    from ..engine.nufft_delay import (_nufft_snapshot, chebyshev_basis_jit,
+                                      spectral_project)
+    if "basis" not in x:
+        x["basis"] = chebyshev_basis_jit(x["freqs"], rank)
+    pinvQ, Qb = x["basis"]
+    seh, sel, amps, _ = rotated_sources(*sched_t, x["seqh"], x["seql"],
+                                        x["flux"], x["freqs"], beam_fn,
+                                        above_horizon=True)
+    P = spectral_project(amps, pinvQ)
+    del amps
+    return _nufft_snapshot(seh, sel, P, x["blh"], x["bll"], Qb, nu0, dnu,
+                           x["freqs"].shape[0], beta=beta, K=K,
+                           chan0=x["chan0"] if has_chan else None)
+
+
 def simulate_drift_nufft_sharded(instrument, sky, observation, beam_fn,
                                  mesh, rank=16, K=13, beta=2.0):
-    """The sorted-spread NUFFT on a mesh: not ported (the port has the
-    banded spread, simulate_drift_banded_sharded)."""
-    raise NotImplementedError(
-        "simulate_drift_nufft_sharded runs the sorted spread "
-        "(processing.nufft_spread: sorted), which the port does not have; "
-        "use simulate_drift_banded_sharded (the banded spread over 'bl')")
+    """Drift scan through the NUFFT engine with the sorted spread, sharded
+    over ('bl', 'chan'[, 'src']) like the direct engine: 'bl' shards take
+    their baselines, 'chan' shards their sub-band (chan0, with the padded
+    channels edge-replicated so that the last shard's spectral fit stays
+    smooth), 'src' partials are summed in shard order. Each shard fits its
+    own sub-band's basis at rank min(rank, its channels). Returns (T, B, C)
+    complex64 on the mesh's first device."""
+    axis_sizes = mesh.shape
+    n_ch = axis_sizes.get("chan", 1)
+    nchan_local = -(-instrument.nchan // n_ch)
+    core = functools.partial(
+        _nufft_drift_core, nu0=instrument.nu0, dnu=instrument.dnu,
+        rank=min(int(rank), nchan_local), K=K, beta=beta,
+        has_chan="chan" in axis_sizes, beam_fn=beam_fn)
+    return _sharded_drift(mesh, instrument, sky, observation, beam_fn, core,
+                          src_axis="src" in axis_sizes and
+                          axis_sizes["src"] > 1, edge_channels=True)
 
 
 def _shard_plan(plan, rows):
@@ -270,7 +325,8 @@ def simulate_drift_banded_sharded(instrument, sky, observation, beam_fn,
     if any(v > 1 for k, v in axis_sizes.items() if k != "bl"):
         raise ValueError("banded sharding supports only the 'bl' mesh "
                          "axis (the spread needs the full band per "
-                         "shard); the sorted spread is not ported")
+                         "shard); chan and src meshes take the sorted "
+                         "spread, simulate_drift_nufft_sharded")
 
     nchan = instrument.nchan
     # rank approaching nchan makes the Chebyshev basis ill-conditioned;
@@ -332,7 +388,8 @@ def simulate_drift_sharded(instrument, sky, observation, beam_fn, mesh,
     `src_block` sources): the device picks, and use_pallas/interpret are
     kept for the reference's signature."""
     return _sharded_drift(mesh, instrument, sky, observation, beam_fn,
-                          src_block, src_axis=False)
+                          _nudft_shard(instrument, beam_fn, src_block),
+                          src_axis=False)
 
 
 def simulate_drift_src_sharded(instrument, sky, observation, beam_fn, mesh,
@@ -342,4 +399,5 @@ def simulate_drift_src_sharded(instrument, sky, observation, beam_fn, mesh,
     visibilities summed in shard order on each block's first device: the
     reference's pp.key='src' mode with its rank-0 recv-sum."""
     return _sharded_drift(mesh, instrument, sky, observation, beam_fn,
-                          src_block, src_axis=True)
+                          _nudft_shard(instrument, beam_fn, src_block),
+                          src_axis=True)

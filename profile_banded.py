@@ -4,6 +4,7 @@
     python3 profile_banded.py --phase-clocks
     python3 profile_banded.py --k1-anchors
     python3 profile_banded.py --k1-shapes
+    python3 profile_banded.py --sorted
 
 Runs chip_smoke.py's banded slice (HERA-37, 1024 channels, nside-64 sky,
 4 accumulations, engine: auto, products saved) three times: a warm-up, an
@@ -16,6 +17,10 @@ Only device events (kernels, copies, fills) are counted. key_averages()
 also lists every kernel under the aten op that launched it, so summing
 its self device times counts a kernel twice. The busy time is the union
 of the device events' intervals, and the idle share is 1 - busy / wall.
+
+With --sorted it does the same for the sorted route (processing.engine:
+nufft, nufft_spread: sorted; kernel delay_spread): the slice run, saved
+as NPZ, and one north-star snapshot of simulate_snapshot_nufft_jit.
 
 With --phase-clocks the kernels are built with PRISIM_PHASE_CLOCKS (a
 library of their own): thread 0 of every block of K2 and of the NUDFT
@@ -356,6 +361,51 @@ def k1_shapes(cs, cuda):
     return 0
 
 
+def sorted_route(cs, cuda):
+    """The sorted route's slice run and one north-star snapshot, each
+    after a warm-up, unprofiled and under torch.profiler."""
+    from prisim_tpu_torch.driver import prepare_simulation, run_simulation
+    from prisim_tpu_torch.engine import nufft_delay as nd
+    from prisim_tpu_torch.engine.observe import schedule_tensors
+    proc = {"nufft_spread": "sorted"}
+    parms = cs.slice_parms(_root(), False, "nufft", "sorted",
+                           processing=proc,
+                           save_formats={"fmt": "none", "npz": True})
+
+    def slice_run(verbose):
+        return run_simulation(parms, verbose=verbose, save=True, device=cuda)
+
+    slice_run(False)
+    _, wall = timed(lambda: slice_run(True))
+    print("sorted slice: wall %.4f s unprofiled" % wall)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall = timed(lambda: slice_run(True))
+    device_report("sorted slice, profiled", prof, wall)
+
+    ns = cs.northstar_parms(processing=dict(proc, engine="nufft"))
+    sim = prepare_simulation(ns, cuda)
+    Mh, Ml, pch, pcl = (x[0] for x in schedule_tensors(
+        sim.obs, sim.inst.latitude, cuda))
+    pinvQ, Q = nd.chebyshev_projection(sim.freqs, cs.SORTED_RANK)
+
+    def snap():
+        return nd.simulate_snapshot_nufft_jit(sim.inst, sim.sky, Mh, Ml, pch,
+                                              pcl, sim.beam_fn, pinvQ, Q)
+
+    torch.cuda.reset_peak_memory_stats()
+    timed(snap)
+    _, wall = timed(snap)
+    print("north-star sorted snapshot: wall %.4f s unprofiled" % wall)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall = timed(snap)
+    device_report("north-star sorted snapshot, profiled", prof, wall)
+    print("peak device memory %.4f GB"
+          % (torch.cuda.max_memory_allocated() / 1e9))
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("profile_banded: no CUDA card", file=sys.stderr)
@@ -365,6 +415,8 @@ def main():
         return k1_anchors(cs, torch.device("cuda", 0))
     if "--k1-shapes" in sys.argv[1:]:
         return k1_shapes(cs, torch.device("cuda", 0))
+    if "--sorted" in sys.argv[1:]:
+        return sorted_route(cs, torch.device("cuda", 0))
     if "--phase-clocks" in sys.argv[1:]:
         os.environ["PRISIM_KERNEL_DEFINES"] = "PRISIM_PHASE_CLOCKS"
         return phase_clocks(cs, torch.device("cuda", 0))

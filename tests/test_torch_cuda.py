@@ -1,7 +1,7 @@
-"""Kernels K1a, K1b, K1c and K2 on the card against their plain PyTorch
-versions (and the NUDFT kernels against the f64 golden). Every test here
-needs a CUDA card and skips without one; run them on the card, from the
-repo root, with
+"""Kernels K1a, K1b, K1c, K2 and delay_spread on the card against their
+plain PyTorch versions (and the NUDFT kernels against the f64 golden).
+Every test here needs a CUDA card and skips without one; run them on the
+card, from the repo root, with
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu \
         tests/test_torch_cuda.py
@@ -676,3 +676,37 @@ def test_subband_delay_transform_card_matches_cpu(cuda):
     for key in ("skyvis_lag", "lag_kernel", "skyvis_lag_resampled"):
         scale = np.abs(a[key.replace("_resampled", "")]).max()
         assert np.abs(b[key] - a[key]).max() / scale < 1e-6, key
+
+
+# delay_spread vs its plain version, max|d grid| / max|grid|: both sum in
+# float64, atomics only change the order
+SPREAD_BAR = 1e-12
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,B,C,r,per_bl,span,chan0", [
+    (700, 12, 256, 1, True, 1e-6, 0),      # per-baseline amplitudes
+    (1000, 8, 64, 16, False, 3e-5, 3),     # several 1/dnu periods, chan0
+    (5000, 30, 1024, 32, False, 5e-8, 0),  # crowded bins (a short baseline)
+    (3000, 10, 128, 40, False, 1e-6, 0),   # two rank groups
+    (2500, 4, 16, 7, False, 2e-9, 0),      # every source in a few bins
+])
+def test_delay_spread_matches_plain(cuda, S, B, C, r, per_bl, span, chan0):
+    from prisim_tpu_torch.engine.cuda_spread import (delay_spread_cuda,
+                                                     delay_spread_plain)
+    rng = np.random.RandomState(S + B + r)
+    th, tl = (torch.as_tensor(a, device=cuda) for a in
+              tf.split_f64(rng.uniform(-span, span, (S, B))))
+    P = rng.uniform(-1, 1, (B, S, r) if per_bl else (S, r))
+    P[..., rng.rand(S) < 0.3, :] = 0.0         # sources below the horizon
+    P = torch.as_tensor(P, device=cuda)
+    args = (th, tl, P, 150e6, 97656.25, C)
+    n0 = delay_spread_cuda.launches
+    got = delay_spread_cuda(*args, chan0=chan0)
+    want = delay_spread_plain(*args, chan0=chan0)
+    torch.cuda.synchronize()
+    assert delay_spread_cuda.launches == n0 + 1
+    assert got.shape == want.shape == (B, 2 * C, r)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= SPREAD_BAR * scale
+

@@ -142,20 +142,21 @@ def test_delay_transform_matches_jax(runs):
 
 
 @pytest.mark.parametrize("over", [
-    {"processing.engine": "nufft", "processing.nufft_spread": "sorted"},
+    {"processing.engine": "nufft", "processing.nufft_spread": "bogus"},
     {"pp.mesh_axes": ["bl"]},
 ])
 def test_unported_branches_raise_before_compute(tmp_path, monkeypatch,
                                                 over):
-    """The sorted spread is not ported (NotImplementedError); pp.mesh_axes
-    is (tests/test_torch_mesh.py), and one that does not fit the run's
-    devices (here one axis for one CPU device) raises ValueError."""
+    """An unknown processing.nufft_spread, and a pp.mesh_axes that does not
+    fit the run's devices (here one axis for one CPU device), raise
+    ValueError before any compute (the sorted spread is ported:
+    tests/test_torch_nufft_delay.py)."""
     def no_compute(*a, **k):
         raise AssertionError("compute reached")
     monkeypatch.setattr(drv_t, "simulate_drift", no_compute)
-    exc, match = ((ValueError, "mesh_axes") if "pp.mesh_axes" in over
-                  else (NotImplementedError, "ROADMAP"))
-    with pytest.raises(exc, match=match):
+    monkeypatch.setattr(drv_t, "prepare_simulation", no_compute)
+    match = "mesh_axes" if "pp.mesh_axes" in over else "nufft_spread"
+    with pytest.raises(ValueError, match=match):
         drv_t.run_simulation(_parms(tmp_path, **over), verbose=False,
                              device="cpu")
 

@@ -1,22 +1,27 @@
 """The port's copies of the JAX package's numpy host modules (healpix,
-layouts, baselines, ephemeris, skymodel, gains, the catalog helpers, the
-window helpers, vis.conjugate/concatenate, aperture_synthesis and the
-analysis modules cosmology, closure, power_spectrum and bispectrum) give
-the reference's
-results: each case runs one function of both
-packages on the same seeded numpy inputs and expects equal outputs, field
-for field (the classes differ, the contents may not)."""
+layouts, baselines, ephemeris, skymodel, gains, the catalog helpers and
+readers, geometry.spherematch_host, the window helpers,
+vis.conjugate/concatenate, aperture_synthesis, the numpy pieces of
+engine/nufft_delay and the analysis modules cosmology, closure,
+power_spectrum and bispectrum) give the reference's results: each case
+runs one function of both packages on the same seeded numpy inputs and
+expects equal outputs, field for field (the classes differ, the contents
+may not). engine/noise.tsys_model, torch in the port, is held to float64
+rounding."""
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
+import torch
 
 from prisim_tpu import aperture_synthesis as ap_j
 from prisim_tpu import baselines as bl_j
 from prisim_tpu import catalogs as cat_j
 from prisim_tpu import ephemeris as eph_j
 from prisim_tpu import gains as gn_j
+from prisim_tpu import geometry as geom_j
 from prisim_tpu import healpix as hp_j
 from prisim_tpu import layouts as lay_j
 from prisim_tpu import skymodel as sm_j
@@ -26,11 +31,14 @@ from prisim_tpu.analysis import bispectrum as bsp_j
 from prisim_tpu.analysis import closure as cl_j
 from prisim_tpu.analysis import cosmology as cos_j
 from prisim_tpu.analysis import power_spectrum as ps_j
+from prisim_tpu.engine import noise as noise_j
+from prisim_tpu.engine import nufft_delay as nd_j
 from prisim_tpu_torch import aperture_synthesis as ap_t
 from prisim_tpu_torch import baselines as bl_t
 from prisim_tpu_torch import catalogs as cat_t
 from prisim_tpu_torch import ephemeris as eph_t
 from prisim_tpu_torch import gains as gn_t
+from prisim_tpu_torch import geometry as geom_t
 from prisim_tpu_torch import healpix as hp_t
 from prisim_tpu_torch import layouts as lay_t
 from prisim_tpu_torch import skymodel as sm_t
@@ -40,6 +48,8 @@ from prisim_tpu_torch.analysis import bispectrum as bsp_t
 from prisim_tpu_torch.analysis import closure as cl_t
 from prisim_tpu_torch.analysis import cosmology as cos_t
 from prisim_tpu_torch.analysis import power_spectrum as ps_t
+from prisim_tpu_torch.engine import noise as noise_t
+from prisim_tpu_torch.engine import nufft_delay as nd_t
 
 
 def assert_same(a, b, where="result"):
@@ -145,6 +155,55 @@ def _catalogs(cat_sm, rng):
                                 cut_freq=120e6),
             cat.flux_cut(sm.random_point_source_model(100, seed=4),
                          flux_min=5.0))
+
+
+def _custom_ascii(cat, rng, tmpdir):
+    """read_custom_ascii on 3-, 4- and 7-column catalogs (RA DEC FLUX
+    [SPINDEX] [MAJ MIN PA]), one of a single row."""
+    out = []
+    for ncol, nrow in ((3, 12), (4, 9), (7, 6), (7, 1)):
+        data = np.column_stack([rng.uniform(0, 360, nrow),
+                                rng.uniform(-80, 20, nrow),
+                                rng.uniform(0.1, 10, nrow),
+                                rng.uniform(-1.2, -0.4, nrow),
+                                rng.uniform(0.01, 0.1, (nrow, 2)),
+                                rng.uniform(0, 180, nrow)])[:, :ncol]
+        path = os.path.join(tmpdir, "custom_%d_%d.txt" % (ncol, nrow))
+        np.savetxt(path, data, header="RA DEC FLUX")
+        out.append(cat.read_custom_ascii(path))
+        out.append(cat.read_custom_ascii(path, freq_ref=120e6,
+                                         spindex_default=-0.7))
+    return out
+
+
+def _spherematch(geom, rng):
+    lon1, lat1 = rng.uniform(0, 360, 20), rng.uniform(-90, 90, 20)
+    lon2, lat2 = rng.uniform(0, 360, 300), rng.uniform(-90, 90, 300)
+    return (geom.spherematch_host(lon1, lat1, lon2, lat2, 10.0),
+            geom.spherematch_host(lon1[0], lat1[0], lon2, lat2, 25.0),
+            geom.spherematch_host(lon1, lat1, lon1, lat1, 0.0))
+
+
+def _nufft_delay(nd, rng):
+    """The numpy pieces of engine/nufft_delay: the float64 reference, the
+    spectral reference in both bases, the gather window's sizing and the
+    two-float split."""
+    S, B, C = 120, 4, 64
+    nu0, dnu = 100e6, 781250.0
+    freqs = nu0 + dnu * np.arange(C)
+    tau = rng.uniform(-6e-7, 6e-7, (S, B))
+    A = rng.uniform(0.1, 10.0, S)[:, None] \
+        * (freqs[None, :] / 150e6) ** rng.uniform(-2.5, 0.0, S)[:, None]
+    clustered = np.concatenate([tau[:S // 2], rng.uniform(0, 2e-9,
+                                                          (S // 2, B))])
+    return (nd.nufft_delay_visibilities(tau, A[:, 0], nu0, dnu, C),
+            nd.nufft_delay_visibilities(tau, A[:, :B], nu0, dnu, C, K=9),
+            nd.nufft_delay_visibilities_spectral(tau, A, nu0, dnu, C, rank=8),
+            nd.nufft_delay_visibilities_spectral(tau, A, nu0, dnu, C, rank=8,
+                                                 basis="chebyshev"),
+            nd.size_gather_window(clustered, dnu, C),
+            nd.size_gather_window(clustered, dnu, C, K=9, margin=1.5),
+            nd._split_host(nu0 + 0.1))
 
 
 def _windows(win, rng):
@@ -313,7 +372,40 @@ CASES = {
     "skymodel": (_skymodel, sm_j, sm_t),
     "gains": (_gains, gn_j, gn_t),
     "catalogs": (_catalogs, (cat_j, sm_j), (cat_t, sm_t)),
+    "nufft_delay": (_nufft_delay, nd_j, nd_t),
 }
+
+
+def test_custom_ascii_catalog_matches_prisim_tpu(tmp_path):
+    """catalogs.read_custom_ascii (in both packages' __all__) gives the
+    reference's SkyModel on the same files."""
+    assert "read_custom_ascii" in cat_t.__all__
+    want = _custom_ascii(cat_j, np.random.default_rng(7), str(tmp_path))
+    got = _custom_ascii(cat_t, np.random.default_rng(7), str(tmp_path))
+    assert_same(got, want, "read_custom_ascii")
+
+
+def test_spherematch_host_matches_prisim_tpu():
+    want = _spherematch(geom_j, np.random.default_rng(8))
+    got = _spherematch(geom_t, np.random.default_rng(8))
+    assert_same(got, want, "spherematch_host")
+
+
+def test_tsys_model_matches_prisim_tpu():
+    """engine/noise.tsys_model (torch in the port, numpy in the reference
+    with xp=np): the power law to float64 rounding, the Tnet override
+    exactly."""
+    freqs = 100e6 + 1e6 * np.arange(64)
+    got = noise_t.tsys_model(100.0, 350.0, 150e6, -2.55, freqs)
+    want = noise_j.tsys_model(100.0, 350.0, 150e6, -2.55, freqs, xp=np)
+    assert isinstance(got, torch.Tensor) and got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-14)
+    got = noise_t.tsys_model(100.0, 350.0, 150e6, -2.55,
+                             torch.as_tensor(freqs), Tnet=220.0)
+    assert got.shape == (64,)
+    np.testing.assert_array_equal(
+        got.numpy(), noise_j.tsys_model(100.0, 350.0, 150e6, -2.55, freqs,
+                                        Tnet=220.0, xp=np))
 
 
 @pytest.mark.parametrize("name", sorted(CASES))

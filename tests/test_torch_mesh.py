@@ -12,7 +12,11 @@ Tolerances:
   f32 engines), the banded engine 2e-5 as tests/test_parallel.py holds
   JAX's banded mesh against its direct engine;
 - the banded mesh's K2 rows against the unsharded collapse=False plan's:
-  1e-12 of max|rows| (both float64 sums)."""
+  1e-12 of max|rows| (both float64 sums);
+- the NUFFT with the sorted spread on a mesh against the direct engine and
+  JAX's sorted mesh: 2e-5 (tests/test_parallel.py's bar), and against the
+  single-device NUFFT snapshot with a channel count the shards do not
+  divide, 2e-4 (tests/test_round3_fixes.py's bar)."""
 
 import numpy as np
 import pytest
@@ -189,8 +193,63 @@ def test_make_mesh_checks_the_product():
     assert mesh_t.__all__ == mesh_j.__all__
     np.testing.assert_array_equal(mesh_t.pad_to_multiple(np.ones((5, 2)), 4),
                                   mesh_j.pad_to_multiple(np.ones((5, 2)), 4))
-    with pytest.raises(NotImplementedError, match="sorted spread"):
-        mesh_t.simulate_drift_nufft_sharded(None, None, None, None, m)
+    vis = mesh_t.simulate_drift_nufft_sharded(
+        *_problem(PORT, C=16, nsrc=16), m, rank=8)
+    assert vis.shape == (2, 21, 16) and bool(torch.isfinite(vis).all())
+
+
+NUFFT_MESHES = {
+    "bl_8x1": ((8, 1), ("bl", "chan")),
+    "chan_1x8": ((1, 8), ("bl", "chan")),
+    "src_1x1x8": ((1, 1, 8), ("bl", "chan", "src")),
+}
+
+
+@pytest.mark.parametrize("case", sorted(NUFFT_MESHES))
+def test_nufft_mesh_matches_jax_and_direct(case):
+    """simulate_drift_nufft_sharded (the sorted spread's plain version on
+    every CPU shard) over 'bl', 'chan' and 'src' meshes of 8, against the
+    port's direct engine and JAX's sorted mesh on its 8 devices
+    (tests/test_parallel.py:106's problem)."""
+    shape, axes = NUFFT_MESHES[case]
+    pt = _problem(PORT, C=64, nsrc=48)
+    pj = _problem(JAX, C=64, nsrc=48)
+    got = mesh_t.simulate_drift_nufft_sharded(
+        *pt, mesh_t.make_mesh(shape, axes, devices=CPU8), rank=16).numpy()
+    want = np.asarray(mesh_j.simulate_drift_nufft_sharded(
+        *pj, mesh_j.make_mesh(shape, axes), rank=16))
+    ref = simulate_drift(*pt, src_block=64).numpy()
+    scale = np.abs(ref).max()
+    assert got.shape == ref.shape == want.shape == (2, 21, 64)
+    assert np.abs(got - ref).max() / scale < BANDED_BAR
+    assert np.abs(got - want).max() / scale < BANDED_BAR
+
+
+def test_nufft_mesh_nondivisible_channels():
+    """30 channels on a (1, 2) 'chan' mesh: the padded channel is
+    edge-replicated, so the last shard's spectral fit stays clean; against
+    the single-device NUFFT snapshot and JAX's mesh
+    (tests/test_round3_fixes.py:165)."""
+    import jax
+    from prisim_tpu_torch.engine.nufft_delay import (
+        chebyshev_projection, simulate_snapshot_nufft_jit)
+    pt = _problem(PORT, C=30, n_acc=1, nsrc=64)
+    pj = _problem(JAX, C=30, n_acc=1, nsrc=64)
+    inst, sky, obs, beam = pt
+    got = mesh_t.simulate_drift_nufft_sharded(
+        *pt, mesh_t.make_mesh((1, 2), ("bl", "chan"), devices=CPU8[:2]),
+        rank=8).numpy()
+    want = np.asarray(mesh_j.simulate_drift_nufft_sharded(
+        *pj, mesh_j.make_mesh((1, 2), ("bl", "chan"),
+                              devices=jax.devices()[:2]), rank=8))
+    pinvQ, Q = chebyshev_projection(inst.freqs, 8)
+    gold = simulate_snapshot_nufft_jit(
+        inst, sky, *(a[0] for a in schedule_tensors(obs, inst.latitude, CPU)),
+        beam, pinvQ, Q).numpy()
+    scale = np.abs(gold).max()
+    assert got.shape == want.shape == (1, 21, 30)
+    assert np.abs(got[0] - gold).max() / scale < 2e-4
+    assert np.abs(got - want).max() / scale < BANDED_BAR
 
 
 def _parms(load, key, mesh_axes=None, **proc):
@@ -212,6 +271,11 @@ DRIVER_CASES = {
     "src": ("src", None, {}),
     "freq_2x4": ("freq", [2, 4], {}),
     "banded": ("freq", None, {"engine": "nufft", "nufft_spread": "banded"}),
+    "sorted_freq": ("freq", None, {"engine": "nufft",
+                                   "nufft_spread": "sorted"}),
+    "sorted_src": ("src", None, {"engine": "nufft", "nufft_spread": "sorted"}),
+    "sorted_2x4": ("freq", [2, 4], {"engine": "nufft",
+                                    "nufft_spread": "sorted"}),
 }
 
 
@@ -225,20 +289,23 @@ def single_run():
 @pytest.mark.parametrize("case", sorted(DRIVER_CASES))
 def test_driver_mesh_matches_jax_and_key_none(single_run, case, capsys):
     """run_simulation with devices=["cpu"] * 8 takes the mesh of pp.key
-    (and the banded engine its 'bl' mesh behind the mesh gate, which must
-    pass: a demotion prints 'falling back'), against the port's pp.key:
-    none run and JAX's run_simulation on its 8 devices."""
+    (the banded engine its 'bl' mesh behind the mesh gate, the sorted
+    spread pp.key's mesh behind its gate; each gate must pass: a demotion
+    prints 'falling back'), against the port's pp.key: none run and JAX's
+    run_simulation on its 8 devices."""
     key, axes, proc = DRIVER_CASES[case]
     vs, _ = drv_t.run_simulation(_parms(load_parms_t, key, axes, **proc),
                                  verbose=True, save=False, devices=CPU8)
     out = capsys.readouterr().out
     assert "falling back" not in out
-    assert ("'bl' mesh" if case == "banded" else "direct engine on a") in out
+    assert {"banded": "'bl' mesh"}.get(
+        case, "sorted spread" if case.startswith("sorted")
+        else "direct engine on a") in out
     vj, _ = run_j(_parms(load_parms_j, key, axes, **proc), verbose=False,
                   save=False)
     scale = np.abs(single_run).max()
     assert vs.skyvis.shape == single_run.shape == vj.skyvis.shape
-    if case == "banded":
+    if case == "banded" or case.startswith("sorted"):
         assert np.abs(vs.skyvis - single_run).max() / scale < BANDED_BAR
         assert np.abs(vs.skyvis - vj.skyvis).max() / scale < BANDED_BAR
     else:

@@ -2,7 +2,8 @@
 unavailable, as on a card machine that has none of the first three: a
 subprocess blocks the four imports, imports every module of
 prisim_tpu_torch and runs a small simulation to NPZ, with the direct
-engine, with the banded NUFFT engine, as a gradient run, on a DSM FITS
+engine, with the banded NUFFT engine, with the sorted spread, as a
+gradient run, on a DSM FITS
 map that the port itself writes (extended sources), as a phased-array
 track, in sky sectors, with an external FITS beam that the port writes,
 and as a full-polarization run written to UVFITS and read back."""
@@ -34,6 +35,8 @@ SCRIPT = textwrap.dedent("""
     cat = {}
     if mode == "gradient":
         proc["gradient_mode"] = "baseline"
+    if mode == "sorted":
+        proc = {"engine": "nufft", "nufft_spread": "sorted"}
     if mode == "dsm":
         path = root + "/dsm.fits"
         write_dsm_fits(path, np.ones(12 * 4 * 4), -2.55)
@@ -138,6 +141,16 @@ def test_port_runs_banded_engine_without_jax_yaml_h5py(tmp_path):
     gate; agrees with the direct run (truth amps against the f32 beam,
     well inside 1e-4 of max|V|)."""
     sky = _run_blocked(tmp_path / "nufft", "nufft")
+    direct = _run_blocked(tmp_path / "direct", "direct")
+    assert np.abs(sky - direct).max() / np.abs(direct).max() < 1e-4
+
+
+def test_port_runs_sorted_spread_without_jax_yaml_h5py(tmp_path):
+    """engine: nufft with nufft_spread: sorted on the CPU: the plain version
+    of kernel delay_spread behind the gate against the direct engine's
+    snapshot 0; agrees with the direct run well inside the gate's 1e-4 of
+    max|V|."""
+    sky = _run_blocked(tmp_path / "sorted", "sorted")
     direct = _run_blocked(tmp_path / "direct", "direct")
     assert np.abs(sky - direct).max() / np.abs(direct).max() < 1e-4
 
