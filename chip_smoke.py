@@ -194,11 +194,30 @@ o. The sorted route on the mesh: the slice cut to 2 accumulations on
    delay_spread launching once per shard and accumulation, K1a once (the
    gate), each run timed.
 
+Then the north-star main path end to end:
+
+p. run_simulation(device="cuda", save=True) on the sections of
+   prisim_tpu/examples/simparms/hera331_northstar.yaml, built as a dict
+   (northstar_run_parms): HERA-331 redundant (630 baselines) x 1024
+   channels x nside-256 USM (786,432 sources) x all 100 accumulations,
+   processing at its defaults (engine auto: the banded engine and its
+   gate), the product as native FITS in a temporary directory under
+   build/chip_smoke/. Prints the engine (a demotion fails the phase), the
+   K2 and K1a launches (failing unless a launch per source chunk and
+   snapshot, the gate's included, and the gate's K1a calls), the
+   wall-clock split by the driver's phase lines (set-up, gate, snapshots,
+   finalize, product write) and the peak device memory; snapshots 0 and 99
+   against K1a on the model amps as the gate runs it, phased as the run
+   phases them (2e-6 of the coherent scale), and, as readings only,
+   against K1a on the float32 amps and the float64 golden on 16 baselines
+   in both normalizations beside the north star's 1e-6; the FITS product
+   read back with load_fits, equal to the returned run.
+
 After the phases it prints the card's name and power limit, the roofline
 share (bound / time, against the H100 data-sheet peaks) of K1a, K1b, K1c,
 K2 and delay_spread at the slice and the north star, and the kernels line:
 each kernel's launches in its slice run (K1a and K2 also in phases k-m's
-runs, K1a and delay_spread in phases n-o's),
+and p's runs, K1a and delay_spread in phases n-o's),
 error against its plain version, time, plain time, bound (from this run's
 inputs) and library time (null: no single PyTorch call computes any of
 them).
@@ -211,8 +230,10 @@ import contextlib
 import io
 import json
 import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -467,15 +488,16 @@ def kernel_phase(sim, cuda):
                 bound_by=bd["bound_by"], golden_rel=g_rel_v)
 
 
-def phased_snapshot0(vs, parms, v0):
-    """Snapshot 0 `v0` (B, C), phased as run_simulation phases its run."""
+def phased_snapshot0(vs, parms, v0, t=0):
+    """Snapshot `t` (default 0) `v0` (B, C), phased as run_simulation
+    phases its run."""
     from prisim_tpu_torch.vis import VisibilitySet, phase_centering
     ph = parms["phasing"]
     one = VisibilitySet(baselines=vs.baselines, labels=vs.labels,
-                        freqs=vs.freqs, lst=vs.lst[:1],
+                        freqs=vs.freqs, lst=vs.lst[t:t + 1],
                         skyvis=np.asarray(v0)[:, :, None],
                         latitude=vs.latitude,
-                        phase_center=vs.pointing_center[:1],
+                        phase_center=vs.pointing_center[t:t + 1],
                         phase_center_coords="altaz")
     return phase_centering(one, np.atleast_2d(ph["center"]),
                            ph["coords"]).skyvis[:, :, 0]
@@ -2879,6 +2901,208 @@ def sorted_mesh_phase(root, dev, have_h5py, n_acc=2):
     return out
 
 
+# --------------------------------------------------------------------------
+# Phase p: the north-star main path end to end, at its 100 accumulations
+# --------------------------------------------------------------------------
+
+# a phase line of the driver's verbose log: "[prisim_tpu_torch] ... <label>
+# (<seconds> s)"
+PHASE_LINE = re.compile(r"^\[prisim_tpu_torch\] \.\.\. (.+) \(([0-9.]+) s\)$",
+                        re.M)
+# the north star's own bar against the float64 golden (ROADMAP R2): printed
+# beside the readings, not held
+NORTHSTAR_TRUTH_BAR = 1e-6
+
+
+def northstar_run_parms(rootdir):
+    """The sections of prisim_tpu/examples/simparms/hera331_northstar.yaml,
+    built as a dict (the card machine has no pyyaml): HERA-331 redundant
+    (630 baselines), 1024 channels, nside-256 USM, all 100 accumulations,
+    processing at its defaults (engine auto), with dirstruct.rootdir
+    `rootdir` and the product as native FITS (save_formats fmt fits, npz
+    false) in place of the YAML's HDF5, which needs h5py."""
+    from prisim_tpu_torch.config import load_parms
+    return load_parms({
+        "dirstruct": {"rootdir": rootdir, "project": "hera331_northstar"},
+        "telescope": {"id": "hera", "latitude": -30.7224,
+                      "longitude": 21.4278, "A_eff": 154.0, "eff_Q": 0.96,
+                      "Trx": 100.0},
+        "array": {"layout": "HERA-331", "redundant": True},
+        "antenna": {"shape": "dish", "size": 14.0},
+        "bandpass": {"freq": 150000000.0, "freq_resolution": 97656.25,
+                     "nchan": 1024},
+        "obsparm": {"obs_mode": "drift", "n_acc": 100, "t_acc": 60.0},
+        "pointing": {"lst_init": 0.0},
+        "skyparm": {"model": "usm", "nside": 256},
+        "pp": {"key": "freq"},
+        "save_formats": {"fmt": "fits", "npz": False},
+    })
+
+
+def northstar_run_phase(root, dev):
+    """Phase p: run_simulation(northstar_run_parms, save=True) on the card
+    with the kernel counts set to 0 just before it and read just after.
+    Fails on a demotion (phase 5 passes the same gate at the same LST) and
+    on K2/K1a counts other than the banded engine's (a launch per source
+    chunk and snapshot, the gate's included; K1a twice per chunk in truth
+    mode, once otherwise). Prints the wall-clock split by the driver's
+    phase lines and the peak device memory; snapshots 0 and n_acc - 1
+    against K1a on the same snapshot's inputs, phased as the run phases
+    them (GATE_TOL of the coherent scale), and against the float64 golden
+    on golden_pick's baselines in both normalizations (printed beside
+    NORTHSTAR_TRUTH_BAR, not held); the FITS product read back with
+    load_fits, equal to the returned VisibilitySet. Returns the run's
+    counts."""
+    from prisim_tpu_torch.driver import banded_engine, prepare_simulation
+    from prisim_tpu_torch.engine.cuda_nudft import nudft_cuda
+    from prisim_tpu_torch.engine.nudft import nudft_reference_f64
+    from prisim_tpu_torch.engine.observe import (schedule_tensors,
+                                                 snapshot_nudft_inputs)
+    from prisim_tpu_torch.io import load_fits
+    os.makedirs(root, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        parms = northstar_run_parms(tmp)
+        n_acc = parms["obsparm"]["n_acc"]
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        (vs, outdir), log, got, wall = drive(
+            "north-star run (%d accumulations)" % n_acc, parms, dev,
+            save=True)
+        peak = torch.cuda.max_memory_allocated(dev)
+        engine = engine_ran(log)
+        for line in log.splitlines():
+            if "FAILED" in line or "falling back" in line:
+                print("north-star run demotion: %s" % line.strip())
+        print("north-star run engine: %s" % engine)
+        if engine != "banded":
+            raise SystemExit("north-star run: engine %s, not the banded "
+                             "engine with no demotion" % engine)
+        n_chunks = int(re.search(r"(\d+) source chunk\(s\) of", log)
+                       .group(1))
+        per_chunk = 2 if "truth amps" in log else 1
+        want = dict(dict.fromkeys(got, 0), k2=n_chunks * (n_acc + 1),
+                    k1a=per_chunk * n_chunks)
+        print("north-star run launches: K2 %d (%d source chunks x (%d "
+              "snapshots + the gate's 1): %d), K1a %d (the gate's, %d a "
+              "chunk: %d)" % (got["k2"], n_chunks, n_acc, want["k2"],
+                              got["k1a"], per_chunk, want["k1a"]))
+        if got != want:
+            raise SystemExit("north-star run launches %s, expected %s"
+                             % (got, want))
+
+        ph = {label: float(sec) for label, sec in PHASE_LINE.findall(log)}
+        setup = next(v for k, v in ph.items()
+                     if k.startswith("inputs built and on"))
+        gate = ph["banded shared-amps gate"]
+        vis = ph["visibilities computed + transferred"]
+        noise = ph["Tsys, rms and noise"]
+        post = ph["gains, container, phasing, projection"]
+        write = ph["products saved"]
+        print("north-star run wall-clock split: set-up %.2f s, gate %.2f s, "
+              "plan + %d snapshots + transfer %.2f s (%.4f s a snapshot), "
+              "finalize %.2f s (Tsys, rms and noise %.2f s; gains, "
+              "container, phasing, projection %.2f s), product write %.2f "
+              "s; whole run %.3f s"
+              % (setup, gate, n_acc, vis - gate, (vis - gate) / n_acc,
+                 noise + post, noise, post, write, wall))
+        print("north-star run peak device memory: %.4f GB "
+              "(torch.cuda.max_memory_allocated)" % (peak / 1e9))
+        # snapshots 0 and n_acc - 1 against K1a and the golden
+        sim = prepare_simulation(parms, dev)
+        inst = sim.inst
+        B, C = inst.nbl, inst.nchan
+        print("north-star run cube %s (%d bl x %d ch x %d acc, %d sources)"
+              % (vs.skyvis.shape, B, C, n_acc, sim.sky.flux.shape[0]))
+        assert vs.skyvis.shape == (B, C, n_acc), vs.skyvis.shape
+        assert np.isfinite(vs.skyvis).all() and np.isfinite(vs.vis).all()
+        _, snap = banded_engine(parms, sim)
+        Mh, Ml, pch, pcl = schedule_tensors(sim.obs, inst.latitude, dev)
+        pick, lens = golden_pick(inst)
+        bl64 = torch.as_tensor(joined(inst.bl_hi, inst.bl_lo)[pick],
+                               device=dev)
+        # the run's complex64 phasor of each (baseline, channel)
+        ones = np.ones((B, C), np.complex64)
+        worst = 0.0
+        for t in (0, n_acc - 1):
+            run_t = vs.skyvis[:, :, t]
+            at = (Mh[t], Ml[t], pch[t], pcl[t])
+            # the gate's form: K1a on the amplitudes the banded engine
+            # models (in truth mode the float64 model amps, split hi/lo)
+            held = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            direct, banded, ok, resid, coherent = snap.gate_fn(*at)
+            peak_gate = torch.cuda.max_memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            snap(*at)
+            print("north-star run snapshot %d: peak device memory of the "
+                  "gate alone %.4f GB, of one banded snapshot alone %.4f GB "
+                  "(%.4f GB held before each)"
+                  % (t, peak_gate / 1e9,
+                     torch.cuda.max_memory_allocated(dev) / 1e9, held / 1e9))
+            k1a = phased_snapshot0(vs, parms, direct.astype(np.complex64), t)
+            d = float(np.abs(run_t - k1a).max())
+            db = float(np.abs(run_t - phased_snapshot0(
+                vs, parms, banded.astype(np.complex64), t)).max()) \
+                / float(np.abs(run_t).max())
+            print("north-star run snapshot %d vs K1a on the model amps (all "
+                  "%d bl): max|dV|=%.4e  /max|V|=%.4e  /max_c sum_s|A|=%.4e "
+                  "(bar %.0e); vs the banded snapshot recomputed: "
+                  "max|dV|/max|V|=%.3e; ok=%s, amps-space model residual "
+                  "%.4e" % (t, B, d, d / float(np.abs(k1a).max()),
+                            d / coherent, GATE_TOL, db, ok, resid))
+            worst = max(worst, d / coherent)
+            if not (ok and db <= 1e-6):
+                raise SystemExit("north-star run snapshot %d differs from "
+                                 "its banded snapshot recomputed: %.3e "
+                                 "(ok=%s)" % (t, db, ok))
+            # K1a on the full-channel float32 amps, and the float64 golden
+            # on the same amps: readings, not bars (the model residual
+            # above separates the two amplitude sets)
+            seh, sel, amps, _ = snapshot_nudft_inputs(
+                inst, sim.sky, *at, sim.beam_fn)
+            v_k = nudft_cuda(seh, sel, inst.bl_hi, inst.bl_lo, amps,
+                             inst.grid_scalars(), inst.nchan)
+            cs32 = float(amps.abs().sum(dim=0).max())
+            k1a32 = phased_snapshot0(vs, parms, v_k.cpu().numpy(), t)
+            d32 = float(np.abs(run_t - k1a32).max())
+            print("north-star run snapshot %d vs K1a on the float32 amps: "
+                  "max|dV|=%.4e  /max|V|=%.4e  /max_c sum_s|A|=%.4e"
+                  % (t, d32, d32 / float(np.abs(k1a32).max()), d32 / cs32))
+            gold = nudft_reference_f64(joined(seh, sel), bl64, amps,
+                                       inst.freqs).cpu().numpy()
+            gold = gold * phased_snapshot0(vs, parms, ones, t)[pick]
+            gmax = float(np.abs(gold).max())
+            for label, v in (("run", run_t[pick]), ("K1a", k1a32[pick])):
+                dg = float(np.abs(v - gold).max())
+                print("north-star run snapshot %d, %s vs f64 golden on the "
+                      "float32 amps (%d bl, %.1f-%.1f m): max|dV|=%.4e  "
+                      "/max|V|=%.4e  /max_c sum_s|A|=%.4e  (north star's "
+                      "bar %.0e, not held)"
+                      % (t, label, len(pick), lens[pick[0]], lens[pick[-1]],
+                         dg, dg / gmax, dg / cs32, NORTHSTAR_TRUTH_BAR))
+            del seh, sel, amps, v_k
+        del sim, snap
+        torch.cuda.empty_cache()
+        if not worst <= GATE_TOL:
+            raise SystemExit("north-star run disagrees with K1a: %.3e of the "
+                             "coherent scale (bar %.0e)" % (worst, GATE_TOL))
+
+        t0 = time.time()
+        path = os.path.join(outdir, "simdata", "simvis.fits")
+        back = load_fits(path)
+        exact = all(np.array_equal(getattr(back, n), getattr(vs, n))
+                    for n in ("skyvis", "vis", "vis_noise", "baselines",
+                              "freqs", "lst", "labels"))
+        print("north-star run product %s (%.4f GB) read back with load_fits "
+              "in %.2f s: %s the returned run"
+              % (os.path.basename(path), os.path.getsize(path) / 1e9,
+                 time.time() - t0, "equal to" if exact else "DIFFERS from"))
+        if not exact:
+            raise SystemExit("north-star run: the FITS product differs from "
+                             "the returned VisibilitySet")
+    return got
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -3144,9 +3368,13 @@ def main():
     smesh = sorted_mesh_phase(out_root, cuda, have_h5py)
     torch.cuda.empty_cache()
     print("[sorted mesh phase: %.2f s]" % (time.time() - t0))
+    t0 = time.time()
+    nsr = northstar_run_phase(os.path.join(out_root, "northstar_run"), cuda)
+    torch.cuda.empty_cache()
+    print("[north-star run phase: %.2f s]" % (time.time() - t0))
     k1a_launches += (mesh["k1a"] + cfg4["k1a"] + ex["k1a"] + srt["k1a"]
-                     + smesh["k1a"])
-    k2_launches += mesh["k2"] + cfg4["k2"] + ex["k2"]
+                     + smesh["k1a"] + nsr["k1a"])
+    k2_launches += mesh["k2"] + cfg4["k2"] + ex["k2"] + nsr["k2"]
     spread_launches = srt["launches"] + smesh["spread"]
 
     print(smi)

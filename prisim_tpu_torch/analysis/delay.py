@@ -141,5 +141,5 @@ def subband_delay_transform(vs, freq_center, bw_eff, shape="bhw",
                                                   shift=True)
         for name, y in lag_dev.items():
             out[name + "_lag_resampled"] = win.downsample_fourier(
-                y, n_out, dim=2).cpu().numpy()
+                y, n_out, axis=2).cpu().numpy()
     return out

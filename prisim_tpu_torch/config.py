@@ -102,8 +102,9 @@ DEFAULT_PARMS = {
                    # direct engine; 'auto' is 'nufft' on a card and
                    # 'direct' on the CPU. The nufft_* keys keep the JAX
                    # package's schema (see prisim_tpu/config.py);
-                   # nufft_spread 'sorted' raises (not ported),
-                   # nufft_inflight is inert (NOOP_KEYS) and
+                   # nufft_spread 'sorted' (or 'scatter') runs the sorted
+                   # delay-space NUFFT (kernel delay_spread) behind its
+                   # gate, nufft_inflight is inert (NOOP_KEYS) and
                    # nufft_dot_split only sets the plan field (K2 sums
                    # in float64).
                    "engine": "auto", "nufft_rank": None,
@@ -155,10 +156,12 @@ NOOP_KEYS = {
         "banded snapshots run one after another in eager PyTorch; there is "
         "no queue of dispatched snapshots to bound",
     "pp.eqvol":
-        "the port runs on one device; there is no work-stealing counter "
-        "to toggle",
+        "the device mesh (parallel/mesh.py) always splits the baselines, "
+        "channels or sources into equal padded shards; there is no "
+        "work-stealing counter to toggle",
     "pp.method":
-        "no multiprocessing pool exists; the port runs on one device",
+        "no multiprocessing pool exists; device parallelism comes from "
+        "the device mesh of run_simulation(devices=...)",
 }
 
 

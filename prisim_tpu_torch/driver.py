@@ -1,6 +1,7 @@
-"""Simulation driver: parameters -> drift scan on one device -> products.
+"""Simulation driver: parameters -> drift scan on one device or a device
+mesh -> products.
 
-Counterpart of prisim_tpu/driver.py on one device:
+Counterpart of prisim_tpu/driver.py:
 
   load_parms -> layout (+ perturbations) -> baselines -> frequency grid
   -> observation schedule (drift|track|file) -> sky model (+ precession,
@@ -86,7 +87,7 @@ from .engine.nufft_banded import PlanRejected, make_banded_plan, \
 from .engine.nufft_delay import chebyshev_node_model, \
     chebyshev_projection, simulate_snapshot_nufft_jit
 from .engine.observe import Instrument, Observation, SkySources, \
-    df_rotate3, direct_visibilities, schedule_tensors, simulate_drift, \
+    check_kernel_knobs, df_rotate3, direct_visibilities, schedule_tensors, simulate_drift, \
     simulate_snapshot, snapshot_nudft_inputs
 from .vis import VisibilitySet, delay_transform, phase_centering, \
     project_baselines
@@ -725,10 +726,8 @@ def check_supported(parms, device, n_devices=1):
         if _nufft_spread(parms) not in ("auto", "banded") + _SORTED:
             raise ValueError("processing.nufft_spread must be auto, banded, "
                              "sorted or scatter")
-    if proc.get("use_pallas") is False and device.type == "cuda":
-        raise ValueError("processing.use_pallas: false asks for the plain "
-                         "NUDFT, but on a CUDA device the direct engine "
-                         "always runs kernel K1a")
+    if proc.get("use_pallas") is False:
+        check_kernel_knobs(device, use_pallas=False)
     pp = parms.get("pp") or {}
     axes = pp.get("mesh_axes")
     if axes:
@@ -958,7 +957,7 @@ def _demote(parms, reason):
 
 
 def run_simulation(parms, outdir=None, verbose=True, save=True,
-                   device="cuda", devices=None, _sky_override=None):
+                   _sky_override=None, device="cuda", devices=None):
     """Run a full simulation from a parameter source (path, YAML string
     or dict) on `device` ('cuda': every visible card, 'cuda:k': that card,
     or 'cpu'), or on the list `devices` (resolve_devices; it may repeat a

@@ -40,15 +40,22 @@ def thermal_noise_rms(A_eff, df, dt, Tsys, nbl=1, nchan=1, ntimes=1,
     return np.broadcast_to(rms, (nbl, nchan, ntimes))
 
 
-def generate_noise(generator, noise_rms):
-    """Complex64 gaussian noise with per-sample rms `noise_rms` (array or
-    tensor), drawn with `generator` (a torch.Generator) on its device."""
+def generate_noise(generator, noise_rms, shape=None):
+    """Complex64 gaussian noise with per-sample rms `noise_rms` (array,
+    scalar or tensor, broadcastable to `shape`; default noise_rms.shape),
+    drawn in float32 with `generator` (a torch.Generator) on its
+    device."""
     dev = generator.device
-    rms = torch.as_tensor(np.array(noise_rms, dtype=np.float32), device=dev)
-    scale = rms / np.sqrt(2.0)
-    re = torch.randn(rms.shape, generator=generator, dtype=torch.float32,
+    if isinstance(noise_rms, torch.Tensor):
+        rms = noise_rms.to(device=dev, dtype=torch.float32)
+    else:
+        rms = torch.as_tensor(np.array(noise_rms, dtype=np.float32),
+                              device=dev)
+    shape = rms.shape if shape is None else tuple(int(n) for n in shape)
+    scale = rms.broadcast_to(shape) / np.sqrt(2.0)
+    re = torch.randn(shape, generator=generator, dtype=torch.float32,
                      device=dev)
-    im = torch.randn(rms.shape, generator=generator, dtype=torch.float32,
+    im = torch.randn(shape, generator=generator, dtype=torch.float32,
                      device=dev)
     return torch.complex(scale * re, scale * im)
 

@@ -204,7 +204,8 @@ def _source_block_vis(seh, sel, blh, bll, amps, g, Q, L, chan0, s_sky=None,
 
 def nudft_visibilities(seh, sel, blh, bll, amps, grid_scalars, nchan,
                        chan0=0, src_shape_sigma=None, s_sky=None,
-                       src_block=512, gradient=False, anchor=ANCHOR):
+                       inv_wl=None, src_block=512, gradient=False,
+                       ql=None, anchor=ANCHOR):
     """Full NUDFT over all sources, streamed in source blocks.
 
     seh/sel : (S, 3) float32 two-float effective dircos (s_hat - pc_hat)
@@ -214,12 +215,19 @@ def nudft_visibilities(seh, sel, blh, bll, amps, grid_scalars, nchan,
     src_shape_sigma : optional (S,) float32 gaussian sigma in uv units
         (inf for a point source); needs s_sky
     s_sky   : (S, 3) float32 rotated sky directions (ENU)
+    inv_wl  : optional (>= nchan,) 1/lambda of channels chan0.., as the
+        reference takes it for the gaussian weights; the wavelengths come
+        from grid_scalars, and a given inv_wl is only checked against them
+        (ValueError beyond float32 rounding)
     gradient: also return the moments G_k = sum_s s_sky,k A w E; needs
         s_sky
+    ql      : the reference's (Q, L) channel tiling; None or a pair with
+        Q * L >= nchan (else ValueError), with no effect here
     anchor  : the chain length of the anchored rotations, as the kernels
         take them in every mode (None or 0: every phasor evaluated)
     Returns complex64 (B, nchan) on the device of the inputs, and with
     `gradient` also the complex64 (3, B, nchan) moments."""
+    _check_channel_knobs(grid_scalars, nchan, chan0, inv_wl, ql)
     sr, si = _nudft_sums(seh, sel, blh, bll, amps, grid_scalars, nchan,
                          chan0, src_shape_sigma, s_sky, src_block, gradient,
                          anchor)
@@ -227,6 +235,43 @@ def nudft_visibilities(seh, sel, blh, bll, amps, grid_scalars, nchan,
     if gradient:
         return res[0], res[1:]
     return res[0]
+
+
+# inv_wl as the reference builds it, freqs_f32 / c in float32, carries the
+# float32 roundings of the frequency, of c and of the quotient
+_INV_WL_RTOL = 2.0 * float(np.finfo(np.float32).eps)
+
+
+def _check_channel_knobs(grid_scalars, nchan, chan0=0, inv_wl=None,
+                        ql=None):
+    """Raise ValueError for a reference `inv_wl` that does not cover the
+    nchan channels from chan0 or differs from grid_scalars' 1/lambda by
+    more than float32 rounding, and for a `ql` tiling (Q, L) with
+    Q * L < nchan."""
+    nchan = int(nchan)
+    if ql is not None:
+        Q, L = ql
+        if Q * L < nchan:
+            raise ValueError("ql=%r covers %d < nchan=%d channels"
+                             % (tuple(ql), Q * L, nchan))
+    if inv_wl is None:
+        return
+    if isinstance(inv_wl, torch.Tensor):
+        got = inv_wl.detach().cpu().double().reshape(-1)
+    else:
+        got = torch.as_tensor(np.array(inv_wl, np.float64)).reshape(-1)
+    if got.shape[0] < nchan:
+        raise ValueError("inv_wl has %d < nchan=%d channels"
+                         % (got.shape[0], nchan))
+    g0h, g0l, gdh, gdl = (float(v) for v in grid_scalars)
+    want = (g0h + g0l) + (gdh + gdl) * (
+        torch.arange(nchan, dtype=torch.float64) + float(chan0))
+    err = float(((got[:nchan] - want).abs() / want.abs()).max()) \
+        if nchan else 0.0
+    if not err <= _INV_WL_RTOL:
+        raise ValueError("inv_wl differs from grid_scalars' 1/lambda by "
+                         "%.3g relative (float32 rounding: %.3g)"
+                         % (err, _INV_WL_RTOL))
 
 
 def _nudft_sums(seh, sel, blh, bll, amps, grid_scalars, nchan, chan0,

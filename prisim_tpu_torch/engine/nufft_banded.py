@@ -45,8 +45,8 @@ from .. import healpix as hp
 from .. import twofloat as tf
 from .nufft_delay import (chebyshev_node_model, kb_fourier, kb_tap_coeffs,
                           spectral_project)
-from .observe import (_beam_and_flux, df_rotate3, direct_visibilities,
-                      snapshot_nudft_inputs)
+from .observe import (_beam_and_flux, check_kernel_knobs, df_rotate3,
+                      direct_visibilities, snapshot_nudft_inputs)
 
 __all__ = ["banded_spread_available", "make_banded_plan", "BandedPlan",
            "PlanRejected", "group_directions", "nufft_banded_visibilities",
@@ -526,8 +526,9 @@ def nufft_banded_visibilities(plan, seh, sel, P, Qc, interpret=False):
     spectral coefficients (amps @ pinvQ); Qc (C, r) basis. Returns ((B, C)
     complex64, ok 0-d bool tensor); ok False: a source vector was not unit
     (its bins could leave the static rows), and the caller must fall back.
-    `interpret` is kept for the reference's signature: the device picks
-    the kernel or its plain version."""
+    `interpret` is checked as in observe.check_kernel_knobs: the device
+    picks the kernel or its plain version."""
+    check_kernel_knobs(seh.device, interpret=interpret)
     u_h, u_l, P_r, ok = _prep(plan, seh.contiguous(), sel.contiguous(), P)
     out = _spread(plan, u_h, u_l, P_r)
     return _post(plan, out, Qc).to(torch.complex64), ok
@@ -539,6 +540,7 @@ def simulate_snapshot_nufft_banded(instrument, sky, Mh, Ml, pch, pcl,
     projection (P = spectral_project(beam x flux, pinvQ)), as the
     reference's entry of the same name. Returns ((B, C) complex64, ok);
     `interpret` as in nufft_banded_visibilities."""
+    check_kernel_knobs(sky.flux.device, interpret=interpret)
     seh, sel, amps, _ = snapshot_nudft_inputs(instrument, sky, Mh, Ml, pch,
                                               pcl, beam_fn)
     P = spectral_project(amps, torch.as_tensor(pinvQ, device=seh.device))
@@ -613,13 +615,16 @@ def _split64(x):
 
 
 def make_banded_snapshot_fns(instrument, sky, beam_fn, plan, pinvQ, Q,
+                             interpret=False, spatial_sort=True,
                              src_chunk=None, gate_src_block=512,
                              node_model=True, truth=None):
     """Snapshot functions of the banded engine for one sky and plan.
 
     The sources are reordered once by HEALPix NEST index (spatial_
     permutation), so that a tile is a compact sky patch and K2 skips most
-    tiles for most row blocks. Sources are chunked as in the reference: the two-float u streams take
+    tiles for most row blocks: spatial_sort=False raises ValueError, and
+    `interpret` is checked as in observe.check_kernel_knobs. Sources are
+    chunked as in the reference: the two-float u streams take
     2 x D x S_chunk floats, bounded at ~0.75 GiB. ``truth`` =
     {"beam_df": fn(sh, sl, nu_nodes) -> (S, r) float64, "flux_nodes":
     (S, r) host float64 in the ORIGINAL source order} selects the
@@ -640,6 +645,10 @@ def make_banded_snapshot_fns(instrument, sky, beam_fn, plan, pinvQ, Q,
       run.n_chunks, run.src_chunk, run.node_model and run.truth (whether
       the truth-amps path runs)."""
     dev = instrument.device
+    check_kernel_knobs(dev, interpret=interpret)
+    if not spatial_sort:
+        raise ValueError("spatial_sort=False: the banded engine always "
+                         "sorts its sources")
     perm = spatial_permutation(tf.join_f64(sky.s_eq_hi, sky.s_eq_lo))
     sky = reorder_sources(sky, perm)
     freqs_f32 = torch.as_tensor(instrument.freqs, dtype=torch.float32,

@@ -28,7 +28,7 @@ from .nudft import freq_grid_scalars, nudft_visibilities
 
 __all__ = ["Instrument", "Observation", "SkySources", "enu_rotation_from_eq",
            "df_rotate3", "rotated_sources", "snapshot_nudft_inputs",
-           "direct_visibilities",
+           "check_kernel_knobs", "direct_visibilities",
            "simulate_snapshot",
            "simulate_drift_rotations", "simulate_drift", "schedule_tensors"]
 
@@ -225,6 +225,24 @@ def snapshot_nudft_inputs(instrument, sky, Mh, Ml, pch, pcl, beam_fn,
         beam_fn, above_horizon=above_horizon))
 
 
+def check_kernel_knobs(device, use_pallas=None, interpret=False):
+    """Check the reference's kernel switches against `device`. A CUDA
+    device always runs the kernels, so use_pallas=False (the plain
+    version) or interpret=True (the kernel's interpreter) raises
+    ValueError there; use_pallas None or True takes the kernel. On the
+    CPU the plain version runs whatever they say."""
+    if torch.device(device).type != "cuda":
+        return
+    if use_pallas is False:
+        raise ValueError("use_pallas=False asks for the plain NUDFT, but a "
+                         "CUDA device always runs its kernels (K1a, K1b, "
+                         "K1c)")
+    if interpret:
+        raise ValueError("interpret=True asks for a kernel interpreter, "
+                         "which a CUDA device does not have: it always "
+                         "runs the kernels (K1a to K1c, K2)")
+
+
 def direct_visibilities(seh, sel, instrument, amps, src_block=512,
                         s_sky=None, src_shape_sigma=None, gradient=False):
     """The direct engine on `instrument`'s baselines: the NUDFT kernels for
@@ -242,10 +260,13 @@ def direct_visibilities(seh, sel, instrument, amps, src_block=512,
 
 
 def simulate_snapshot(instrument, sky, Mh, Ml, pch, pcl, beam_fn,
-                      src_block=512, gradient=False):
+                      src_block=512, gradient=False, use_pallas=None,
+                      interpret=False):
     """One accumulation: (B, C) complex64 noiseless visibilities, and with
     `gradient` also the (3, B, C) moments. src_block sizes the plain
-    version's source blocks (CPU tensors)."""
+    version's source blocks (CPU tensors); use_pallas and interpret as in
+    check_kernel_knobs."""
+    check_kernel_knobs(sky.flux.device, use_pallas, interpret)
     seh, sel, amps, sh = snapshot_nudft_inputs(instrument, sky, Mh, Ml, pch,
                                                pcl, beam_fn)
     shaped = sky.src_shape_sigma is not None
@@ -265,10 +286,12 @@ def schedule_tensors(observation, latitude, device):
 
 
 def simulate_drift_rotations(instrument, sky, Mh, Ml, pch, pcl, beam_fn,
-                             src_block=512, gradient=False):
+                             src_block=512, gradient=False, use_pallas=None,
+                             interpret=False):
     """Loop over per-accumulation rotations (T, 3, 3) and phase centers
     (T, 3), float32 tensors. Returns (T, B, C) complex64 on the device,
     and with `gradient` also the (T, 3, B, C) moments."""
+    check_kernel_knobs(sky.flux.device, use_pallas, interpret)
     snaps = [simulate_snapshot(instrument, sky, Mh[t], Ml[t], pch[t],
                                pcl[t], beam_fn, src_block=src_block,
                                gradient=gradient)
@@ -280,10 +303,11 @@ def simulate_drift_rotations(instrument, sky, Mh, Ml, pch, pcl, beam_fn,
 
 
 def simulate_drift(instrument, sky, observation, beam_fn, src_block=512,
-                   gradient=False):
+                   gradient=False, use_pallas=None, interpret=False):
     """All accumulations of `observation`: (T, B, C) complex64 (transpose
     to the reference's (nbl, nchan, n_acc) at IO time), and with
     `gradient` also the (T, 3, B, C) moments."""
+    check_kernel_knobs(sky.flux.device, use_pallas, interpret)
     sched = schedule_tensors(observation, instrument.latitude,
                              instrument.device)
     return simulate_drift_rotations(instrument, sky, *sched, beam_fn,

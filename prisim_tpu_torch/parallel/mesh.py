@@ -41,7 +41,8 @@ import torch
 from .. import twofloat as tf
 from ..engine.cuda_nudft import nudft_cuda
 from ..engine.nudft import nudft_visibilities
-from ..engine.observe import rotated_sources, schedule_tensors
+from ..engine.observe import (check_kernel_knobs, rotated_sources,
+                              schedule_tensors)
 
 __all__ = ["make_mesh", "pad_to_multiple", "simulate_drift_sharded",
            "simulate_drift_src_sharded", "simulate_drift_nufft_sharded",
@@ -310,12 +311,13 @@ def simulate_drift_banded_sharded(instrument, sky, observation, beam_fn,
     and every other plan field are the same on every shard. The spread
     needs the full band per shard, so 'chan'/'src' axes larger than 1 are
     rejected. `truth` = {"beam_df", "flux_nodes"} selects the truth-amps
-    path. `interpret` is kept for the reference's signature: the device of
-    each shard picks the kernel or its plain version.
+    path. `interpret` is checked as in observe.check_kernel_knobs: the
+    device of each shard picks the kernel or its plain version.
 
     Returns ((T, B, C) complex64 on the mesh's first device, ok), ok the
     AND of every shard's unit-source span check (False => the caller must
     fall back)."""
+    _check_knobs(mesh, interpret=interpret)
     from ..engine.nufft_banded import (make_banded_plan,
                                        make_banded_snapshot_fns)
     from ..engine.nufft_delay import chebyshev_projection
@@ -379,25 +381,34 @@ def simulate_drift_banded_sharded(instrument, sky, observation, beam_fn,
     return out[:, :B, :], ok
 
 
+def _check_knobs(mesh, use_pallas=None, interpret=False):
+    """observe.check_kernel_knobs on every device of `mesh`."""
+    for dev in set(mesh.devices.flat):
+        check_kernel_knobs(dev, use_pallas, interpret)
+
+
 def simulate_drift_sharded(instrument, sky, observation, beam_fn, mesh,
-                           src_block=512, use_pallas=False,
+                           src_block=512, use_pallas=None,
                            interpret=False):
     """Drift scan sharded over ('bl', 'chan'). Returns (T, B, C) complex64
     on the mesh's first device, padded rows and columns stripped. Each CUDA
     shard runs kernel K1a, each CPU shard its plain version (in blocks of
     `src_block` sources): the device picks, and use_pallas/interpret are
-    kept for the reference's signature."""
+    checked as in observe.check_kernel_knobs."""
+    _check_knobs(mesh, use_pallas, interpret)
     return _sharded_drift(mesh, instrument, sky, observation, beam_fn,
                           _nudft_shard(instrument, beam_fn, src_block),
                           src_axis=False)
 
 
 def simulate_drift_src_sharded(instrument, sky, observation, beam_fn, mesh,
-                               src_block=512, use_pallas=False,
+                               src_block=512, use_pallas=None,
                                interpret=False):
     """Drift scan with the *source* axis sharded and the partial
     visibilities summed in shard order on each block's first device: the
-    reference's pp.key='src' mode with its rank-0 recv-sum."""
+    reference's pp.key='src' mode with its rank-0 recv-sum. use_pallas and
+    interpret as in simulate_drift_sharded."""
+    _check_knobs(mesh, use_pallas, interpret)
     return _sharded_drift(mesh, instrument, sky, observation, beam_fn,
                           _nudft_shard(instrument, beam_fn, src_block),
                           src_axis=True)

@@ -885,7 +885,7 @@ def mesh_check(n_devices=8, device="cuda"):
 
 
 def mesh_bench(n_devices=8, per_bl=32, nchan=64, nside=16, repeats=3,
-               use_pallas=False, platform="auto", device="cuda"):
+               use_pallas=None, platform="auto", device="cuda"):
     """Weak-scaling harness over the sharded drift engine: FIXED
     per-device work (per_bl baselines per device, full sky and band on
     every shard), meshes of 1, 2, 4, ..., n_devices over the 'bl' axis,
@@ -894,7 +894,7 @@ def mesh_bench(n_devices=8, per_bl=32, nchan=64, nside=16, repeats=3,
     CPU entries, native the cards, auto `device`; on a mesh that repeats
     a device ("distinct_devices" below the mesh size) the shards run one
     after another, so the rates say nothing about scaling. use_pallas is
-    kept for the reference's signature (a CUDA shard runs K1a).
+    checked as in observe.check_kernel_knobs (a CUDA shard runs K1a).
 
     Returns the list of per-mesh result dicts."""
     import time
@@ -944,7 +944,8 @@ def mesh_bench(n_devices=8, per_bl=32, nchan=64, nside=16, repeats=3,
         mesh = make_mesh((nd,), ("bl",), devs[:nd])
 
         def run():
-            return simulate_drift_sharded(inst, sky, obs, beam_fn, mesh)
+            return simulate_drift_sharded(inst, sky, obs, beam_fn, mesh,
+                                          use_pallas=use_pallas)
 
         run()                                     # warm
         _sync(devs[:nd])
@@ -1145,7 +1146,7 @@ def main(argv=None):
     elif a.cmd == "mesh-check":
         if a.bench:
             mesh_bench(a.n_devices, per_bl=a.per_bl, nchan=a.nchan,
-                       nside=a.nside, use_pallas=a.pallas,
+                       nside=a.nside, use_pallas=a.pallas or None,
                        platform=a.platform, device=a.device)
             raise SystemExit(0)
         raise SystemExit(0 if mesh_check(

@@ -88,14 +88,16 @@ def df_frac(xh, xl):
     return fast_two_sum(h, xl)
 
 
-def df_sincos_cycles(ch, cl):
+def df_sincos_cycles(ch, cl, two_pi=(TWO_PI_HI, TWO_PI_LO)):
     """(cos, sin) of 2*pi*(ch+cl) for a frac-reduced two-float cycle count.
 
     The radian conversion is a two-float product (ah + al) and the
     residual enters through the first-order rotation
-    sin(ah+al) ~= sin + cos*al, cos(ah+al) ~= cos - sin*al."""
-    tph = torch.tensor(TWO_PI_HI, dtype=ch.dtype, device=ch.device)
-    tpl = torch.tensor(TWO_PI_LO, dtype=ch.dtype, device=ch.device)
+    sin(ah+al) ~= sin + cos*al, cos(ah+al) ~= cos - sin*al. `two_pi` is
+    the (hi, lo) pair of 2*pi, floats or tensors, each taken in ch's
+    dtype."""
+    tph, tpl = (torch.as_tensor(x, dtype=ch.dtype, device=ch.device)
+                for x in two_pi)
     ah, al = df_mul(ch, cl, tph, tpl)
     c = torch.cos(ah)
     s = torch.sin(ah)

@@ -339,7 +339,7 @@ def delay_transform(vs, pad=1.0, freq_wts=None, device="cuda"):
     def _dt(arr):
         x = torch.as_tensor(np.asarray(arr * bp * bp_wts, dtype=np.complex64),
                             device=device)
-        return win.ifft_delay_transform(x, df, pad=pad, dim=1).cpu().numpy()
+        return win.ifft_delay_transform(x, df, pad=pad, axis=1).cpu().numpy()
 
     for name, arr in vs._vis_cubes():
         updates[name + "_lag"] = _dt(np.asarray(arr))

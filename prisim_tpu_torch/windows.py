@@ -136,34 +136,35 @@ def pfb_theoretical_shape(path, freqs):
     return shape / shape.max()
 
 
-def ifft_delay_transform(vis, df, pad=0.0, dim=1):
-    """Delay transform of a complex tensor along `dim`: IFFT scaled by
+def ifft_delay_transform(vis, df, pad=0.0, axis=1):
+    """Delay transform of a complex tensor along `axis`: IFFT scaled by
     (n_padded * df), fftshifted, zero-padded by the `pad` fraction and
     downsampled back to the input length."""
-    nchan = vis.shape[dim]
+    nchan = vis.shape[axis]
     if pad > 0.0:
         npad = int(nchan * pad)
         zshape = list(vis.shape)
-        zshape[dim] = npad
-        vis = torch.cat([vis, vis.new_zeros(zshape)], dim=dim)
-    n_tot = vis.shape[dim]
-    lag = torch.fft.fftshift(torch.fft.ifft(vis, dim=dim), dim=dim) \
+        zshape[axis] = npad
+        vis = torch.cat([vis, vis.new_zeros(zshape)], dim=axis)
+    n_tot = vis.shape[axis]
+    lag = torch.fft.fftshift(torch.fft.ifft(vis, dim=axis), dim=axis) \
         * (n_tot * df)
     if pad > 0.0:
-        lag = downsample_fourier(lag, nchan, dim=dim)
+        lag = downsample_fourier(lag, nchan, axis=axis)
     return lag
 
 
-def downsample_fourier(arr, n_out, dim=0):
+def downsample_fourier(arr, n_out, axis=0):
     """Band-limited resampling of a (delay-domain) tensor to n_out
-    samples along `dim` by FFT truncation."""
-    n_in = arr.shape[dim]
+    samples along `axis` by FFT truncation."""
+    n_in = arr.shape[axis]
     if n_in == n_out:
         return arr
-    spec = torch.fft.fft(torch.fft.ifftshift(arr, dim=dim), dim=dim)
+    spec = torch.fft.fft(torch.fft.ifftshift(arr, dim=axis), dim=axis)
     keep_lo = (n_out + 1) // 2
     keep_hi = n_out - keep_lo
-    spec_ds = torch.cat([spec.narrow(dim, 0, keep_lo),
-                         spec.narrow(dim, n_in - keep_hi, keep_hi)], dim=dim)
-    out = torch.fft.fftshift(torch.fft.ifft(spec_ds, dim=dim), dim=dim)
+    spec_ds = torch.cat([spec.narrow(axis, 0, keep_lo),
+                         spec.narrow(axis, n_in - keep_hi, keep_hi)],
+                        dim=axis)
+    out = torch.fft.fftshift(torch.fft.ifft(spec_ds, dim=axis), dim=axis)
     return out * (n_out / n_in)

@@ -710,3 +710,58 @@ def test_delay_spread_matches_plain(cuda, S, B, C, r, per_bl, span, chan0):
     scale = float(want.abs().max())
     assert float((got - want).abs().max()) <= SPREAD_BAR * scale
 
+
+
+@pytest.mark.gpu
+def test_generate_noise_takes_a_cuda_tensor(cuda):
+    """generate_noise with the rms a CUDA tensor on the generator's device
+    (no host round trip), a scalar rms broadcast to `shape`, and the
+    numpy rms: complex64 on the card, the same draws for the same seed."""
+    from prisim_tpu_torch.engine.noise import generate_noise
+    rms = np.random.default_rng(2).uniform(0.5, 2.0, (7, 16, 5))
+
+    def gen():
+        return torch.Generator(device=cuda).manual_seed(9)
+
+    host = generate_noise(gen(), rms)
+    dev = generate_noise(gen(), torch.as_tensor(rms, device=cuda))
+    assert dev.is_cuda and dev.dtype == torch.complex64
+    assert dev.shape == (7, 16, 5) and torch.equal(dev, host)
+    scalar = generate_noise(gen(), 1.5, (7, 16, 5))
+    assert scalar.shape == (7, 16, 5) and scalar.is_cuda
+    assert torch.equal(scalar, generate_noise(
+        gen(), torch.tensor(1.5, device=cuda), (7, 16, 5)))
+
+
+@pytest.mark.gpu
+def test_kernel_knobs_on_cuda_tensors(cuda):
+    """On CUDA tensors use_pallas=False and interpret=True raise before any
+    launch, in simulate_drift and make_banded_snapshot_fns; use_pallas
+    None or True launches K1a once an accumulation."""
+    from prisim_tpu_torch.driver import prepare_simulation
+    from prisim_tpu_torch.config import load_parms
+    from prisim_tpu_torch.engine import observe
+    from prisim_tpu_torch.engine.nufft_delay import chebyshev_projection
+    parms = load_parms({
+        "telescope": {"id": "hera"},
+        "array": {"layout": "HERA-7", "redundant": False},
+        "bandpass": {"nchan": 32, "freq_resolution": 97656.25},
+        "obsparm": {"n_acc": 2, "t_acc": 60.0},
+        "skyparm": {"model": "usm", "nside": 8},
+        "save_formats": {"fmt": "none", "npz": False}})
+    sim = prepare_simulation(parms, cuda)
+    args = (sim.inst, sim.sky, sim.obs, sim.beam_fn)
+    n0 = nudft_cuda.launches
+    for kw in (dict(use_pallas=False), dict(interpret=True)):
+        with pytest.raises(ValueError):
+            observe.simulate_drift(*args, **kw)
+    assert nudft_cuda.launches == n0
+    v = observe.simulate_drift(*args, use_pallas=None)
+    assert torch.equal(observe.simulate_drift(*args, use_pallas=True), v)
+    assert v.is_cuda and nudft_cuda.launches == n0 + 4
+    plan = nb.make_banded_plan(np.asarray(sim.bls.vectors), sim.inst.nu0,
+                               sim.inst.dnu, sim.inst.nchan, rank=8)
+    pinvQ, Q = chebyshev_projection(sim.freqs, 8)
+    with pytest.raises(ValueError, match="interpret"):
+        nb.make_banded_snapshot_fns(sim.inst, sim.sky, sim.beam_fn, plan,
+                                    pinvQ, Q, True)

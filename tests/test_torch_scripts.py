@@ -1,14 +1,18 @@
 """The port's card scripts, chip_smoke.py and profile_banded.py, off the
 card: they import neither jax nor the JAX package themselves, and they
 exit non-zero with no result line when no CUDA card is visible. The
-profiler's device busy time is the union of the device events' intervals."""
+profiler's device busy time is the union of the device events' intervals.
+chip_smoke's north-star run (phase p) takes hera331_northstar.yaml's
+sections, and the phase runs on the CPU at a small size."""
 
 import ast
+import copy
 import os
 import subprocess
 import sys
 
 import pytest
+import torch
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 SCRIPTS = ["chip_smoke.py", "profile_banded.py"]
@@ -54,3 +58,77 @@ def test_busy_us_is_union_length(spans, want):
     finally:
         sys.path.remove(ROOT)
     assert busy_us(spans) == want
+
+
+def _chip_smoke():
+    sys.path.insert(0, ROOT)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(ROOT)
+    return chip_smoke
+
+
+def test_northstar_run_parms_are_the_yaml(tmp_path):
+    """Phase p's parameters equal load_parms of hera331_northstar.yaml
+    (all 100 accumulations, processing at its defaults: engine auto) but
+    for save_formats (native FITS, no NPZ: the card has no h5py) and
+    dirstruct.rootdir."""
+    from prisim_tpu_torch.config import load_parms
+    got = _chip_smoke().northstar_run_parms(str(tmp_path))
+    want = load_parms(os.path.join(ROOT, "prisim_tpu", "examples",
+                                   "simparms", "hera331_northstar.yaml"))
+    assert got["dirstruct"]["rootdir"] == str(tmp_path)
+    assert (got["save_formats"]["fmt"], got["save_formats"]["npz"]) == \
+        ("fits", False)
+    assert want["obsparm"]["n_acc"] == 100
+    assert want["processing"]["engine"] == "auto"
+    a, b = copy.deepcopy(got), copy.deepcopy(want)
+    for x in (a, b):
+        del x["save_formats"], x["dirstruct"]["rootdir"]
+    assert a == b
+
+
+def test_northstar_run_phase_on_cpu(tmp_path, monkeypatch):
+    """Phase p on the CPU at a small size (HERA-19, 128 channels, nside 8,
+    2 accumulations): the CUDA calls stubbed, engine auto taken to the
+    banded engine and the plain NUDFT and K2 calls counted as launches, as
+    a card counts them. It holds the run to K1a on the model amps, checks
+    the launch counts and reads the FITS product back."""
+    cs = _chip_smoke()
+    from prisim_tpu_torch import driver
+    from prisim_tpu_torch.engine import (cuda_banded, cuda_nudft,
+                                         nufft_banded, observe)
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    for name in ("max_memory_allocated", "memory_allocated"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: 0)
+
+    def counted(fn, counter):
+        def wrapper(*a, **k):
+            counter.launches += 1
+            return fn(*a, **k)
+        return wrapper
+
+    monkeypatch.setattr(observe, "nudft_visibilities", counted(
+        observe.nudft_visibilities, cuda_nudft.nudft_cuda))
+    monkeypatch.setattr(nufft_banded, "_spread", counted(
+        nufft_banded._spread, cuda_banded.banded_spread_cuda))
+    resolve = driver._resolve_engine
+    monkeypatch.setattr(driver, "_resolve_engine", lambda parms, dev: (
+        "nufft" if (parms["processing"].get("engine") or "auto") == "auto"
+        else resolve(parms, dev)))
+    full = cs.northstar_run_parms
+
+    def small(rootdir):
+        p = full(rootdir)
+        p["array"]["layout"] = "HERA-19"
+        p["bandpass"]["nchan"] = 128
+        p["skyparm"]["nside"] = 8
+        p["obsparm"]["n_acc"] = 2
+        return p
+
+    monkeypatch.setattr(cs, "northstar_run_parms", small)
+    got = cs.northstar_run_phase(str(tmp_path), torch.device("cpu"))
+    assert got == dict(k1a=2, k1b=0, k1c=0, k2=3, spread=0)
+    assert not os.listdir(tmp_path)          # the run's directory is gone
