@@ -26,6 +26,8 @@ import subprocess
 import time
 from pathlib import Path
 
+from . import tracing
+
 __all__ = ["load_kernel_library", "build_info"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -61,9 +63,18 @@ def _source_hash(flags):
 
 
 def load_kernel_library(name):
-    """ctypes handle of the library built from csrc/<name>.cu."""
+    """ctypes handle of the library built from csrc/<name>.cu; the first
+    load in a process is the span kernels.load, whose attribute `built`
+    says whether nvcc compiled it."""
     if name in _LOADED:
         return _LOADED[name]
+    with tracing.span("kernels.load", kernel=name) as sp:
+        lib = _load(name)
+        sp.set(built=_INFO[name]["built"])
+    return lib
+
+
+def _load(name):
     src = CSRC / (name + ".cu")
     if not src.exists():
         raise FileNotFoundError(src)

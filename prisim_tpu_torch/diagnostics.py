@@ -5,7 +5,7 @@ monitor, PRISim's scripts/prisim_resource_monitor.py:11-56, launched by
 run_prisim.py:319-322, and its wall-clock tallies, run_prisim.py:
 1967-1991). A background thread samples CPU% and RSS (psutil) and, on a
 CUDA device, torch.cuda.memory_allocated to a JSONL file; ``phase_timer``
-wraps pipeline stages.
+wraps pipeline stages as spans of prisim_tpu_torch.tracing.
 
 psutil is imported when the monitor starts, in the caller's thread, so a
 machine without it raises ImportError there, before any compute; an error
@@ -19,6 +19,8 @@ import threading
 import time
 
 import torch
+
+from . import tracing
 
 __all__ = ["ResourceMonitor", "phase_timer"]
 
@@ -84,13 +86,14 @@ class ResourceMonitor:
 
 @contextlib.contextmanager
 def phase_timer(name, sink=None, verbose=True):
-    """Wall-clock timer for one pipeline phase; appends (name, seconds)
-    to `sink` (list or dict) and/or prints."""
-    t0 = time.perf_counter()
+    """Wall-clock timer for one pipeline phase, the span `name`; appends
+    (name, seconds) to `sink` (list or dict) and/or prints."""
+    sp = tracing.span(name, timed=True)
     try:
-        yield
+        with sp:
+            yield
     finally:
-        dt = time.perf_counter() - t0
+        dt = sp.seconds()
         if isinstance(sink, dict):
             sink[name] = sink.get(name, 0.0) + dt
         elif isinstance(sink, list):

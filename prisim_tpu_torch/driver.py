@@ -66,6 +66,7 @@ import torch
 
 from . import __version__
 from . import healpix as hp
+from . import tracing
 from .baselines import baseline_generator, build_baselines, uniq_baselines
 from .gains import GainInfo, apply_gains
 from .layouts import ArrayLayout, parse_layout_file, preset_layout
@@ -898,40 +899,48 @@ class Simulation:
 def prepare_simulation(parms, device, verbose=False, sky=None):
     """Host builders + device upload: layout, baselines, schedule, sky
     (build_observed_sky, or the given host `sky`), instrument and beam.
-    `parms` is a resolved parameter dict (load_parms)."""
-    tp = parms["telescope"]
-    lat = float(tp["latitude"])
-    layout = build_layout(parms)
-    blp = parms.get("baseline") or {}
-    bls = build_baselines(layout,
-                          redundant=bool(parms["array"].get("redundant",
-                                                            True)),
-                          min_length=blp.get("min"),
-                          max_length=blp.get("max"),
-                          direction_deg=blp.get("direction"))
-    freqs = build_frequencies(parms)
-    obs = build_schedule(parms, lat)
-    if sky is None:
-        sky = build_observed_sky(parms, freqs, obs)
-    telescope = _telescope(parms)
-    pointing_info = _pointing_info(parms, telescope, obs)
-    inst = Instrument.build(bls.vectors, freqs, device, latitude=lat,
-                            longitude=float(tp.get("longitude") or 0.0),
-                            altitude=float(tp.get("altitude") or 0.0),
-                            A_eff=float(tp.get("A_eff") or 154.0),
-                            eff_Q=float(tp.get("eff_Q") or 1.0),
-                            telescope=telescope)
-    sks = SkySources.from_skymodel(sky, freqs, device)
-    src_block = int(parms["processing"].get("src_block") or 512)
-    mem_block = _src_block_from_memuse(parms, bls.nbl, freqs.size, sky.nsrc)
-    if mem_block is not None:
-        src_block = min(src_block, mem_block)
-    if verbose:
-        print("[prisim_tpu_torch] %d bl x %d chan x %d acc, %d sources on %s"
-              % (bls.nbl, freqs.size, obs.n_acc, sky.nsrc, device))
-    return Simulation(layout, bls, freqs, obs, telescope, inst, sky, sks,
-                      _make_beam_fn(parms, telescope, freqs, pointing_info),
-                      src_block)
+    `parms` is a resolved parameter dict (load_parms). With `verbose`,
+    prints the sizes and the phase line "inputs built and on <device>"."""
+    with tracing.span("inputs",
+                      line=verbose and "inputs built and on %s" % device):
+        tp = parms["telescope"]
+        lat = float(tp["latitude"])
+        layout = build_layout(parms)
+        blp = parms.get("baseline") or {}
+        bls = build_baselines(layout,
+                              redundant=bool(parms["array"].get("redundant",
+                                                                True)),
+                              min_length=blp.get("min"),
+                              max_length=blp.get("max"),
+                              direction_deg=blp.get("direction"))
+        freqs = build_frequencies(parms)
+        obs = build_schedule(parms, lat)
+        if sky is None:
+            with tracing.span("inputs.sky"):
+                sky = build_observed_sky(parms, freqs, obs)
+        telescope = _telescope(parms)
+        pointing_info = _pointing_info(parms, telescope, obs)
+        with tracing.span("inputs.upload"):
+            inst = Instrument.build(
+                bls.vectors, freqs, device, latitude=lat,
+                longitude=float(tp.get("longitude") or 0.0),
+                altitude=float(tp.get("altitude") or 0.0),
+                A_eff=float(tp.get("A_eff") or 154.0),
+                eff_Q=float(tp.get("eff_Q") or 1.0), telescope=telescope)
+            sks = SkySources.from_skymodel(sky, freqs, device)
+        src_block = int(parms["processing"].get("src_block") or 512)
+        mem_block = _src_block_from_memuse(parms, bls.nbl, freqs.size,
+                                           sky.nsrc)
+        if mem_block is not None:
+            src_block = min(src_block, mem_block)
+        if verbose:
+            print("[prisim_tpu_torch] %d bl x %d chan x %d acc, %d sources "
+                  "on %s" % (bls.nbl, freqs.size, obs.n_acc, sky.nsrc,
+                             device))
+        return Simulation(layout, bls, freqs, obs, telescope, inst, sky, sks,
+                          _make_beam_fn(parms, telescope, freqs,
+                                        pointing_info),
+                          src_block)
 
 
 class _EngineDemotion(Exception):
@@ -948,7 +957,10 @@ def _demote(parms, reason):
     """Print why the NUFFT engine is refused; the demotion to raise.
     Every demotion goes to the direct engine, where the reference sends a
     rejected banded plan or a non-unit source to its sorted spread first
-    (and on its accelerator then on to the direct engine)."""
+    (and on its accelerator then on to the direct engine). Counts
+    driver.demotions in a zero-length span "demotion" with the reason."""
+    with tracing.span("demotion", reason=reason):
+        tracing.count("driver.demotions", 1)
     print("[prisim_tpu_torch] %s; falling back to the direct engine"
           % reason)
     p2 = dict(parms)
@@ -981,12 +993,18 @@ def run_simulation(parms, outdir=None, verbose=True, save=True,
     None for a sector no source enters, outdir); with beam.pol XY (or
     dual), ([vs_x, vs_y], the X run's output_dir); with beam.pol full,
     ([vs_xx, vs_yy, vs_xy], the XX run's output_dir). Sectors split
-    first: each sector's run is a pol run, as in the reference."""
+    first: each sector's run is a pol run, as in the reference.
+
+    The run is the span "simulation" of prisim_tpu_torch.tracing (a
+    sub-run of a sector, pol or chunked run nests under its caller's),
+    with the attributes device, engine (the one taken), nbl, nchan, n_acc
+    and nsrc."""
     if not isinstance(parms, dict) or "telescope" not in parms:
         parms = load_parms(parms)
     devs = resolve_devices(device, devices)
     dev = devs[0]
-    with _diagnosis(parms, dev):
+    with _diagnosis(parms, dev), \
+            tracing.span("simulation", timed=verbose, device=str(dev)):
         cur = parms
         while True:
             try:
@@ -1006,7 +1024,11 @@ def _diagnosis(parms, dev):
     the run (CPU activity, and CUDA activity on a card; view it in
     chrome://tracing or Perfetto), resource_monitor samples CPU, RSS and
     device memory to <rootdir>/resource_monitor.jsonl every
-    refresh_interval seconds (psutil, imported before any compute)."""
+    refresh_interval seconds (psutil, imported before any compute).
+    jax_profile also turns the span recorder on for the run and writes its
+    spans and counters beside the trace (spans_<pid>_<ns>.json: the
+    records of prisim_tpu_torch.tracing, each with `kernel_ms`, the device
+    time of what it launched, and the profiler's trace_start_ns)."""
     diag = parms.get("diagnosis") or {}
     with contextlib.ExitStack() as stack:
         if diag.get("resource_monitor"):
@@ -1024,12 +1046,26 @@ def _diagnosis(parms, dev):
             acts = [ProfilerActivity.CPU] + (
                 [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
             prof = profile(activities=acts)
-            # registered first, so it runs after the profiler has stopped
+            # registered first, so they run after the profiler has stopped
+            stack.callback(_write_spans, prof, profile_dir)
             stack.callback(lambda: prof.export_chrome_trace(os.path.join(
                 profile_dir, "trace_%d_%d.json" % (os.getpid(),
                                                    time.time_ns()))))
+            stack.enter_context(tracing.on())
             stack.enter_context(prof)
         yield
+
+
+def _write_spans(prof, profile_dir):
+    """The run's spans beside its torch.profiler trace."""
+    records = tracing.take()
+    kernel_ms = tracing.kernel_ms_by_span(prof, records)
+    for rec in records:
+        rec["kernel_ms"] = kernel_ms.get(rec["id"], 0.0)
+    with open(os.path.join(profile_dir, "spans_%d_%d.json"
+                           % (os.getpid(), time.time_ns())), "w") as f:
+        json.dump(dict(trace_start_ns=prof.profiler.kineto_results
+                       .trace_start_ns(), spans=records), f, default=str)
 
 
 def _run_sectors(parms, outdir, verbose, save, devs, n_sectors):
@@ -1171,49 +1207,55 @@ def _run_simulation_inner(parms, outdir, verbose, save, devs, sky_override):
         return _run_dual_pol(parms, outdir, verbose, save, devs, sky_override)
     if pol == "FULL":
         return _run_full_pol(parms, outdir, verbose, save, devs, sky_override)
-    t0 = time.time()
     sim = prepare_simulation(parms, dev, verbose=verbose, sky=sky_override)
-    _phase(verbose, "inputs built and on %s" % dev, t0)
-    t1 = time.time()
-    grad = bool(parms["processing"].get("gradient_mode"))
-    engine = _resolve_engine(parms, dev)
-    bm = parms.get("beam") or {}
-    external = bool(bm.get("use_external") and bm.get("file"))
-    if external and (engine == "nufft" or grad):
-        print("[prisim_tpu_torch] beam.use_external: the external-beam "
-              "route runs the direct engine, without gradients")
-    elif engine == "nufft" and (grad or sim.sky.src_shape_sigma is not None):
-        print("[prisim_tpu_torch] %s, which the NUFFT engine does not "
-              "compute; running the direct engine"
-              % ("processing.gradient_mode asks for baseline gradients"
-                 if grad else "the sky has source shapes (extended "
-                 "sources)"))
-        engine = "direct"
-    gradients = None
-    mesh = None
-    if not (external or grad or sim.sky.src_shape_sigma is not None):
-        mesh = _mesh(parms, devs, engine)
-    if external:
-        vis_tbc = _simulate_external(parms, sim, verbose)
-    elif engine == "nufft" and _nufft_spread(parms) in _SORTED:
-        vis_tbc = _simulate_sorted(parms, sim, verbose, mesh)
-    elif engine == "nufft":
-        vis_tbc = _simulate_banded(parms, sim, verbose, mesh)
-    elif mesh is not None:
-        vis_tbc = _simulate_direct_mesh(parms, sim, verbose, mesh)
-    else:
-        out = simulate_drift(sim.inst, sim.sky, sim.obs, sim.beam_fn,
-                             src_block=sim.src_block, gradient=grad)
-        vis_tbc = out[0] if grad else out
-        if grad:
-            # (T, 3, B, C) -> the reference's (3, nbl, nchan, n_acc)
-            gradients = {"baseline": np.ascontiguousarray(
-                np.transpose(out[1].cpu().numpy(), (1, 2, 3, 0)))}
-    skyvis = np.ascontiguousarray(
-        np.transpose(vis_tbc.cpu().numpy(), (1, 2, 0)))
-    _phase(verbose, "visibilities computed + transferred", t1)
+    run = tracing.current("simulation")
+    run.set(nbl=sim.bls.nbl, nchan=int(sim.freqs.size), n_acc=sim.obs.n_acc,
+            nsrc=sim.skymodel.nsrc)
+    with tracing.span("visibilities", line=verbose and
+                      "visibilities computed + transferred"):
+        grad = bool(parms["processing"].get("gradient_mode"))
+        engine = _resolve_engine(parms, dev)
+        bm = parms.get("beam") or {}
+        external = bool(bm.get("use_external") and bm.get("file"))
+        if external and (engine == "nufft" or grad):
+            print("[prisim_tpu_torch] beam.use_external: the external-beam "
+                  "route runs the direct engine, without gradients")
+        elif engine == "nufft" and (grad
+                                    or sim.sky.src_shape_sigma is not None):
+            print("[prisim_tpu_torch] %s, which the NUFFT engine does not "
+                  "compute; running the direct engine"
+                  % ("processing.gradient_mode asks for baseline gradients"
+                     if grad else "the sky has source shapes (extended "
+                     "sources)"))
+            engine = "direct"
+        gradients = None
+        mesh = None
+        if not (external or grad or sim.sky.src_shape_sigma is not None):
+            mesh = _mesh(parms, devs, engine)
+        sorted_spread = _nufft_spread(parms) in _SORTED
+        run.set(engine="direct" if external or engine != "nufft" else
+                "sorted" if sorted_spread else "banded")
+        if external:
+            vis_tbc = _simulate_external(parms, sim, verbose)
+        elif engine == "nufft" and sorted_spread:
+            vis_tbc = _simulate_sorted(parms, sim, verbose, mesh)
+        elif engine == "nufft":
+            vis_tbc = _simulate_banded(parms, sim, verbose, mesh)
+        elif mesh is not None:
+            vis_tbc = _simulate_direct_mesh(parms, sim, verbose, mesh)
+        else:
+            out = simulate_drift(sim.inst, sim.sky, sim.obs, sim.beam_fn,
+                                 src_block=sim.src_block, gradient=grad)
+            vis_tbc = out[0] if grad else out
+            if grad:
+                # (T, 3, B, C) -> the reference's (3, nbl, nchan, n_acc)
+                gradients = {"baseline": np.ascontiguousarray(
+                    np.transpose(out[1].cpu().numpy(), (1, 2, 3, 0)))}
+        with tracing.span("transfer"):
+            skyvis = np.ascontiguousarray(
+                np.transpose(vis_tbc.cpu().numpy(), (1, 2, 0)))
     return _finalize_simulation(parms, sim, skyvis, outdir, verbose, save,
-                                t0, dev, gradients=gradients)
+                                dev, gradients=gradients)
 
 
 _ON = ("auto", "true", "1", "yes", "on")
@@ -1268,15 +1310,18 @@ def banded_engine(parms, sim, collapse=True, settings=None):
     built as the driver builds them, with the `settings` of
     _banded_settings (computed when not given); `collapse` as in
     make_banded_plan. Raises PlanRejected when the plan is rejected."""
-    rank, node_model, truth, plan_kw = (settings if settings is not None
-                                        else _banded_settings(parms, sim))
-    plan = make_banded_plan(np.asarray(sim.bls.vectors), sim.inst.nu0,
-                            sim.inst.dnu, sim.freqs.size, rank=rank,
-                            collapse=collapse, **plan_kw)
-    pinvQ, Q = chebyshev_projection(sim.freqs, rank)
-    return plan, make_banded_snapshot_fns(
-        sim.inst, sim.sky, sim.beam_fn, plan, pinvQ, Q,
-        gate_src_block=sim.src_block, node_model=node_model, truth=truth)
+    with tracing.span("plan"):
+        rank, node_model, truth, plan_kw = (
+            settings if settings is not None
+            else _banded_settings(parms, sim))
+        plan = make_banded_plan(np.asarray(sim.bls.vectors), sim.inst.nu0,
+                                sim.inst.dnu, sim.freqs.size, rank=rank,
+                                collapse=collapse, **plan_kw)
+        pinvQ, Q = chebyshev_projection(sim.freqs, rank)
+        return plan, make_banded_snapshot_fns(
+            sim.inst, sim.sky, sim.beam_fn, plan, pinvQ, Q,
+            gate_src_block=sim.src_block, node_model=node_model,
+            truth=truth)
 
 
 def _banded_gate(parms, sim, plan, snap, sched, verbose, label=""):
@@ -1286,39 +1331,39 @@ def _banded_gate(parms, sim, plan, snap, sched, verbose, label=""):
     proc = parms["processing"]
     if not proc.get("nufft_crosscheck", True):
         return
-    Mh, Ml, pch, pcl = sched
-    t1 = time.time()
-    tol = float(proc.get("nufft_crosscheck_tol") or 2e-6)
-    rtol = float(proc.get("nufft_resid_tol") or 1e-4)
-    direct0, banded0, ok0, resid0, cs0 = snap.gate_fn(
-        Mh[0], Ml[0], pch[0], pcl[0])
-    dump = os.environ.get("PRISIM_DEBUG_XCHECK_DUMP")
-    if dump:
-        np.savez(dump, fast0=banded0, direct0=direct0,
-                 Mh0=Mh[0].cpu().numpy(), Ml0=Ml[0].cpu().numpy(),
-                 pch0=pch[0].cpu().numpy(), pcl0=pcl[0].cpu().numpy(),
-                 freqs=sim.freqs, bl=np.asarray(sim.bls.vectors),
-                 rank=plan.rank, resid0=resid0, csA0=cs0, ok0=ok0,
-                 truth_on=snap.truth)
-    dmax = float(np.abs(banded0 - direct0).max())
-    vmax = float(np.abs(direct0).max())
-    # relative to the coherent flux scale max_c sum_s |A_sc| (>= max|V|),
-    # which an f32 engine's absolute error scales with; both forms print
-    rel = dmax / max(vmax, cs0, 1e-30)
-    norms = ("max|dV|/max_c sum_s|A| = %.2e, max|dV|/max|V| = %.2e"
-             % (dmax / max(cs0, 1e-30), dmax / max(vmax, 1e-30)))
-    resid_bad = snap.truth and resid0 > rtol
-    if not ok0 or rel > tol or resid_bad:
-        raise _demote(parms, "banded NUFFT %sshared-amps cross-check "
-                      "FAILED (%s; rel=%.2e > %.0e, ok=%s%s)"
-                      % (label, norms, rel, tol, ok0,
-                         ", model resid=%.2e > %.0e" % (resid0, rtol)
-                         if resid_bad else ""))
-    if verbose:
-        print("[prisim_tpu_torch] banded/direct %sshared-amps cross-check "
-              "ok (%s%s)" % (label, norms, ", truth amps, model resid=%.2e"
-                             % resid0 if snap.truth else ""))
-    _phase(verbose, "banded %sshared-amps gate" % label, t1)
+    with tracing.span("gate", line=verbose and
+                      "banded %sshared-amps gate" % label):
+        Mh, Ml, pch, pcl = sched
+        tol = float(proc.get("nufft_crosscheck_tol") or 2e-6)
+        rtol = float(proc.get("nufft_resid_tol") or 1e-4)
+        direct0, banded0, ok0, resid0, cs0 = snap.gate_fn(
+            Mh[0], Ml[0], pch[0], pcl[0])
+        dump = os.environ.get("PRISIM_DEBUG_XCHECK_DUMP")
+        if dump:
+            np.savez(dump, fast0=banded0, direct0=direct0,
+                     Mh0=Mh[0].cpu().numpy(), Ml0=Ml[0].cpu().numpy(),
+                     pch0=pch[0].cpu().numpy(), pcl0=pcl[0].cpu().numpy(),
+                     freqs=sim.freqs, bl=np.asarray(sim.bls.vectors),
+                     rank=plan.rank, resid0=resid0, csA0=cs0, ok0=ok0,
+                     truth_on=snap.truth)
+        dmax = float(np.abs(banded0 - direct0).max())
+        vmax = float(np.abs(direct0).max())
+        # relative to the coherent flux scale max_c sum_s |A_sc| (>= max|V|),
+        # which an f32 engine's absolute error scales with; both forms print
+        rel = dmax / max(vmax, cs0, 1e-30)
+        norms = ("max|dV|/max_c sum_s|A| = %.2e, max|dV|/max|V| = %.2e"
+                 % (dmax / max(cs0, 1e-30), dmax / max(vmax, 1e-30)))
+        resid_bad = snap.truth and resid0 > rtol
+        if not ok0 or rel > tol or resid_bad:
+            raise _demote(parms, "banded NUFFT %sshared-amps cross-check "
+                          "FAILED (%s; rel=%.2e > %.0e, ok=%s%s)"
+                          % (label, norms, rel, tol, ok0,
+                             ", model resid=%.2e > %.0e" % (resid0, rtol)
+                             if resid_bad else ""))
+        if verbose:
+            print("[prisim_tpu_torch] banded/direct %sshared-amps cross-check "
+                  "ok (%s%s)" % (label, norms, ", truth amps, model resid=%.2e"
+                                 % resid0 if snap.truth else ""))
 
 
 def _simulate_banded(parms, sim, verbose, mesh=None):
@@ -1343,7 +1388,8 @@ def _simulate_banded(parms, sim, verbose, mesh=None):
     _banded_gate(parms, sim, plan, snap, sched, verbose)
     snaps, oks = [], []
     for t in range(sim.obs.n_acc):
-        v, ok = snap(*(a[t] for a in sched))
+        with tracing.span("snapshot", t=t):
+            v, ok = snap(*(a[t] for a in sched))
         snaps.append(v)
         oks.append(ok)
     if not bool(torch.stack(oks).all()):
@@ -1407,14 +1453,16 @@ def _simulate_sorted(parms, sim, verbose, mesh=None):
     gate = proc.get("nufft_crosscheck", True)
     if gate:
         # the gate's direct snapshot first, with the whole device to itself
-        t1 = time.time()
-        seh, sel, amps, _ = snapshot_nudft_inputs(
-            sim.inst, sim.sky, *(a[0] for a in sched), sim.beam_fn)
-        coherent = float(amps.double().abs().sum(dim=0).max())
-        direct0 = direct_visibilities(seh, sel, sim.inst, amps,
-                                      sim.src_block).cpu().numpy()
-        del seh, sel, amps
-        _phase(verbose, "NUFFT gate: direct snapshot 0", t1)
+        with tracing.span("gate", line=verbose and
+                          "NUFFT gate: direct snapshot 0"):
+            with tracing.span("beam_flux"):
+                seh, sel, amps, _ = snapshot_nudft_inputs(
+                    sim.inst, sim.sky, *(a[0] for a in sched), sim.beam_fn)
+            coherent = float(amps.double().abs().sum(dim=0).max())
+            with tracing.span("k1a"):
+                direct0 = direct_visibilities(seh, sel, sim.inst, amps,
+                                              sim.src_block).cpu().numpy()
+            del seh, sel, amps
     if verbose:
         print("[prisim_tpu_torch] delay-space NUFFT, %s spread: %d bl x %d "
               "ch, rank %d%s" % (spread, sim.inst.nbl, freqs.size, rank,
@@ -1422,17 +1470,20 @@ def _simulate_sorted(parms, sim, verbose, mesh=None):
                                      mesh.shape, ", ".join(
                                          str(d) for d in mesh.devices.flat))
                                  if mesh is not None else ""))
-    t1 = time.time()
-    if mesh is not None:
-        from .parallel.mesh import simulate_drift_nufft_sharded
-        vis = simulate_drift_nufft_sharded(sim.inst, sim.sky, sim.obs,
-                                           sim.beam_fn, mesh, rank=rank)
-    else:
-        pinvQ, Q = chebyshev_projection(freqs, rank)
-        vis = torch.stack([simulate_snapshot_nufft_jit(
-            sim.inst, sim.sky, *(a[t] for a in sched), sim.beam_fn, pinvQ,
-            Q, spread=spread) for t in range(sim.obs.n_acc)])
-    _phase(verbose, "NUFFT snapshots", t1)
+    with tracing.span("snapshots", line=verbose and "NUFFT snapshots"):
+        if mesh is not None:
+            from .parallel.mesh import simulate_drift_nufft_sharded
+            vis = simulate_drift_nufft_sharded(sim.inst, sim.sky, sim.obs,
+                                               sim.beam_fn, mesh, rank=rank)
+        else:
+            pinvQ, Q = chebyshev_projection(freqs, rank)
+            snaps = []
+            for t in range(sim.obs.n_acc):
+                with tracing.span("snapshot", t=t):
+                    snaps.append(simulate_snapshot_nufft_jit(
+                        sim.inst, sim.sky, *(a[t] for a in sched),
+                        sim.beam_fn, pinvQ, Q, spread=spread))
+            vis = torch.stack(snaps)
     if not gate:
         return vis
     tol = float(proc.get("nufft_crosscheck_tol") or 1e-4)
@@ -1521,21 +1572,23 @@ def _simulate_external(parms, sim, verbose):
     Mh, Ml, pch, pcl = schedule_tensors(sim.obs, sim.inst.latitude, dev)
     snaps = []
     for t in range(sim.obs.n_acc):
-        sh, _ = df_rotate3(Mh[t], Ml[t], sim.sky.s_eq_hi, sim.sky.s_eq_lo)
-        altaz = geom.dircos2altaz(np.clip(sh.cpu().numpy().astype(
-            np.float64), -1.0, 1.0), xp=np)
-        pix, wgt = (torch.as_tensor(x, device=dev)
-                    for x in ext.interp_weights(altaz))
+        with tracing.span("snapshot", t=t):
+            sh, _ = df_rotate3(Mh[t], Ml[t], sim.sky.s_eq_hi,
+                               sim.sky.s_eq_lo)
+            altaz = geom.dircos2altaz(np.clip(sh.cpu().numpy().astype(
+                np.float64), -1.0, 1.0), xp=np)
+            pix, wgt = (torch.as_tensor(x, device=dev)
+                        for x in ext.interp_weights(altaz))
 
-        def beam(s, f, pix=pix, wgt=wgt):
-            pb = ExternalBeam.device_evaluate(logtable, pix, wgt, chunk)
-            if sector is not None:
-                pb = pb * _sector_mask(s, *sector)[:, None]
-            return pb
+            def beam(s, f, pix=pix, wgt=wgt):
+                pb = ExternalBeam.device_evaluate(logtable, pix, wgt, chunk)
+                if sector is not None:
+                    pb = pb * _sector_mask(s, *sector)[:, None]
+                return pb
 
-        snaps.append(simulate_snapshot(sim.inst, sim.sky, Mh[t], Ml[t],
-                                       pch[t], pcl[t], beam,
-                                       src_block=sim.src_block))
+            snaps.append(simulate_snapshot(sim.inst, sim.sky, Mh[t], Ml[t],
+                                           pch[t], pcl[t], beam,
+                                           src_block=sim.src_block))
     return torch.stack(snaps)
 
 
@@ -1553,76 +1606,72 @@ def _noise_generator(parms):
     return torch.Generator().manual_seed(seed)
 
 
-def _phase(verbose, label, since):
-    if verbose:
-        print("[prisim_tpu_torch] ... %s (%.2f s)"
-              % (label, time.time() - since))
-
-
-def _finalize_simulation(parms, sim, skyvis, outdir, verbose, save, t0,
-                         device, gradients=None):
+def _finalize_simulation(parms, sim, skyvis, outdir, verbose, save, device,
+                         gradients=None):
     """Noise, gains, container, phasing, projection, optional delay
     transform, save. `gradients` ({"baseline": (3, nbl, nchan, n_acc)} or
     None) goes into the container unphased, as in the reference."""
     tp = parms["telescope"]
     bls, freqs, obs = sim.bls, sim.freqs, sim.obs
-    t1 = time.time()
-    tsys = build_tsys(parms, freqs, bls.nbl, obs.n_acc)
-    df = float(parms["bandpass"]["freq_resolution"])
-    rms = thermal_noise_rms(
-        float(tp.get("A_eff") or 154.0), df, float(obs.t_acc[0]),
-        tsys, nbl=bls.nbl, nchan=freqs.size, ntimes=obs.n_acc,
-        eff_Q=float(tp.get("eff_Q") or 1.0))
-    noise = generate_noise(_noise_generator(parms), rms).numpy()
-    _phase(verbose, "Tsys, rms and noise", t1)
-    t1 = time.time()
-    gains = 1.0
-    if parms["gains"].get("file"):
-        gi = GainInfo.read_hdf5(parms["gains"]["file"])
-        gains = gi.eval_gains(bls.labels, freqs=freqs,
-                              times=np.asarray(obs.jd) - obs.jd[0],
-                              kind=parms["gains"].get("interp") or "cubic",
-                              smoothness=parms["gains"].get("smoothness"))
-    vis = apply_gains(skyvis, gains, noise)
+    with tracing.span("finalize.noise",
+                      line=verbose and "Tsys, rms and noise"):
+        tsys = build_tsys(parms, freqs, bls.nbl, obs.n_acc)
+        df = float(parms["bandpass"]["freq_resolution"])
+        rms = thermal_noise_rms(
+            float(tp.get("A_eff") or 154.0), df, float(obs.t_acc[0]),
+            tsys, nbl=bls.nbl, nchan=freqs.size, ntimes=obs.n_acc,
+            eff_Q=float(tp.get("eff_Q") or 1.0))
+        noise = generate_noise(_noise_generator(parms), rms).numpy()
+    with tracing.span("finalize.post", line=verbose and
+                      "gains, container, phasing, projection"):
+        gains = 1.0
+        if parms["gains"].get("file"):
+            gi = GainInfo.read_hdf5(parms["gains"]["file"])
+            gains = gi.eval_gains(
+                bls.labels, freqs=freqs,
+                times=np.asarray(obs.jd) - obs.jd[0],
+                kind=parms["gains"].get("interp") or "cubic",
+                smoothness=parms["gains"].get("smoothness"))
+        vis = apply_gains(skyvis, gains, noise)
 
-    bp, bp_wts = _bandpass_weights(parms, bls.nbl, freqs, obs.n_acc)
-    vs = VisibilitySet(
-        baselines=bls.vectors, labels=bls.labels, freqs=freqs,
-        lst=obs.lst_deg, skyvis=skyvis, vis=vis, vis_noise=noise,
-        vis_rms=rms, timestamps=obs.jd, t_acc=obs.t_acc,
-        bp=bp, bp_wts=bp_wts, Tsys=tsys,
-        A_eff=float(tp.get("A_eff") or 154.0),
-        eff_Q=float(tp.get("eff_Q") or 1.0),
-        latitude=float(tp["latitude"]),
-        longitude=float(tp.get("longitude") or 0.0),
-        altitude=float(tp.get("altitude") or 0.0),
-        pointing_center=obs.pointing_altaz, pointing_coords="altaz",
-        phase_center=obs.pointing_altaz.copy(),
-        phase_center_coords="altaz",
-        telescope=sim.telescope,
-        layout=dict(positions=np.asarray(sim.layout.positions),
-                    labels=np.asarray(sim.layout.labels, dtype=str),
-                    ids=np.arange(len(sim.layout.labels)), coords="ENU"),
-        flux_unit="Jy", gradients=gradients,
-        blgroups=_blgroups_dict(bls))
-    ph = parms.get("phasing") or {}
-    if ph.get("center") is not None:
-        vs = phase_centering(vs, np.atleast_2d(
-            np.asarray(ph["center"], dtype=np.float64)),
-            ph.get("coords", "altaz"))
-    vs = project_baselines(vs)
-    if parms["processing"].get("delay_transform"):
-        vs = delay_transform(vs, pad=float(
-            parms["processing"].get("f_pad") or 1.0), device=device)
-    _phase(verbose, "gains, container, phasing, projection", t1)
+        bp, bp_wts = _bandpass_weights(parms, bls.nbl, freqs, obs.n_acc)
+        vs = VisibilitySet(
+            baselines=bls.vectors, labels=bls.labels, freqs=freqs,
+            lst=obs.lst_deg, skyvis=skyvis, vis=vis, vis_noise=noise,
+            vis_rms=rms, timestamps=obs.jd, t_acc=obs.t_acc,
+            bp=bp, bp_wts=bp_wts, Tsys=tsys,
+            A_eff=float(tp.get("A_eff") or 154.0),
+            eff_Q=float(tp.get("eff_Q") or 1.0),
+            latitude=float(tp["latitude"]),
+            longitude=float(tp.get("longitude") or 0.0),
+            altitude=float(tp.get("altitude") or 0.0),
+            pointing_center=obs.pointing_altaz, pointing_coords="altaz",
+            phase_center=obs.pointing_altaz.copy(),
+            phase_center_coords="altaz",
+            telescope=sim.telescope,
+            layout=dict(positions=np.asarray(sim.layout.positions),
+                        labels=np.asarray(sim.layout.labels, dtype=str),
+                        ids=np.arange(len(sim.layout.labels)),
+                        coords="ENU"),
+            flux_unit="Jy", gradients=gradients,
+            blgroups=_blgroups_dict(bls))
+        ph = parms.get("phasing") or {}
+        if ph.get("center") is not None:
+            vs = phase_centering(vs, np.atleast_2d(
+                np.asarray(ph["center"], dtype=np.float64)),
+                ph.get("coords", "altaz"))
+        vs = project_baselines(vs)
+        if parms["processing"].get("delay_transform"):
+            vs = delay_transform(vs, pad=float(
+                parms["processing"].get("f_pad") or 1.0), device=device)
     outpath = None
     if save:
-        t1 = time.time()
-        outpath = _save_products(vs, parms, outdir)
-        _phase(verbose, "products saved", t1)
+        with tracing.span("write", line=verbose and "products saved"):
+            outpath = _save_products(vs, parms, outdir)
     if verbose:
         print("[prisim_tpu_torch] done in %.2f s%s"
-              % (time.time() - t0, (" -> " + outpath) if outpath else ""))
+              % (tracing.current("simulation").seconds(),
+                 (" -> " + outpath) if outpath else ""))
     return vs, outpath
 
 

@@ -25,6 +25,7 @@ import functools
 
 import torch
 
+from .. import tracing
 from .._build import load_kernel_library
 from . import nufft_banded as _nb
 
@@ -143,7 +144,9 @@ def spread_splits(n_live, longest, slots, max_split=_MAX_SPLIT):
 
 def _worklist(lib, plan, uh, live, S_t, stream):
     """Passes 1-3 on the card: (urange, counts, offsets, tiles) and the
-    host ints (live items, longest list)."""
+    host ints (live items, longest list), read back in the span
+    k2.worklist, which counts k2.tiles (the listed tiles) and
+    k2.items_live (the items with a tile)."""
     dev = uh.device
     B, D, K = plan.nbl, plan.ndir, plan.K
     n_rb = -(-plan.R_max // _nb.K2_ROWS)
@@ -159,8 +162,11 @@ def _worklist(lib, plan, uh, live, S_t, stream):
         raise RuntimeError("K2 worklist count failed with cudaError_t %d"
                            % err)
     offsets = (torch.cumsum(counts, 0) - counts).to(torch.int32)
-    total, n_live, longest = torch.stack(
-        [counts.sum(), (counts > 0).sum(), counts.max()]).tolist()
+    with tracing.span("k2.worklist"):
+        total, n_live, longest = torch.stack(
+            [counts.sum(), (counts > 0).sum(), counts.max()]).tolist()
+        tracing.count("k2.tiles", total)
+        tracing.count("k2.items_live", n_live)
     tiles = torch.empty((max(total, 1),), dtype=torch.int32, device=dev)
     err = lib.prisim_banded_k2_fill(
         urange.data_ptr(), *tabs, offsets.data_ptr(), tiles.data_ptr(), S_t,
@@ -188,9 +194,12 @@ def banded_spread_cuda(plan, u_h, u_l, P_r):
 
     u_h/u_l: float32 two-float u streams, D*S_pad values (_prep's
     (1, D*S_pad)); P_r (r, S_pad) float32 or float64 payload, on one
-    device."""
+    device. Counts the sources whose payload is not all zero as
+    src.live."""
     _check_inputs(plan, u_h, u_l, P_r)
     if P_r.device.type == "cpu":
+        if tracing.recording():
+            tracing.count_device("src.live", (P_r != 0).any(dim=0).sum())
         return _nb.banded_spread_plain(plan, u_h, u_l, P_r)
     if P_r.device.type != "cuda":
         raise ValueError("banded_spread_cuda runs on CUDA or CPU tensors, "
@@ -198,6 +207,8 @@ def banded_spread_cuda(plan, u_h, u_l, P_r):
     dev = P_r.device
     B, r, R = plan.nbl, plan.rank, plan.R_max
     uh, ul, P64, live, S_t = _tiled(plan, u_h, u_l, P_r)
+    if tracing.recording():
+        tracing.count_device("src.live", live.sum())
     ivh, ivl = _nb._split(plan.consts["inv_ch"])
     nmh, nml = _nb._split(plan.consts["numid_c"])
     lib = _library()
@@ -240,3 +251,4 @@ def banded_spread_cuda(plan, u_h, u_l, P_r):
 banded_spread_cuda.launches = 0
 banded_spread_cuda.last_counts = None
 banded_spread_cuda.last_splits = None
+tracing.register_launches("k2", lambda: banded_spread_cuda.launches)

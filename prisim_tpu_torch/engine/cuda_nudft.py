@@ -34,6 +34,7 @@ import functools
 
 import torch
 
+from .. import tracing
 from .._build import load_kernel_library
 from .nudft import ANCHOR, choose_ql, nudft_visibilities
 
@@ -111,6 +112,7 @@ def _launch(lib, mode, seh, sel, blh, bll, amps, s_sky, sigma, grid_scalars,
     dev = seh.device
     B = blh.shape[0]
     perm, n_live = live_order(amps)
+    tracing.count_device("src.live", n_live)
     nb, tile, per_sm = _shape(mode, Q, L, dev.index)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     n_split = source_splits(-(-B // nb) * -(-nchan // tile), n_sm * per_sm)
@@ -212,3 +214,6 @@ nudft_cuda.launches = 0
 nudft_cuda.launches_grad = 0
 nudft_cuda.launches_ext = 0
 nudft_cuda.last_splits = 0
+tracing.register_launches("k1a", lambda: nudft_cuda.launches)
+tracing.register_launches("k1b", lambda: nudft_cuda.launches_grad)
+tracing.register_launches("k1c", lambda: nudft_cuda.launches_ext)

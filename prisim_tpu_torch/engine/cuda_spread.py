@@ -28,6 +28,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import tracing
 from .._build import load_kernel_library
 from .nufft_delay import _alpha, fold_delay_bins, kb_tap_coeffs
 
@@ -213,3 +214,5 @@ def delay_spread_cuda(tau_h, tau_l, P, nu0, dnu, nchan, beta=2.0, K=13,
 
 
 delay_spread_cuda.launches = 0
+tracing.register_launches("delay_spread",
+                          lambda: delay_spread_cuda.launches)

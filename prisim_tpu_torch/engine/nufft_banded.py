@@ -42,6 +42,7 @@ import torch
 
 from .. import constants as CNST
 from .. import healpix as hp
+from .. import tracing
 from .. import twofloat as tf
 from .nufft_delay import (chebyshev_node_model, kb_fourier, kb_tap_coeffs,
                           spectral_project)
@@ -687,6 +688,7 @@ def make_banded_snapshot_fns(instrument, sky, beam_fn, plan, pinvQ, Q,
 
     def _chunk(c, Mh, Ml, pch, pcl):
         sl = slice(c * src_chunk, (c + 1) * src_chunk)
+        tracing.count("src.processed", src_chunk)
         sh, slo = df_rotate3(Mh, Ml, seqh[sl], seql[sl])
         seh, sel = tf.df_add(sh, slo, -pch[None, :], -pcl[None, :])
         if truth is not None:
@@ -703,11 +705,14 @@ def make_banded_snapshot_fns(instrument, sky, beam_fn, plan, pinvQ, Q,
         rows = None
         ok = torch.ones((), dtype=torch.bool, device=dev)
         for c in range(n_chunks):
-            u_h, u_l, P_r, okc = prep_chunk(c, Mh, Ml, pch, pcl)
-            part = _spread(plan, u_h, u_l, P_r)
-            rows = part if rows is None else rows.add_(part)
+            with tracing.span("prep", chunk=c):
+                u_h, u_l, P_r, okc = prep_chunk(c, Mh, Ml, pch, pcl)
+            with tracing.span("k2", chunk=c):
+                part = _spread(plan, u_h, u_l, P_r)
+                rows = part if rows is None else rows.add_(part)
             ok = ok & okc
-        return _post(plan, rows, Qc).to(torch.complex64), ok
+        with tracing.span("post"):
+            return _post(plan, rows, Qc).to(torch.complex64), ok
 
     def gate(Mh, Ml, pch, pcl):
         C = instrument.nchan
@@ -718,25 +723,27 @@ def make_banded_snapshot_fns(instrument, sky, beam_fn, plan, pinvQ, Q,
         ok = True
         rmax = amax = 0.0
         for c in range(n_chunks):
-            sl, sh, seh, sel, P = _chunk(c, Mh, Ml, pch, pcl)
-            u_h, u_l, P_r, okc = _prep(plan, seh, sel, P)
-            part = _spread(plan, u_h, u_l, P_r)
-            rows = part if rows is None else rows.add_(part)
-            ok = ok and bool(okc)
-            amps = _beam_and_flux(sh, flux[sl], freqs_f32, beam_fn,
-                                  pc=pch).contiguous()
-            if truth is None:
-                vd += direct_visibilities(seh, sel, instrument, amps,
-                                          gate_src_block)
-                csum += amps.double().abs().sum(dim=0)
-            else:
-                model = P @ Qc.t()                               # (S, C)
-                for part_amps in _split64(model):
-                    vd += direct_visibilities(seh, sel, instrument,
-                                              part_amps, gate_src_block)
-                rmax = max(rmax, float((model - amps.double()).abs().max()))
-                amax = max(amax, float(amps.abs().max()))
-                csum += model.abs().sum(dim=0)
+            with tracing.span("gate.chunk", chunk=c):
+                sl, sh, seh, sel, P = _chunk(c, Mh, Ml, pch, pcl)
+                u_h, u_l, P_r, okc = _prep(plan, seh, sel, P)
+                part = _spread(plan, u_h, u_l, P_r)
+                rows = part if rows is None else rows.add_(part)
+                ok = ok and bool(okc)
+                amps = _beam_and_flux(sh, flux[sl], freqs_f32, beam_fn,
+                                      pc=pch).contiguous()
+                if truth is None:
+                    vd += direct_visibilities(seh, sel, instrument, amps,
+                                              gate_src_block)
+                    csum += amps.double().abs().sum(dim=0)
+                else:
+                    model = P @ Qc.t()                           # (S, C)
+                    for part_amps in _split64(model):
+                        vd += direct_visibilities(seh, sel, instrument,
+                                                  part_amps, gate_src_block)
+                    rmax = max(rmax,
+                               float((model - amps.double()).abs().max()))
+                    amax = max(amax, float(amps.abs().max()))
+                    csum += model.abs().sum(dim=0)
         vb = _post(plan, rows, Qc)
         resid = rmax / max(amax, 1e-30)
         return (vd.cpu().numpy(), vb.cpu().numpy(), ok, resid,

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from .. import geometry as geom
+from .. import tracing
 from .. import twofloat as tf
 from .cuda_nudft import nudft_cuda
 from .nudft import freq_grid_scalars, nudft_visibilities
@@ -205,11 +206,13 @@ def rotated_sources(Mh, Ml, pch, pcl, s_eq_hi, s_eq_lo, flux, freqs_f32,
     gradient moments and the gaussian weights take). Mh/Ml (3, 3) and
     pch/pcl (3,) are float32 tensors on the device. With `above_horizon`
     only the sources above the horizon are kept, before the beam is
-    evaluated (the others' rows would be zero)."""
+    evaluated (the others' rows would be zero). Counts the rows weighted
+    as src.processed."""
     sh, sl = df_rotate3(Mh, Ml, s_eq_hi, s_eq_lo)
     if above_horizon:
         up = torch.nonzero(sh[:, 2] > 0.0).reshape(-1)
         sh, sl, flux = sh[up], sl[up], flux[up]
+    tracing.count("src.processed", flux.shape[0])
     seh, sel = tf.df_add(sh, sl, -pch[None, :], -pcl[None, :])
     return seh, sel, _beam_and_flux(sh, flux, freqs_f32, beam_fn, pc=pch), sh
 
@@ -249,13 +252,16 @@ def direct_visibilities(seh, sel, instrument, amps, src_block=512,
     CUDA tensors, the plain version (in blocks of src_block sources) for
     CPU tensors. Returns (B, C) complex64, and with `gradient` also the
     (3, B, C) complex64 moments; `src_shape_sigma` (S,) weights extended
-    sources. Both need s_sky (S, 3)."""
+    sources. Both need s_sky (S, 3). Counts the sources whose amplitude
+    row is not all zero as src.live (the kernels' live_order)."""
     args = (seh, sel, instrument.bl_hi, instrument.bl_lo, amps,
             instrument.grid_scalars(), instrument.nchan)
     kw = dict(s_sky=s_sky, src_shape_sigma=src_shape_sigma,
               gradient=gradient)
     if seh.is_cuda:
         return nudft_cuda(*args, **kw)
+    if tracing.recording():
+        tracing.count_device("src.live", (amps != 0).any(dim=1).sum())
     return nudft_visibilities(*args, src_block=src_block, **kw)
 
 
@@ -267,13 +273,15 @@ def simulate_snapshot(instrument, sky, Mh, Ml, pch, pcl, beam_fn,
     version's source blocks (CPU tensors); use_pallas and interpret as in
     check_kernel_knobs."""
     check_kernel_knobs(sky.flux.device, use_pallas, interpret)
-    seh, sel, amps, sh = snapshot_nudft_inputs(instrument, sky, Mh, Ml, pch,
-                                               pcl, beam_fn)
+    with tracing.span("beam_flux"):
+        seh, sel, amps, sh = snapshot_nudft_inputs(instrument, sky, Mh, Ml,
+                                                   pch, pcl, beam_fn)
     shaped = sky.src_shape_sigma is not None
-    return direct_visibilities(
-        seh, sel, instrument, amps, src_block,
-        s_sky=sh if (gradient or shaped) else None,
-        src_shape_sigma=sky.src_shape_sigma, gradient=gradient)
+    with tracing.span("k1b" if gradient else "k1c" if shaped else "k1a"):
+        return direct_visibilities(
+            seh, sel, instrument, amps, src_block,
+            s_sky=sh if (gradient or shaped) else None,
+            src_shape_sigma=sky.src_shape_sigma, gradient=gradient)
 
 
 def schedule_tensors(observation, latitude, device):
@@ -292,10 +300,12 @@ def simulate_drift_rotations(instrument, sky, Mh, Ml, pch, pcl, beam_fn,
     (T, 3), float32 tensors. Returns (T, B, C) complex64 on the device,
     and with `gradient` also the (T, 3, B, C) moments."""
     check_kernel_knobs(sky.flux.device, use_pallas, interpret)
-    snaps = [simulate_snapshot(instrument, sky, Mh[t], Ml[t], pch[t],
-                               pcl[t], beam_fn, src_block=src_block,
-                               gradient=gradient)
-             for t in range(Mh.shape[0])]
+    snaps = []
+    for t in range(Mh.shape[0]):
+        with tracing.span("snapshot", t=t):
+            snaps.append(simulate_snapshot(
+                instrument, sky, Mh[t], Ml[t], pch[t], pcl[t], beam_fn,
+                src_block=src_block, gradient=gradient))
     if gradient:
         return (torch.stack([v for v, _ in snaps]),
                 torch.stack([g for _, g in snaps]))

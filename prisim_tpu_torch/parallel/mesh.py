@@ -38,6 +38,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import tracing
 from .. import twofloat as tf
 from ..engine.cuda_nudft import nudft_cuda
 from ..engine.nudft import nudft_visibilities
@@ -212,16 +213,18 @@ def _sharded_drift(mesh, instrument, sky, observation, beam_fn, shard_fn,
     out = torch.empty((T, n_bl * nb, nchan_pad), dtype=torch.complex64,
                       device=first)
     for t in range(T):
-        # every shard's launches first, then the reads
-        parts = {key: shard_fn(inputs[key], tuple(a[t] for a in sched[dev]))
-                 for key, dev in shards.items()}
-        for i in range(n_bl):
-            for j in range(n_ch):
-                acc = parts[i, j, 0]
-                for k in range(1, n_src):
-                    acc = acc + parts[i, j, k].to(acc.device)
-                out[t, i * nb:(i + 1) * nb, j * nc:(j + 1) * nc] = \
-                    acc.to(first)
+        with tracing.span("snapshot", t=t):
+            # every shard's launches first, then the reads
+            parts = {key: shard_fn(inputs[key],
+                                   tuple(a[t] for a in sched[dev]))
+                     for key, dev in shards.items()}
+            for i in range(n_bl):
+                for j in range(n_ch):
+                    acc = parts[i, j, 0]
+                    for k in range(1, n_src):
+                        acc = acc + parts[i, j, k].to(acc.device)
+                    out[t, i * nb:(i + 1) * nb, j * nc:(j + 1) * nc] = \
+                        acc.to(first)
     return out[:, :nbl, :nchan]
 
 
@@ -372,11 +375,12 @@ def simulate_drift_banded_sharded(instrument, sky, observation, beam_fn,
     out = torch.empty((T, B_pad, nchan), dtype=torch.complex64, device=first)
     oks = []
     for t in range(T):
-        parts = {i: run(*(a[t] for a in sched[dev]))
-                 for i, (dev, run) in runs.items()}
-        for i, (v, ok) in parts.items():
-            out[t, i * nb:(i + 1) * nb] = v.to(first)
-            oks.append(ok.to(first))
+        with tracing.span("snapshot", t=t):
+            parts = {i: run(*(a[t] for a in sched[dev]))
+                     for i, (dev, run) in runs.items()}
+            for i, (v, ok) in parts.items():
+                out[t, i * nb:(i + 1) * nb] = v.to(first)
+                oks.append(ok.to(first))
     ok = bool(torch.stack(oks).all())
     return out[:, :B, :], ok
 

@@ -1,0 +1,243 @@
+"""The benchmark's readers of the program's spans and counters
+(gpubench/spans.py, gpubench/metrics/{plan_s, prep_ms, k2_tiles,
+snap_idle_share, live_src_share, noise_s, phasing_s}.py) on hand-built
+records and a synthetic device trace, on a checkout without the recorder,
+and in a traced tiny cell on the CPU, where the recorder keeps the
+profiled simulation alone."""
+
+import json
+import sys
+from pathlib import Path
+from types import SimpleNamespace
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
+
+from gpubench import harness as H  # noqa: E402
+from gpubench import spans  # noqa: E402
+from prisim_tpu_torch import tracing  # noqa: E402
+
+NEW = ("plan_s", "prep_ms", "k2_tiles", "snap_idle_share", "live_src_share",
+       "noise_s", "phasing_s")
+MS = 1_000_000          # ns
+
+
+def _rec(rid, parent, name, a_ms, b_ms, counts=None, device_ms=None,
+         trace="t1"):
+    r = dict(id=rid, parent=parent, name=name, trace=trace,
+             start_ns=10_000 * MS + a_ms * MS, end_ns=10_000 * MS + b_ms * MS,
+             attrs={}, counts=counts or {}, launches={})
+    if device_ms is not None:
+        r["device_ms"] = device_ms
+    return r
+
+
+def _banded():
+    """A banded simulation: plan, a gate whose chunk has a prep, two
+    snapshots of two source chunks each, the finalize."""
+    recs = [_rec(1, None, "simulation", 0, 1000),
+            _rec(2, 1, "inputs", 0, 100),
+            _rec(3, 1, "visibilities", 100, 800),
+            _rec(4, 3, "plan", 100, 350),
+            _rec(5, 3, "gate", 350, 500),
+            _rec(6, 5, "gate.chunk", 350, 500),
+            _rec(7, 6, "prep", 350, 400, {"src.processed": 100},
+                 device_ms=99.0),
+            _rec(8, 6, "k2", 400, 450, {"src.live": 50}),
+            _rec(9, 8, "k2.worklist", 410, 420, {"k2.tiles": 999})]
+    rid = 10
+    for t, a in enumerate((500, 650)):
+        snap = rid
+        recs.append(_rec(snap, 3, "snapshot", a, a + 100))
+        rid += 1
+        for c in range(2):
+            recs.append(_rec(rid, snap, "prep", a + 40 * c, a + 40 * c + 20,
+                             {"src.processed": 100}, device_ms=10.0 + t))
+            recs.append(_rec(rid + 1, snap, "k2", a + 40 * c + 20,
+                             a + 40 * c + 40, {"src.live": 40 + t}))
+            recs.append(_rec(rid + 2, rid + 1, "k2.worklist", a + 40 * c + 30,
+                             a + 40 * c + 31,
+                             {"k2.tiles": 7 + t, "k2.items_live": 3}))
+            rid += 3
+        recs.append(_rec(rid, snap, "post", a + 80, a + 100))
+        rid += 1
+    recs += [_rec(rid, 3, "transfer", 800, 810),
+             _rec(rid + 1, 1, "finalize.noise", 810, 900),
+             _rec(rid + 2, 1, "finalize.post", 900, 1000)]
+    return recs
+
+
+def _direct():
+    recs = [_rec(1, None, "simulation", 0, 100),
+            _rec(2, 1, "visibilities", 0, 80)]
+    for t in range(2):
+        recs += [_rec(3 + 3 * t, 2, "snapshot", 10 + 30 * t, 30 + 30 * t),
+                 _rec(4 + 3 * t, 3 + 3 * t, "beam_flux", 10 + 30 * t,
+                      20 + 30 * t, {"src.processed": 200}),
+                 _rec(5 + 3 * t, 3 + 3 * t, "k1a", 20 + 30 * t, 30 + 30 * t,
+                      {"src.live": 90 + 20 * t})]
+    recs += [_rec(9, 1, "finalize.noise", 80, 90),
+             _rec(10, 1, "finalize.post", 90, 100)]
+    return recs
+
+
+def _device(busy_ms):
+    """A DeviceTrace's fields: busy intervals on the host clock (s)."""
+    busy = [[10.0 + a / 1e3, 10.0 + b / 1e3] for a, b in busy_ms]
+    return SimpleNamespace(ops=[("k", a, b) for a, b in busy], busy=busy)
+
+
+def _info(monkeypatch, records, device=None):
+    monkeypatch.setattr(tracing, "take", lambda: list(records))
+    return SimpleNamespace(trace=device, cell={}, profiled={"ok": True})
+
+
+def _read(name, info):
+    return H.load_metric(name).read(info)
+
+
+def test_banded_readers(monkeypatch):
+    info = _info(monkeypatch, _banded())
+    assert _read("plan_s", info) == pytest.approx(0.25)
+    # the gate's prep (99 ms) is no snapshot's: (2 x 10 + 2 x 11) / 2
+    assert _read("prep_ms", info) == pytest.approx(21.0)
+    # the gate's 999 tiles likewise: (2 x 7 + 2 x 8) / 2
+    assert _read("k2_tiles", info) == pytest.approx(15.0)
+    # (2 x 40 + 2 x 41) / (4 x 100)
+    assert _read("live_src_share", info) == pytest.approx(40.5)
+    assert _read("noise_s", info) == pytest.approx(0.09)
+    assert _read("phasing_s", info) == pytest.approx(0.1)
+    assert _read("snap_idle_share", info) is None      # no device trace
+
+
+def test_direct_readers_and_absent_spans(monkeypatch):
+    info = _info(monkeypatch, _direct())
+    for name in ("plan_s", "prep_ms", "k2_tiles"):
+        assert _read(name, info) is None, name
+    assert _read("live_src_share", info) == pytest.approx(50.0)
+    assert _read("noise_s", info) == pytest.approx(0.01)
+    assert _read("phasing_s", info) == pytest.approx(0.01)
+
+
+def test_snap_idle_share(monkeypatch):
+    """Busy inside the snapshots only: the busy outside them (the inputs
+    and the finalize) and the idle between them do not count."""
+    dev = _device([(0, 10), (12, 20), (25, 35), (40, 55), (70, 200)])
+    info = _info(monkeypatch, _direct(), dev)
+    # snapshots [10, 30] and [40, 60]: busy 8 + 5 and 15 of 40 ms
+    assert _read("snap_idle_share", info) == pytest.approx(30.0)
+    info = _info(monkeypatch, _direct(), _device([]))
+    assert _read("snap_idle_share", info) is None
+
+
+def test_the_records_are_taken_once_per_run(monkeypatch):
+    calls = []
+
+    def take():
+        calls.append(1)
+        return _banded()
+    monkeypatch.setattr(tracing, "take", take)
+    info = SimpleNamespace(trace=None)
+    for name in NEW:
+        _read(name, info)
+    assert len(calls) == 1
+
+
+def test_the_last_simulation_trace_is_read(monkeypatch):
+    """Records of two roots (the profiled simulation, and a span of
+    something else after it): the last "simulation" root's are read."""
+    other = [dict(r, trace="t0") for r in _direct()]
+    tail = [_rec(900, None, "stage", 0, 1, trace="t2")]
+    info = _info(monkeypatch, other + _banded() + tail)
+    assert _read("plan_s", info) == pytest.approx(0.25)
+    assert {r["trace"] for r in spans.of(info).records} == {"t1"}
+
+
+@pytest.mark.parametrize("records", [[], None])
+def test_nothing_where_nothing_was_recorded(monkeypatch, records):
+    """No record (the recorder kept none), or no recorder at all (a
+    checkout older than prisim_tpu_torch.tracing): every reader reads
+    nothing and none raises."""
+    if records is None:
+        monkeypatch.setitem(sys.modules, "prisim_tpu_torch.tracing", None)
+    else:
+        monkeypatch.setattr(tracing, "take", lambda: records)
+    info = SimpleNamespace(trace=_device([(0, 1)]))
+    for name in NEW:
+        assert _read(name, info) is None, name
+
+
+def test_benchmark_lists_the_new_metrics():
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    entries = {m["name"]: m for m in bench["per_layer"]}
+    for name in NEW:
+        mod = H.load_metric(name)
+        e = entries[name]
+        assert (mod.UNIT, mod.SOURCE, mod.MOVES, mod.LAYER) == (
+            e["unit"], e["source"], e["moves"], e["layer"])
+        assert e["moves"] == "vis_rate"
+        assert set(e["workloads"]) <= {w["name"] for w in bench["workloads"]}
+    assert [m["name"] for m in bench["per_layer"][-len(NEW):]] == list(NEW)
+
+
+CELLS = r'''
+import json, sys
+sys.path.insert(0, sys.argv[1])
+sys.path.insert(0, sys.argv[1] + "/gpubench/tests")
+from gpubench import harness as H, spans
+from conftest import tiny
+from prisim_tpu_torch import tracing
+seen = {}
+orig = H.TraceInfo.__init__
+def keep(self, *a, **k):
+    orig(self, *a, **k)
+    seen["info"] = self
+H.TraceInfo.__init__ = keep
+cell, config = tiny("hera331.banded", engine="nufft")
+e2e, per_layer = H.benchmark_entries("hera331.banded")
+res = H.run_cell(cell, config, 5, 1.0, True, device="cpu", per_layer=per_layer,
+                 end_to_end=e2e, log=open("/dev/null", "w"))
+tr = spans.of(seen["info"])
+prof = seen["info"].profiled["spans"]
+out = dict(correct=res["correct"], metrics=res["metrics"],
+           roots=len(tr.named("simulation")), snaps=len(tr.snapshots()),
+           n_acc=cell["n_acc"], left=len(tracing.take()),
+           finalize=prof["noise"][0][2] + prof["post"][0][2])
+cell, config = tiny("hera37.direct", n_acc=2)
+res = H.run_cell(cell, config, 6, 0.3, False, device="cpu",
+                 log=open("/dev/null", "w"))
+out.update(untraced_correct=res["correct"], untraced_left=len(tracing.take()))
+print(json.dumps(out))
+'''
+
+
+def test_traced_and_untraced_tiny_cells_on_the_cpu(tmp_path):
+    """The banded cell cut to the CPU, traced: the recorder keeps the
+    profiled simulation alone (the warm and the other simulations of the
+    window run with it off), the span readers read it, and the finalize
+    split adds up to that simulation's finalize phase lines. An untraced
+    run of the small direct cell records nothing. In a process of its own,
+    as the harness refuses a process that holds JAX."""
+    import os
+    import subprocess
+    script = tmp_path / "cells.py"
+    script.write_text(CELLS)
+    proc = subprocess.run([sys.executable, str(script), str(ROOT)],
+                          capture_output=True, text=True, timeout=600,
+                          env=dict(os.environ, PYTHONPATH=""))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got["correct"] and got["untraced_correct"]
+    m = got["metrics"]
+    for name in ("plan_s", "live_src_share", "noise_s", "phasing_s"):
+        assert m[name]["value"] >= 0, name
+    # the card's readers: stream times, K2's worklist, the device trace
+    for name in ("prep_ms", "k2_tiles", "snap_idle_share"):
+        assert name not in m
+    assert got["roots"] == 1 and got["snaps"] == got["n_acc"]
+    assert m["noise_s"]["value"] + m["phasing_s"]["value"] == \
+        pytest.approx(got["finalize"], abs=0.01)
+    assert got["left"] == 0 and got["untraced_left"] == 0

@@ -250,7 +250,7 @@ def test_jax_profile_writes_torch_trace(tmp_path):
     prof = str(tmp_path / "prof")
     parms["diagnosis"]["jax_profile"] = prof
     run_simulation(parms, verbose=False, save=False, device="cpu")
-    (name,) = os.listdir(prof)
+    (name,) = [n for n in os.listdir(prof) if n.startswith("trace_")]
     with open(os.path.join(prof, name)) as f:
         trace = json.load(f)
     assert len(trace["traceEvents"]) > 0

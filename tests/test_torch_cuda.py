@@ -379,6 +379,48 @@ def test_k2_worklist_matches_plain(cuda, case):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", ["north_star_like", "dead_sources"])
+def test_span_counters_match_the_kernels_own_counts(cuda, case):
+    """With the recorder on, a K2 launch counts k2.tiles and k2.items_live
+    equal to the sum and the live count of banded_worklist_cuda's counts,
+    and src.live equal to the sources with a payload; a K1a launch counts
+    src.live equal to live_order's n_live; the spans record the launches
+    and their stream milliseconds."""
+    from prisim_tpu_torch import tracing
+    from prisim_tpu_torch.engine.cuda_nudft import live_order
+    rng = np.random.RandomState(1)
+    bl = np.concatenate([rng.uniform(-300, 300, (30, 3)) * [1, 1, 0.01],
+                         [[14.6, 0.0, 0.0]]])
+    plan, (u_h, u_l, P_r, _) = _banded_problem(bl, 1024, 32, 20000, 2048,
+                                               seed=2, cuda=cuda)
+    if case == "dead_sources":
+        P_r[:, torch.as_tensor(rng.rand(P_r.shape[1]) < 0.33,
+                               device=cuda)] = 0.0
+    counts = banded_worklist_cuda(plan, u_h, u_l, P_r)[1]
+    se, bl1, amps = _problem(4096, 64, 256, seed=3, bl_scale=300.0)
+    amps[::3] = 0.0
+    sh, sl = (torch.as_tensor(x, device=cuda) for x in tf.split_f64(se))
+    bh, blo = (torch.as_tensor(x, device=cuda) for x in tf.split_f64(bl1))
+    amps = torch.as_tensor(amps, device=cuda)
+    tracing.take()
+    with tracing.on():
+        with tracing.span("simulation", device=str(cuda)):
+            with tracing.span("k2"):
+                banded_spread_cuda(plan, u_h, u_l, P_r)
+            with tracing.span("k1a"):
+                nudft_cuda(sh, sl, bh, blo, amps,
+                           freq_grid_scalars(150e6, 97656.25), 256)
+    _, k2, worklist, k1a = tracing.take()
+    assert worklist["name"] == "k2.worklist"
+    assert worklist["counts"] == {"k2.tiles": int(counts.sum()),
+                                  "k2.items_live": int((counts > 0).sum())}
+    assert k2["counts"] == {"src.live": int((P_r != 0).any(dim=0).sum())}
+    assert k1a["counts"] == {"src.live": int(live_order(amps)[1])}
+    assert k2["launches"] == {"k2": 1} and k1a["launches"] == {"k1a": 1}
+    assert k2["device_ms"] > 0 and k1a["device_ms"] > 0
+
+
+@pytest.mark.gpu
 def test_k2_rejects_bad_inputs(cuda):
     plan, (u_h, u_l, P_r, _) = _banded_problem(
         [[30.0, 0.0, 0.0]], 64, 4, 100, 128, seed=0, cuda=cuda)
