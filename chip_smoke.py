@@ -3,8 +3,9 @@
     python3 chip_smoke.py
 
 Builds the NUDFT kernels K1a, K1b and K1c (csrc/nudft.cu, instances of
-one kernel), K2 (csrc/banded.cu) and delay_spread (csrc/spread.cu) with
-nvcc (sm_90a), the three builds started together, then:
+one kernel), K2 (csrc/banded.cu), delay_spread (csrc/spread.cu) and
+airy_amps (csrc/beam.cu) with nvcc (sm_90a), the four builds started
+together, then:
 
 1. K1a phase: K1a and its plain PyTorch version on the card at the slice's
    snapshot shape (HERA-37 non-redundant: 666 baselines x 1024 channels x
@@ -212,12 +213,25 @@ p. run_simulation(device="cuda", save=True) on the sections of
    against K1a on the float32 amps and the float64 golden on 16 baselines
    in both normalizations beside the north star's 1e-6; the FITS product
    read back with load_fits, equal to the returned run.
+q. Kernel airy_amps (csrc/beam.cu), run right after the K1a phase: the
+   slice's beam (HERA's Airy dish about its default, zenith orientation)
+   times flux by the kernel against the torch chain it replaces
+   (engine/observe._beam_and_flux with the same beam, without .airy) on
+   the card, at the direct cells' snapshot shapes, 786,432 x 1024
+   (hera331.direct) and 196,608 x 256 (hera37.direct): seeded directions
+   over the sphere with zenith, x < 1e-6, s_z = 0, below the horizon and
+   x = 8 rows, and seeded fluxes with a zero row; the two tables equal bit
+   for bit, one launch each; both times and the kernel's least-bytes
+   bound. The direct and banded slice runs then count its launches: one
+   per accumulation, and one for the banded gate's source chunk.
 
 After the phases it prints the card's name and power limit, the roofline
 share (bound / time, against the H100 data-sheet peaks) of K1a, K1b, K1c,
-K2 and delay_spread at the slice and the north star, and the kernels line:
-each kernel's launches in its slice run (K1a and K2 also in phases k-m's
-and p's runs, K1a and delay_spread in phases n-o's),
+K2, delay_spread and airy_amps at the slice and the north star (airy_amps
+at the direct cells' shapes), and the kernels line: each kernel's
+launches in its slice run (K1a and K2 also in phases k-m's and p's runs,
+K1a and delay_spread in phases n-o's, airy_amps in the direct and banded
+slice runs),
 error against its plain version, time, plain time, bound (from this run's
 inputs) and library time (null: no single PyTorch call computes any of
 them).
@@ -254,6 +268,9 @@ EXT_BAR = 3e-6        # K1c vs the golden, max|dV| / max|V|
 PLAIN_BAR = 1e-7
 N_GOLDEN_BL = 16
 N_TIMED = 3
+# airy_amps's (sources, channels) in the direct cells' snapshots:
+# hera331.direct (nside 256 x 1024 ch) and hera37.direct (nside 128 x 256)
+AIRY_SHAPES = ((786432, 1024), (196608, 256))
 # Data-sheet peaks of the H100 SXM (NVIDIA, at 700 W): HBM3 bytes/s, and
 # float64 FLOP/s outside the tensor cores and on them (DMMA)
 HBM_BPS = 3.35e12
@@ -486,6 +503,107 @@ def kernel_phase(sim, cuda):
     return dict(v0=v_k.cpu().numpy(), max_abs_err=max_abs, ms=ms_k,
                 plain_ms=ms_p, bound_ms=bd["bound_ms"],
                 bound_by=bd["bound_by"], golden_rel=g_rel_v)
+
+
+def airy_rows(S, freqs, diameter, dev, seed=0):
+    """S float32 direction cosines over the sphere and (S, C) float32
+    fluxes in [0.5, 20), seeded, with the rows airy_amps must get right
+    first: zenith (x = 0), x < 1e-6 off zenith, s_z = 0 exactly, below the
+    horizon, x = a sin(t) = 8 at the middle channel; row 5 has zero
+    flux."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    s = torch.randn((S, 3), generator=g, dtype=torch.float64, device=dev)
+    s = s / s.norm(dim=1, keepdim=True)
+    a = 2.0 * np.pi * float(freqs[len(freqs) // 2]) / 299792458.0 \
+        * (0.5 * diameter)
+    st = 8.0 / a
+    s[:5] = torch.tensor([[0.0, 0.0, 1.0], [1e-9, 0.0, 1.0],
+                          [0.6, 0.8, 0.0], [0.3, -0.4, -np.sqrt(0.75)],
+                          [st, 0.0, np.sqrt(1.0 - st * st)]],
+                         dtype=torch.float64, device=dev)
+    flux = torch.rand((S, len(freqs)), generator=g, device=dev) * 19.5 + 0.5
+    flux[5] = 0.0
+    return s.float().contiguous(), flux.contiguous()
+
+
+def airy_bound(s, C):
+    """airy_amps's least bytes for one table, at HBM_BPS: the flux rows of
+    the sources above the horizon read once, the (S, C) float32 table
+    written once, the directions (S, 3) and the channels' factor (C,) read
+    once (the gpubench metric amps_roofline's count)."""
+    S = s.shape[0]
+    live = int((s[:, 2] > 0).sum())
+    return dict(bound(0.0, live * C * 4 + S * C * 4 + S * 12 + C * 4, 1.0),
+                live=live)
+
+
+def airy_amps_phase(beam_fn, freqs, dev, shapes=AIRY_SHAPES):
+    """Phase q: kernel airy_amps against the torch chain it replaces, with
+    the slice's beam (beam_fn, which must carry .airy about zenith) at
+    each (S, C) of `shapes` (C channels spread over `freqs`); the tables
+    must be equal bit for bit. Returns the kernels line's numbers of the
+    first shape and each shape's time and bound."""
+    from prisim_tpu_torch.engine import cuda_beam
+    from prisim_tpu_torch.engine.observe import _beam_and_flux
+    dish = getattr(beam_fn, "airy", None)
+    assert dish is not None, "the slice's beam is no plain Airy dish"
+    dia, axis = dish
+    assert axis is None or (abs(axis[0]) < 1e-12 and abs(axis[1]) < 1e-12
+                            and axis[2] > 0), axis
+
+    def chain(d, f):            # the same beam, without .airy
+        return beam_fn(d, f)
+
+    freqs = np.asarray(freqs, np.float64)
+    rows = []
+    for S, C in shapes:
+        pick = np.linspace(0, len(freqs) - 1, C).round().astype(int)
+        f = torch.as_tensor(freqs[pick], dtype=torch.float32, device=dev)
+        s, flux = airy_rows(S, freqs[pick], dia, dev)
+
+        def kernel():
+            return cuda_beam.airy_amps_cuda(s, flux, dia, f, axis=axis)
+
+        def plain():
+            return _beam_and_flux(s, flux, f, chain)
+
+        want = plain()
+        n0 = cuda_beam.airy_amps_cuda.launches
+        got = kernel()
+        sync(dev)
+        assert cuda_beam.airy_amps_cuda.launches == n0 + 1
+        assert got.shape == (S, C) and got.dtype == torch.float32
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        same = bool(torch.equal(got, want))
+        print("airy_amps vs the torch chain, %d x %d (%.1f m dish, axis "
+              "%s): max|d| = %.4e of max|amps| %.4e, %s"
+              % (S, C, dia, axis, err, scale,
+                 "bit-identical" if same else "NOT bit-identical"))
+        if not same:
+            raise SystemExit("airy_amps differs from the torch chain at "
+                             "%d x %d: max|d| = %.3e" % (S, C, err))
+        assert scale > 0 and not bool(got[[2, 3, 5]].any())
+        assert torch.equal(got[0], flux[0])             # zenith: pattern 1
+        del want, got
+        # times: kernel, plain, plain, kernel (one call, one card)
+        t_k = cuda_time_ms(kernel)
+        t_p = cuda_time_ms(plain)
+        t_p2 = cuda_time_ms(plain)
+        t_k2 = cuda_time_ms(kernel)
+        bd = airy_bound(s, C)
+        ms_k, ms_p = 0.5 * (t_k + t_k2), 0.5 * (t_p + t_p2)
+        print("airy_amps time %.4f ms (runs %.4f, %.4f), torch chain %.4f ms "
+              "(runs %.4f, %.4f); bound %.4f ms (%s; %d of %d sources above "
+              "the horizon)" % (ms_k, t_k, t_k2, ms_p, t_p, t_p2,
+                                bd["bound_ms"], bd["bound_by"], bd["live"],
+                                S))
+        rows.append(dict(bd, shape=(S, C), ms=ms_k, plain_ms=ms_p,
+                         max_abs_err=err))
+        del s, flux
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return dict(rows[0], shapes=rows)
 
 
 def phased_snapshot0(vs, parms, v0, t=0):
@@ -3110,7 +3228,8 @@ def main():
         return 1
     from prisim_tpu_torch._build import build_info, load_kernel_library
     from prisim_tpu_torch.driver import prepare_simulation, run_simulation
-    from prisim_tpu_torch.engine import cuda_banded, cuda_nudft, cuda_spread
+    from prisim_tpu_torch.engine import (cuda_banded, cuda_beam, cuda_nudft,
+                                         cuda_spread)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3126,10 +3245,11 @@ def main():
     print("h5py importable: %s; yaml importable: %s" % (have_h5py, have_yaml))
 
     t0 = time.time()
-    with ThreadPoolExecutor(max_workers=3) as pool:
-        list(pool.map(load_kernel_library, ("nudft", "banded", "spread")))
+    libs = ("nudft", "banded", "spread", "beam")
+    with ThreadPoolExecutor(max_workers=len(libs)) as pool:
+        list(pool.map(load_kernel_library, libs))
     print("kernel builds (in parallel): %.2f s" % (time.time() - t0))
-    for kname in ("nudft", "banded", "spread"):
+    for kname in libs:
         info = build_info(kname)
         print("%s build: %.2f s (%s) -> %s"
               % (kname, info["seconds"],
@@ -3143,23 +3263,31 @@ def main():
     t0 = time.time()
     sim = prepare_simulation(direct, cuda)
     k = kernel_phase(sim, cuda)
-    del sim
     torch.cuda.empty_cache()
     print("[K1a phase: %.2f s]" % (time.time() - t0))
+    t0 = time.time()
+    airy = airy_amps_phase(sim.beam_fn, sim.freqs, cuda)
+    del sim
+    torch.cuda.empty_cache()
+    print("[airy_amps phase: %.2f s]" % (time.time() - t0))
 
     print("direct slice phase: run_simulation(device='cuda'), engine: "
           "direct, products: NPZ%s" % (" + HDF5" if have_h5py else
                                        " only (no h5py)"))
     t0 = time.time()
     cuda_nudft.nudft_cuda.launches = 0
+    cuda_beam.airy_amps_cuda.launches = 0
     vs, outdir = run_simulation(direct, verbose=True, save=True, device=cuda)
     k1a_launches = cuda_nudft.nudft_cuda.launches
+    airy_launches = cuda_beam.airy_amps_cuda.launches
     wall = time.time() - t0
     print("direct slice wall-clock: %.3f s (666 bl x 1024 ch x 4 acc, "
-          "49152 src), K1a launches: %d" % (wall, k1a_launches))
+          "49152 src), K1a launches: %d, airy_amps launches: %d"
+          % (wall, k1a_launches, airy_launches))
     assert vs.skyvis.shape == (666, 1024, 4), vs.skyvis.shape
     assert np.isfinite(vs.skyvis).all() and np.isfinite(vs.vis).all()
-    assert k1a_launches == 4, k1a_launches
+    assert k1a_launches == 4 and airy_launches == 4, (k1a_launches,
+                                                      airy_launches)
     want = phased_snapshot0(vs, direct, k["v0"])
     d0 = np.abs(vs.skyvis[:, :, 0] - want).max() / np.abs(want).max()
     print("snapshot 0 vs kernel phase: max|dV|/max|V| = %.3e (%s)"
@@ -3183,16 +3311,22 @@ def main():
     os.environ["PRISIM_DEBUG_XCHECK_DUMP"] = dump
     cuda_nudft.nudft_cuda.launches = 0
     cuda_banded.banded_spread_cuda.launches = 0
+    cuda_beam.airy_amps_cuda.launches = 0
     vs, outdir = run_simulation(banded, verbose=True, save=True, device=cuda)
     k2_launches = cuda_banded.banded_spread_cuda.launches
     gate_k1a = cuda_nudft.nudft_cuda.launches
+    gate_airy = cuda_beam.airy_amps_cuda.launches
     del os.environ["PRISIM_DEBUG_XCHECK_DUMP"]
     wall = time.time() - t0
     print("banded slice wall-clock: %.3f s, K2 launches: %d (gate 1 + 4 "
           "snapshots expected), K1a launches: %d (the gate's direct side, "
-          "hi + lo: 2 expected; a demotion adds 4)"
-          % (wall, k2_launches, gate_k1a))
-    assert k2_launches == 5 and gate_k1a == 2, (k2_launches, gate_k1a)
+          "hi + lo: 2 expected; a demotion adds 4), airy_amps launches: %d "
+          "(the gate's one source chunk: 1 expected; the truth-amps "
+          "snapshots weight no f32 beam)"
+          % (wall, k2_launches, gate_k1a, gate_airy))
+    assert k2_launches == 5 and gate_k1a == 2 and gate_airy == 1, (
+        k2_launches, gate_k1a, gate_airy)
+    airy_launches += gate_airy
     assert vs.skyvis.shape == (666, 1024, 4), vs.skyvis.shape
     assert np.isfinite(vs.skyvis).all() and np.isfinite(vs.vis).all()
     with np.load(dump) as g:
@@ -3389,7 +3523,9 @@ def main():
             ("K2, north-star snapshot", ns["k2_ms"], ns["k2_bound"]),
             ("delay_spread, slice snapshot", srt["ms"], srt),
             ("delay_spread, north-star snapshot", srt["ns_ms"],
-             srt["ns_bound"])):
+             srt["ns_bound"])) + tuple(
+            ("airy_amps, %d x %d table" % a["shape"], a["ms"], a)
+            for a in airy["shapes"]):
         print("roofline share of %s: bound %.4f ms (%s) / %.4f ms = %.4f, "
               "against the data-sheet peaks (FP64 %.0f TFLOP/s, FP64 tensor "
               "%.0f TFLOP/s, HBM %.2f TB/s), on %s"
@@ -3414,7 +3550,10 @@ def main():
         row("banded_k2", cuda_banded.KERNEL_SOURCE, cuda_banded.TPU_KERNEL,
             k2_launches, k2),
         row("delay_spread", cuda_spread.KERNEL_SOURCE, cuda_spread.TPU_KERNEL,
-            spread_launches, srt)]}))
+            spread_launches, srt),
+        # no TPU kernel: XLA fused the chain it replaces on the TPU
+        row("airy_amps", cuda_beam.KERNEL_SOURCE, None, airy_launches,
+            airy)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -107,6 +107,13 @@ def _vec3(p, like):
                            device=like.device).reshape(3)
 
 
+def _unit_axis(pointing_dircos, like):
+    """The beam axis `pointing_dircos` as a unit float32 (3,) tensor on the
+    device of `like`."""
+    p = _vec3(pointing_dircos, like)
+    return p / torch.linalg.norm(p)
+
+
 def _offaxis_sin(dircos, pointing_dircos=None):
     """sin(angle from the beam axis) per source, and the horizon mask.
 
@@ -116,8 +123,7 @@ def _offaxis_sin(dircos, pointing_dircos=None):
         sin_t = torch.sqrt(torch.clip(dircos[:, 0] ** 2 + dircos[:, 1] ** 2,
                                       0.0, 1.0))
         return sin_t, dircos[:, 2] < 0.0
-    p = _vec3(pointing_dircos, dircos)
-    p = p / torch.linalg.norm(p)
+    p = _unit_axis(pointing_dircos, dircos)
     cosang = torch.clip(dircos @ p, -1.0, 1.0)
     sinang = torch.sqrt(torch.clip(1.0 - cosang ** 2, 0.0, 1.0))
     below = torch.logical_or(dircos[:, 2] < 0.0, cosang < 0.0)
@@ -198,12 +204,18 @@ def airy_df_available(freqs, diameter):
             <= _AIRY_TAIL_HI)
 
 
+def _airy_arg_scale(freqs, diameter):
+    """k D/2 per channel (k = 2 pi nu / c): airy_beam's argument is this
+    times sin(theta)."""
+    k = 2.0 * np.pi * freqs / CNST.c
+    return k * (0.5 * diameter)
+
+
 def airy_beam(dircos, freqs, diameter, pointing_dircos=None, power=True):
     """Airy pattern of a uniformly illuminated dish, 2 J1(x)/x with
     x = k (D/2) sin(theta)."""
     sin_t, below = _offaxis_sin(dircos, pointing_dircos)
-    k = 2.0 * np.pi * freqs / CNST.c
-    arg = k[None, :] * (0.5 * diameter) * sin_t[:, None]
+    arg = _airy_arg_scale(freqs, diameter)[None, :] * sin_t[:, None]
     small = torch.abs(arg) < 1e-6
     safe = torch.where(small, torch.ones_like(arg), arg)
     pattern = torch.where(small, 1.0 - arg * arg / 8.0,

@@ -15,6 +15,54 @@ import torch
 from . import analytic as AB
 
 
+def _feed_telescope(telescope, pol):
+    """The telescope dict as `pol`'s feed sees it: a Y feed is the X feed
+    rotated 90 deg in azimuth."""
+    if pol in ("Y", "y"):
+        # resolve the effective orientation before rotating: the
+        # orientation-sensitive branches default to (1,0,0) when
+        # orientation_dircos is absent, so a Y feed rotates that default
+        ox, oy, oz = ((telescope or {}).get("orientation_dircos")
+                      or (1.0, 0.0, 0.0))
+        telescope = dict(telescope or {},
+                         orientation_dircos=(-oy, ox, oz))
+    return telescope
+
+
+# Telescope ids whose beam is an Airy dish of a fixed diameter (m), and
+# those whose beam is never one
+_DISH_IDS = {"hera": 14.0, "hirax": 6.0}
+_OTHER_IDS = ("vla", "gmrt", "ugmrt", "mwa", "mwa_dipole", "paper")
+
+
+def _dish(telescope):
+    """(diameter, axis) of the Airy dish that primary_beam computes for the
+    feed's `telescope` dict, or None where it computes another beam: hera
+    and hirax about orientation_dircos (None: zenith), a generic `shape:
+    dish` of `size` about primary_beam's pointing_center_dircos (None
+    here)."""
+    tid = telescope.get("id")
+    if tid in _DISH_IDS:
+        return _DISH_IDS[tid], telescope.get("orientation_dircos")
+    if (tid not in _OTHER_IDS and telescope.get("aperture_locs") is None
+            and telescope.get("shape", "delta") == "dish"):
+        return telescope.get("size"), None
+    return None
+
+
+def airy_dish(telescope, pol="X"):
+    """(diameter, axis) of the Airy power pattern that primary_beam
+    computes for `telescope` and `pol` with no beamformer and no pointing
+    centre, or None where it computes another: a pol other than X or Y, a
+    dish of no size, and every beam that is no Airy dish."""
+    if pol not in ("X", "Y", "x", "y"):
+        return None
+    dish = _dish(_feed_telescope(telescope, pol) or {})
+    if dish is None or not dish[0]:
+        return None
+    return float(dish[0]), dish[1]
+
+
 def _power_from_field(ep, af=None, gp=None):
     """power = mean over realizations of |ep * AF|^2, times gp^2."""
     if af is not None:
@@ -47,14 +95,7 @@ def primary_beam(dircos, freqs, telescope, pointing_info=None,
     """
     if pol not in ("X", "Y", "x", "y"):
         raise ValueError("pol must be 'X' or 'Y'")
-    if pol in ("Y", "y"):
-        # resolve the effective orientation before rotating: the
-        # orientation-sensitive branches default to (1,0,0) when
-        # orientation_dircos is absent, so a Y feed rotates that default
-        ox, oy, oz = ((telescope or {}).get("orientation_dircos")
-                      or (1.0, 0.0, 0.0))
-        telescope = dict(telescope or {},
-                         orientation_dircos=(-oy, ox, oz))
+    telescope = _feed_telescope(telescope, pol)
     tid = (telescope or {}).get("id", None)
 
     if tid in ("vla",):
@@ -62,11 +103,10 @@ def primary_beam(dircos, freqs, telescope, pointing_info=None,
     if tid in ("gmrt", "ugmrt"):
         return AB.gmrt_beam(dircos, freqs, instrument=tid,
                             band_freq=band_freq)
-    if tid in ("hera", "hirax"):
-        dia = 14.0 if tid == "hera" else 6.0
-        return AB.airy_beam(dircos, freqs, dia,
-                            pointing_dircos=telescope.get(
-                                "orientation_dircos"), power=True)
+    if tid in _DISH_IDS:
+        dia, axis = _dish(telescope)
+        return AB.airy_beam(dircos, freqs, dia, pointing_dircos=axis,
+                            power=True)
     if tid in ("mwa",):
         ep = AB.dipole_beam(dircos, freqs, 0.74,
                             orientation_dircos=telescope.get(
@@ -131,7 +171,7 @@ def primary_beam(dircos, freqs, telescope, pointing_info=None,
                             short_dipole=short_dipole, half_wave=half_wave,
                             power=False)
     elif shape == "dish":
-        ep = AB.airy_beam(dircos, freqs, telescope["size"],
+        ep = AB.airy_beam(dircos, freqs, _dish(telescope)[0],
                           pointing_dircos=pointing_center_dircos,
                           power=False)
     elif shape == "gaussian":

@@ -78,7 +78,7 @@ from . import geometry as geom
 from . import windows as win
 from .beams.analytic import airy_beam_df, airy_df_available, \
     mwa_tile_positions
-from .beams.dispatch import primary_beam
+from .beams.dispatch import airy_dish, primary_beam
 from .beams.external import ExternalBeam
 from .beams.jones import mueller_unpol_weights
 from .config import dump_parms, load_parms
@@ -801,10 +801,12 @@ def _make_beam_fn(parms, telescope, freqs, pointing_info=None):
     beam is that unpolarized-sky Mueller weight of the beam.feeds crossed
     dipoles (beams/jones.py; XY is sign-indefinite).
 
-    Where the beam is a plain chromatic zenith Airy dish (the conditions
-    of the reference, prisim_tpu/driver.py:983-1015: no sector, no
-    steering, no external beam, no ground plane, no Mueller component),
-    it also carries
+    Where the beam is a plain chromatic Airy dish (the conditions of the
+    reference, prisim_tpu/driver.py:983-1015: no sector, no steering, no
+    external beam, no ground plane, no Mueller component), it carries
+    beam_fn.airy = (diameter, axis) (beams.dispatch.airy_dish), by which
+    observe._beam_and_flux weights CUDA tensors with the airy_amps kernel,
+    and, where the telescope's own dish (the X feed's) points at zenith,
     beam_fn.df_eval(s_hi, s_lo, nu) -> (S, len(nu)) float64, the truth
     pattern of the banded engine's truth-amps path."""
     bm = parms.get("beam") or {}
@@ -860,24 +862,19 @@ def _make_beam_fn(parms, telescope, freqs, pointing_info=None):
     if (sector is None and pointing_info is None and not achromatic
             and not bm.get("use_external")
             and not telescope.get("groundplane")):
-        tid = telescope.get("id")
-        odc = telescope.get("orientation_dircos")
-        # hera/hirax steer the Airy axis by orientation_dircos and the
-        # truth form is zenith-only; the generic dish ignores orientation
-        zenith = odc is None or (abs(odc[0]) < 1e-12 and abs(odc[1]) < 1e-12
-                                 and odc[2] > 0)
-        if tid in ("hera", "hirax"):
-            dia = (14.0 if tid == "hera" else 6.0) if zenith else None
-        elif (tid not in ("vla", "gmrt", "ugmrt", "mwa", "mwa_dipole",
-                          "paper")
-              and telescope.get("aperture_locs") is None
-              and telescope.get("shape") == "dish"):
-            dia = telescope.get("size")
-        else:
-            dia = None
-        if dia and airy_df_available(freqs, float(dia)):
-            beam_fn.df_eval = functools.partial(airy_beam_df,
-                                                diameter=float(dia))
+        dish = airy_dish(telescope, pol)
+        if dish is not None:
+            beam_fn.airy = dish
+        # the truth form is zenith-only; as in the reference, the dish and
+        # its axis are the telescope's own, whatever the pol
+        truth = airy_dish(telescope)
+        if truth is not None:
+            dia, odc = truth
+            zenith = odc is None or (abs(odc[0]) < 1e-12
+                                     and abs(odc[1]) < 1e-12 and odc[2] > 0)
+            if zenith and airy_df_available(freqs, dia):
+                beam_fn.df_eval = functools.partial(airy_beam_df,
+                                                    diameter=dia)
     return beam_fn
 
 

@@ -10,7 +10,9 @@ accumulations takes the place of lax.scan.
 A snapshot whose tensors lie on a CUDA card runs the NUDFT kernels
 (cuda_nudft.nudft_cuda: K1a, with the gradient moments K1b and the
 gaussian weights of extended sources K1c); one whose tensors lie on the
-CPU runs their plain version (nudft.nudft_visibilities).
+CPU runs their plain version (nudft.nudft_visibilities). On a card, the
+beam of a plain Airy dish and the flux are weighted in one kernel
+(cuda_beam.airy_amps_cuda).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 from .. import geometry as geom
 from .. import tracing
 from .. import twofloat as tf
+from .cuda_beam import airy_amps_cuda
 from .cuda_nudft import nudft_cuda
 from .nudft import freq_grid_scalars, nudft_visibilities
 
@@ -188,7 +191,14 @@ def _beam_and_flux(s_enu_hi, flux, freqs_f32, beam_fn, pc=None):
 
     pc: the snapshot's (3,) pointing dircos tensor. A beam_fn marked
     `needs_pointing = True` (a phased array steered per accumulation)
-    receives it as a third argument."""
+    receives it as a third argument. A beam_fn that carries `airy =
+    (diameter, axis)` (a plain chromatic Airy dish, driver._make_beam_fn)
+    weights CUDA tensors in one launch of the airy_amps kernel, which
+    computes what the torch chain below computes."""
+    airy = getattr(beam_fn, "airy", None)
+    if airy is not None and flux.is_cuda:
+        return airy_amps_cuda(s_enu_hi.contiguous(), flux.contiguous(),
+                              airy[0], freqs_f32.contiguous(), axis=airy[1])
     if pc is not None and getattr(beam_fn, "needs_pointing", False):
         pb = beam_fn(s_enu_hi, freqs_f32, pc)
     else:

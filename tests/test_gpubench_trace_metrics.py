@@ -1,6 +1,7 @@
 """The benchmark's readers of the program's spans and counters
 (gpubench/spans.py, gpubench/metrics/{plan_s, prep_ms, k2_tiles,
-snap_idle_share, live_src_share, noise_s, phasing_s}.py) on hand-built
+snap_idle_share, live_src_share, noise_s, phasing_s, amps_kernel_share,
+amps_roofline}.py) on hand-built
 records and a synthetic device trace, on a checkout without the recorder,
 and in a traced tiny cell on the CPU, where the recorder keeps the
 profiled simulation alone."""
@@ -166,7 +167,7 @@ def test_nothing_where_nothing_was_recorded(monkeypatch, records):
     else:
         monkeypatch.setattr(tracing, "take", lambda: records)
     info = SimpleNamespace(trace=_device([(0, 1)]))
-    for name in NEW:
+    for name in NEW + AMPS[:1]:
         assert _read(name, info) is None, name
 
 
@@ -180,7 +181,84 @@ def test_benchmark_lists_the_new_metrics():
             e["unit"], e["source"], e["moves"], e["layer"])
         assert e["moves"] == "vis_rate"
         assert set(e["workloads"]) <= {w["name"] for w in bench["workloads"]}
-    assert [m["name"] for m in bench["per_layer"][-len(NEW):]] == list(NEW)
+    names = [m["name"] for m in bench["per_layer"]]
+    start = names.index(NEW[0])
+    assert names[start:start + len(NEW)] == list(NEW)
+
+
+AMPS = ("amps_kernel_share", "amps_roofline")
+
+
+def _direct_with_kernel(kernel_snapshots):
+    """_direct's records, with one airy_amps launch in the beam_flux spans
+    (and so in the snapshot spans) of `kernel_snapshots`."""
+    recs = _direct()
+    for r in recs:
+        t = (r["id"] - 3) // 3
+        if r["name"] in ("snapshot", "beam_flux") and t in kernel_snapshots:
+            r["launches"]["airy_amps"] = 1
+    return recs
+
+
+@pytest.mark.parametrize("kernel_snapshots,want", [
+    ((0, 1), 100.0), ((1,), 50.0), ((), None)])
+def test_amps_kernel_share(monkeypatch, kernel_snapshots, want):
+    """src.processed of the snapshots whose beam_flux launched airy_amps,
+    over all snapshots'; nothing where no snapshot took the kernel (the
+    parent, or another beam)."""
+    info = _info(monkeypatch, _direct_with_kernel(kernel_snapshots))
+    got = _read("amps_kernel_share", info)
+    assert got == (None if want is None else pytest.approx(want))
+
+
+def _kernel_info(ops, engine="direct"):
+    """A direct cell's TraceInfo fields: device ops (name, start s, end s),
+    and a reference of 1000 sources x 8 channels with 400 and 600 above
+    the horizon in its two snapshots."""
+    trace = SimpleNamespace(ops=ops)
+    trace.kernel_seconds = lambda pattern: H.DeviceTrace.kernel_seconds(
+        trace, pattern)
+    ref = SimpleNamespace(nsrc=1000, nchan=8,
+                          live_counts=lambda lst: [400, 600])
+    return SimpleNamespace(trace=trace, cell={"expect_engine": engine},
+                           profiled={"ok": True, "lst_init": 3.0}, ref=ref)
+
+
+def test_amps_roofline():
+    """The least bytes over the kernel's own device time: each snapshot's
+    live flux rows read, the table written, directions and channel factors
+    read once, at 3.35 TB/s; nothing without the kernel or the trace, or in
+    a banded cell."""
+    mod = H.load_metric("amps_roofline")
+    kernel = "void (anonymous namespace)::airy_amps_kernel<true>(...)"
+    ops = [(kernel, 0.0, 2e-6), ("nudft_k1<false, false>", 2e-6, 1.0),
+           (kernel, 1.0, 1.0 + 3e-6)]
+    nbytes = (400 + 600) * 8 * 4 + 2 * (1000 * 8 * 4 + 1000 * 12 + 8 * 4)
+    assert mod.read(_kernel_info(ops)) == pytest.approx(
+        100.0 * nbytes / 3.35e12 / 5e-6, rel=1e-9)
+    # the north star: 393,216 live of 786,432 sources x 1024 channels
+    assert mod.snapshot_bound_s(393216, 786432, 1024) == pytest.approx(
+        (393216 + 786432) * 4096 / 3.35e12 + (786432 * 12 + 4096) / 3.35e12,
+        rel=1e-12)
+    assert mod.read(_kernel_info(ops[1:2])) is None
+    assert mod.read(_kernel_info(ops, engine="banded")) is None
+    assert mod.read(SimpleNamespace(trace=None)) is None
+
+
+def test_benchmark_lists_the_amps_metrics():
+    """The two readers of the airy_amps kernel, last in per_layer, in the
+    snapshots' layer, in the two direct cells."""
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    entries = {m["name"]: m for m in bench["per_layer"]}
+    snap = entries["snap_ms"]["layer"]
+    for name in AMPS:
+        mod = H.load_metric(name)
+        e = entries[name]
+        assert (mod.UNIT, mod.SOURCE, mod.MOVES, mod.LAYER) == (
+            e["unit"], e["source"], e["moves"], e["layer"])
+        assert e["layer"] == snap and e["moves"] == "vis_rate"
+        assert e["workloads"] == ["hera37.direct", "hera331.direct"]
+    assert [m["name"] for m in bench["per_layer"][-len(AMPS):]] == list(AMPS)
 
 
 CELLS = r'''

@@ -807,3 +807,116 @@ def test_kernel_knobs_on_cuda_tensors(cuda):
     with pytest.raises(ValueError, match="interpret"):
         nb.make_banded_snapshot_fns(sim.inst, sim.sky, sim.beam_fn, plan,
                                     pinvQ, Q, True)
+
+
+# --------------------------------------------------------------------------
+# kernel airy_amps: the direct snapshot's Airy beam x flux in one pass
+# --------------------------------------------------------------------------
+
+# HERA's default orientation (antenna.orientation [90, 270] altaz), whose
+# s.p the chain's matrix product takes exactly in any order, and an axis
+# off zenith
+_HERA_AXIS = (-6.123233995736766e-17, -1.1248198369963932e-32, 1.0)
+_STEERED_AXIS = (0.1, -0.05, 0.99373)
+_AIRY_TELESCOPES = {
+    "hera_zenith": {"id": "hera", "orientation_dircos": _HERA_AXIS},
+    "hera_steered": {"id": "hera", "orientation_dircos": _STEERED_AXIS},
+    "dish": {"id": "custom", "shape": "dish", "size": 14.0}}
+
+
+def _airy_rows(S, C, seed):
+    """S direction cosines and (S, C) fluxes over 100-200 MHz with the rows
+    the kernel must get right first (S = 1 keeps the first): x = a sin(t)
+    crossing 8 at 150 MHz for a 14 m dish, zenith (x = 0), s_z = 0
+    exactly, below the horizon, x < 1e-6 off zenith, zero flux; the rest
+    random over the sphere."""
+    rng = np.random.RandomState(seed)
+    s = rng.randn(S, 3)
+    s /= np.linalg.norm(s, axis=1, keepdims=True)
+    st = 8.0 / (2 * np.pi * 150e6 / 299792458.0 * 7.0)
+    special = [[st, 0.0, np.sqrt(1 - st ** 2)], [0.0, 0.0, 1.0],
+               [0.6, 0.8, 0.0], [0.3, -0.4, -np.sqrt(0.75)],
+               [1e-9, 0.0, 1.0]]
+    n = min(S, len(special))
+    s[:n] = special[:n]
+    flux = rng.uniform(0.5, 20.0, (S, C))
+    flux[5:6] = 0.0
+    return s, flux, 100e6 + 100e6 * np.arange(C) / C
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 3000])
+@pytest.mark.parametrize("C", [256, 1024, 253])
+@pytest.mark.parametrize("case", sorted(_AIRY_TELESCOPES))
+def test_airy_amps_matches_the_torch_chain(cuda, case, C, S):
+    """airy_amps against _beam_and_flux's torch chain on the same card: bit
+    for bit about zenith (HERA's default orientation and the generic dish),
+    to 1e-6 of max|amps| about a steered axis (the chain takes s.p through
+    a matrix product); K1a's visibilities from both tables agree to the
+    same bound; one launch, which the enclosing span records."""
+    from prisim_tpu_torch import tracing
+    from prisim_tpu_torch.driver import _make_beam_fn
+    from prisim_tpu_torch.engine.cuda_beam import airy_amps_cuda
+    from prisim_tpu_torch.engine.observe import _beam_and_flux
+    s, flux, freqs = _airy_rows(S, C, seed=S + C)
+    beam_fn = _make_beam_fn({"beam": {}}, _AIRY_TELESCOPES[case], freqs)
+    assert beam_fn.airy == (14.0, _AIRY_TELESCOPES[case].get(
+        "orientation_dircos"))
+
+    def chain(d, f):            # the same beam, without .airy
+        return beam_fn(d, f)
+    sd, fl, f32 = (torch.as_tensor(x, dtype=torch.float32, device=cuda)
+                   for x in (s, flux, freqs))
+    want = _beam_and_flux(sd, fl, f32, chain)
+    n0 = airy_amps_cuda.launches
+    tracing.take()
+    with tracing.on():
+        with tracing.span("simulation", device=str(cuda)):
+            with tracing.span("beam_flux"):
+                got = _beam_and_flux(sd, fl, f32, beam_fn)
+    torch.cuda.synchronize()
+    rec = next(r for r in tracing.take() if r["name"] == "beam_flux")
+    assert airy_amps_cuda.launches == n0 + 1
+    assert rec["launches"] == {"airy_amps": 1}
+    assert got.shape == (S, C) and got.dtype == torch.float32
+    scale = float(want.abs().max())
+    assert scale > 0
+    if case == "hera_steered":
+        assert float((got - want).abs().max()) <= 1e-6 * scale
+    else:
+        assert torch.equal(got, want)
+    g = got.cpu().numpy()
+    if S > 5:
+        assert not g[[2, 3, 5]].any()            # s_z = 0, below, zero flux
+    if S > 1 and case != "hera_steered":
+        np.testing.assert_array_equal(g[1], fl[1].cpu().numpy())   # zenith
+    # K1a from both tables
+    rng = np.random.RandomState(C)
+    se = s - np.asarray([0.0, 0.0, 1.0])
+    seh, sel = (torch.as_tensor(x, device=cuda) for x in tf.split_f64(se))
+    blh, bll = (torch.as_tensor(x, device=cuda)
+                for x in tf.split_f64(rng.randn(9, 3) * 100.0))
+    gs = freq_grid_scalars(float(freqs[0]), float(freqs[1] - freqs[0]))
+    v_got, v_want = (nudft_cuda(seh, sel, blh, bll, a.contiguous(), gs, C)
+                     for a in (got, want))
+    vs = float(v_want.abs().max())
+    assert float((v_got - v_want).abs().max()) <= 1e-6 * vs
+
+
+@pytest.mark.gpu
+def test_airy_amps_rejects_bad_inputs(cuda):
+    from prisim_tpu_torch.engine.cuda_beam import airy_amps_cuda
+    s = torch.zeros((4, 3), device=cuda)
+    s[:, 2] = 1.0
+    fl = torch.ones((4, 8), device=cuda)
+    f = torch.linspace(1e8, 2e8, 8, device=cuda)
+    n0 = airy_amps_cuda.launches
+    with pytest.raises(TypeError):
+        airy_amps_cuda(s.double(), fl, 14.0, f)
+    with pytest.raises(ValueError):
+        airy_amps_cuda(s, fl[:, :7], 14.0, f)
+    with pytest.raises(ValueError):
+        airy_amps_cuda(s, torch.ones((8, 4), device=cuda).t(), 14.0, f)
+    with pytest.raises(ValueError):
+        airy_amps_cuda(s, fl.cpu(), 14.0, f)
+    assert airy_amps_cuda.launches == n0

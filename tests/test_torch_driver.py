@@ -896,6 +896,126 @@ def test_truth_beam_only_for_plain_dishes(tmp_path, monkeypatch, case):
         assert not bool(d["truth_on"]) and bool(d["ok0"])
 
 
+_AIRY_ATTACHED = ("hera_zenith", "hera_steered", "hera_pol_y",
+                  "hera_pol_y_dircos", "hirax", "dish")
+_AIRY_REFUSED = ("sector", "mueller", "external", "achromatic",
+                 "ground_plane", "phased_array", "vla", "gmrt", "mwa")
+
+
+def _airy_case_parms(tmp_path, case):
+    """A HERA-7 run whose beam is `case`: a plain chromatic Airy dish
+    (_AIRY_ATTACHED) or another beam (_AIRY_REFUSED)."""
+    parms = cfg_t.load_parms({
+        "telescope": {"id": "hera", "latitude": -30.7},
+        "array": {"layout": "HERA-7"},
+        "bandpass": {"nchan": 16, "freq": 150e6,
+                     "freq_resolution": 390625.0},
+        "obsparm": {"n_acc": 1, "t_acc": 60.0},
+        "skyparm": {"model": "random", "nsrc": 32, "seed": 2},
+        "save_formats": {"fmt": "none", "npz": False}})
+    tid = {"hirax": "hirax", "vla": "vla", "gmrt": "gmrt", "mwa": "mwa",
+           "dish": "custom", "phased_array": "custom"}.get(case)
+    if tid is not None:
+        parms["telescope"]["id"] = tid
+    if case == "hera_steered":
+        parms["antenna"]["orientation"] = [80.0, 30.0]
+    elif case == "hera_pol_y":
+        parms["beam"]["pol"] = "Y"
+    elif case == "hera_pol_y_dircos":         # no orientation_dircos
+        parms["beam"]["pol"] = "Y"
+        parms["antenna"]["ocoords"] = "dircos"
+    elif case == "dish":
+        parms["antenna"].update(shape="dish", size=10.0)
+    elif case == "phased_array":
+        parms["antenna"].update(shape="dish", size=14.0, phased_array=True)
+    elif case == "sector":
+        parms["_sector"] = (0, 2)
+    elif case == "mueller":
+        parms["_mueller_component"] = "XX"
+    elif case == "external":
+        parms["beam"].update(use_external=True,
+                             file=write_fits_beam(tmp_path / "b.fits"))
+    elif case == "achromatic":
+        parms["beam"]["chromatic"] = False
+    elif case == "ground_plane":
+        parms["antenna"]["ground_plane"] = 0.3
+    return parms
+
+
+@pytest.mark.parametrize("case", _AIRY_ATTACHED + _AIRY_REFUSED)
+def test_airy_dish_is_marked_for_the_kernel(tmp_path, case):
+    """A plain chromatic Airy dish's beam_fn carries airy = (diameter,
+    axis): HERA about its (steered, or Y-rotated) orientation, HIRAX, and a
+    generic dish about zenith; the amplitudes airy_beam gives from that
+    description equal the beam's own chain bit for bit. The truth pattern
+    (df_eval) follows the reference's rule, the telescope's own
+    orientation_dircos at zenith or absent, whatever the pol. A sector, a
+    Mueller component, an external beam, an achromatic beam, a ground
+    plane, a phased array and the vla/gmrt/mwa ids carry nothing, and keep
+    the chain on a card."""
+    from prisim_tpu_torch.beams.analytic import airy_beam
+    from prisim_tpu_torch.engine.observe import _beam_and_flux
+    sim = drv_t.prepare_simulation(_airy_case_parms(tmp_path, case),
+                                   torch.device("cpu"))
+    if case in _AIRY_REFUSED:
+        assert not hasattr(sim.beam_fn, "airy")
+        return
+    odc = sim.telescope.get("orientation_dircos")
+    want = {"hera_zenith": (14.0, odc), "hera_steered": (14.0, odc),
+            "hera_pol_y": (14.0, (-odc[1], odc[0], odc[2])) if odc else None,
+            "hera_pol_y_dircos": (14.0, (0.0, 1.0, 0.0)),
+            "hirax": (6.0, odc), "dish": (10.0, None)}[case]
+    assert sim.beam_fn.airy == want
+    assert (odc is None) == (case == "hera_pol_y_dircos")
+    # the float64 truth pattern: the telescope's own dish, about zenith
+    assert hasattr(sim.beam_fn, "df_eval") == (case != "hera_steered")
+    if case == "hera_steered":
+        assert odc[2] < 0.99            # off zenith
+    rng = np.random.RandomState(3)
+    s = rng.randn(500, 3)
+    s /= np.linalg.norm(s, axis=1, keepdims=True)
+    s = torch.as_tensor(s, dtype=torch.float32)
+    f = torch.as_tensor(sim.freqs, dtype=torch.float32)
+    flux = torch.as_tensor(rng.uniform(0, 5, (500, f.shape[0])),
+                           dtype=torch.float32)
+    pb = airy_beam(s, f, want[0], pointing_dircos=want[1])
+    got = torch.where((s[:, 2] > 0.0)[:, None], pb * flux,
+                      torch.zeros_like(flux))
+    assert torch.equal(got, _beam_and_flux(s, flux, f, sim.beam_fn))
+    assert got.abs().max() > 0
+
+
+def test_y_feed_without_orientation_matches_jax(tmp_path):
+    """A Y-feed HERA whose orientation is not given in altaz (no
+    orientation_dircos) on the banded engine: as in the reference, the
+    truth beam is the telescope's zenith dish, which the gate's model
+    residual against the Y feed's own beam refuses, so both demote to the
+    direct engine and the run is the reference's (JAX's banded spread in
+    interpret mode)."""
+    p = {"telescope": {"id": "hera", "latitude": -30.7},
+         "array": {"layout": "HERA-7"},
+         "antenna": {"ocoords": "dircos"},
+         "beam": {"pol": "Y"},
+         "bandpass": {"nchan": 32, "freq": 150e6,
+                      "freq_resolution": 390625.0},
+         "obsparm": {"n_acc": 1, "t_acc": 60.0},
+         "skyparm": {"model": "random", "nsrc": 64, "seed": 2},
+         "processing": {"engine": "nufft", "nufft_spread": "banded"},
+         "pp": {"key": "none"},
+         "save_formats": {"fmt": "none", "npz": False}}
+    vj, gj = _run_dumped(drv_jax.run_simulation,
+                         cfg_jax.load_parms(copy.deepcopy(p)),
+                         tmp_path / "gj.npz")
+    vt, gt = _run_dumped(drv_t.run_simulation,
+                         cfg_t.load_parms(copy.deepcopy(p)),
+                         tmp_path / "gt.npz", device="cpu")
+    assert bool(gt["truth_on"]) and bool(gj["truth_on"])
+    assert float(gt["resid0"]) > 1e-4 and float(gj["resid0"]) > 1e-4
+    np.testing.assert_allclose(float(gt["resid0"]), float(gj["resid0"]),
+                               rtol=1e-3)
+    _skyvis_close(vt, vj)
+
+
 def test_external_beam_runs_direct_engine(tmp_path, monkeypatch, capsys):
     """engine nufft with an external beam runs the direct engine, says so,
     and never builds the banded engine; the same visibilities as engine

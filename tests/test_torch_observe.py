@@ -136,3 +136,38 @@ def test_shaped_gradient_drift_matches_jax():
     assert vt.shape == (1, 21, 16) and gt.shape == (1, 3, 21, 16)
     assert np.abs(vt.numpy() - vj).max() / np.abs(vj).max() < 3e-6
     assert np.abs(gt.numpy() - gj).max() / np.abs(gj).max() < 5e-6
+
+
+@pytest.mark.parametrize("axis", [None, (0.1, -0.05, 0.99373)])
+def test_airy_dish_keeps_the_chain_on_the_cpu(axis):
+    """A beam_fn marked as a plain Airy dish (`airy`) weights CPU tensors
+    with the torch chain, unchanged: airy_beam x flux zeroed below the
+    horizon, bit for bit, and no kernel launch; airy_amps_cuda refuses CPU
+    tensors."""
+    from prisim_tpu_torch import tracing
+    from prisim_tpu_torch.engine.cuda_beam import airy_amps_cuda
+    rng = np.random.RandomState(4)
+    s = rng.randn(400, 3)
+    s /= np.linalg.norm(s, axis=1, keepdims=True)
+    s[0] = [0.6, 0.8, 0.0]
+    s = torch.as_tensor(s, dtype=torch.float32)
+    f = torch.linspace(100e6, 200e6, 37)
+    flux = torch.as_tensor(rng.uniform(0, 9, (400, 37)), dtype=torch.float32)
+
+    def beam_fn(d, nu):
+        return airy_beam(d, nu, 14.0, pointing_dircos=axis)
+    beam_fn.airy = (14.0, axis)
+    want = torch.where((s[:, 2] > 0.0)[:, None],
+                       airy_beam(s, f, 14.0, pointing_dircos=axis) * flux,
+                       torch.zeros_like(flux))
+    n0 = airy_amps_cuda.launches
+    tracing.take()
+    with tracing.on():
+        with tracing.span("beam_flux"):
+            got = obs_t._beam_and_flux(s, flux, f, beam_fn)
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="CUDA"):
+        airy_amps_cuda(s, flux, 14.0, f, axis=axis)
+    assert airy_amps_cuda.launches == n0
+    assert tracing.take()[-1]["launches"] == {}
+    assert not got[0].any()

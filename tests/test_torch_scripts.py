@@ -3,7 +3,8 @@ card: they import neither jax nor the JAX package themselves, and they
 exit non-zero with no result line when no CUDA card is visible. The
 profiler's device busy time is the union of the device events' intervals.
 chip_smoke's north-star run (phase p) takes hera331_northstar.yaml's
-sections, and the phase runs on the CPU at a small size."""
+sections, and the phase runs on the CPU at a small size, as does phase q
+(kernel airy_amps against the torch chain)."""
 
 import ast
 import copy
@@ -11,6 +12,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -132,3 +134,49 @@ def test_northstar_run_phase_on_cpu(tmp_path, monkeypatch):
     got = cs.northstar_run_phase(str(tmp_path), torch.device("cpu"))
     assert got == dict(k1a=2, k1b=0, k1c=0, k2=3, spread=0)
     assert not os.listdir(tmp_path)          # the run's directory is gone
+
+
+def test_airy_amps_phase_on_cpu(monkeypatch):
+    """Phase q on the CPU at small shapes: the slice's beam (HERA about its
+    default orientation), airy_amps_cuda replaced by a counting copy of
+    the torch chain, the CUDA timer stubbed. The tables agree, one launch
+    is checked per shape, the bound counts the rows above the horizon;
+    a table one ulp off fails the phase."""
+    cs = _chip_smoke()
+    from prisim_tpu_torch import config, driver
+    from prisim_tpu_torch.beams.analytic import airy_beam
+    from prisim_tpu_torch.engine import cuda_beam
+    cpu = torch.device("cpu")
+    telescope = driver._telescope(config.load_parms(
+        {"telescope": {"id": "hera"}}))
+    freqs = np.linspace(100e6, 200e6, 64)
+    beam_fn = driver._make_beam_fn({"beam": {}}, telescope, freqs)
+
+    def fake(s, flux, dia, f, axis=None):
+        fake.launches += 1
+        pb = airy_beam(s, f, dia, pointing_dircos=axis)
+        out = torch.where((s[:, 2] > 0.0)[:, None], pb * flux,
+                          torch.zeros_like(flux))
+        if fake.off:
+            out[7, 3] = torch.nextafter(out[7, 3], torch.tensor(1e9))
+        return out
+
+    fake.launches, fake.off = 0, False
+    monkeypatch.setattr(cuda_beam, "airy_amps_cuda", fake)
+    monkeypatch.setattr(cs, "cuda_time_ms", lambda fn: (fn(), 1.0)[1])
+    shapes = ((300, 64), (97, 13))
+    got = cs.airy_amps_phase(beam_fn, freqs, cpu, shapes=shapes)
+    assert fake.launches == 2 * 3            # checked once, timed twice
+    assert got["shape"] == (300, 64) and got["max_abs_err"] == 0.0
+    assert [r["shape"] for r in got["shapes"]] == list(shapes)
+    for (S, C), r in zip(shapes, got["shapes"]):
+        pick = np.linspace(0, 63, C).round().astype(int)
+        s, _ = cs.airy_rows(S, freqs[pick], 14.0, cpu)
+        live = int((s[:, 2] > 0).sum())
+        assert r["live"] == live and 0 < live < S
+        assert r["bound_ms"] == pytest.approx(
+            (live * C * 4 + S * C * 4 + S * 12 + C * 4) / 3.35e12 * 1e3,
+            rel=1e-12)
+    fake.off = True
+    with pytest.raises(SystemExit, match="differs"):
+        cs.airy_amps_phase(beam_fn, freqs, cpu, shapes=shapes[:1])
