@@ -185,7 +185,10 @@ n. The sorted route at the slice (engine nufft, nufft_spread sorted, rank
    1024 ch x 786,432 sources, no products) timed beside phase 5's banded
    snapshot and K1a launch, against K1a on 16 baselines from the shortest
    to the longest (1e-4 of max|V|), the kernel's time and bound there, and
-   the kernel against its plain version on those 16 baselines.
+   the kernel against its plain version on those 16 baselines, and that
+   snapshot's stream ms by the spans inside it (beam_flux, project, and
+   the blocks' delays, spread.sort, spread, post) beside the snapshot
+   span's own: a check of the spans on the card.
 o. The sorted route on the mesh: the slice cut to 2 accumulations on
    devices=[cuda:0] * 4 with pp.key freq (1, 4), bl (4, 1), src (1, 1, 4)
    and pp.mesh_axes [2, 2], each against the one-device sorted run (2e-6
@@ -2802,6 +2805,34 @@ def sorted_gate(dump):
                 dmax / float(g["csA0"]))
 
 
+SNAPSHOT_SPANS = ("beam_flux", "project", "delays", "spread.sort", "spread",
+                  "post")
+
+
+def snapshot_span_ms(fn, dev):
+    """One call of `fn` (a sorted snapshot) with the recorder on, under a
+    root span on `dev` and a "snapshot" span: ({span name: stream ms of
+    the spans of that name directly under the snapshot, summed over its
+    blocks}, the snapshot's own stream ms). Stream times exist on a card
+    only; elsewhere they read 0."""
+    from prisim_tpu_torch import tracing
+    tracing.take()
+    with tracing.on():
+        with tracing.span("simulation", device=str(dev)):
+            with tracing.span("snapshot", t=0):
+                fn()
+    recs = tracing.take()
+    snap = next(r for r in recs if r["name"] == "snapshot")
+    by = {}
+    for r in recs:
+        if r["parent"] == snap["id"]:
+            by[r["name"]] = by.get(r["name"], 0.0) + r.get("device_ms", 0.0)
+    if set(by) != set(SNAPSHOT_SPANS):
+        raise SystemExit("sorted snapshot spans: %s, not %s"
+                         % (sorted(by), sorted(SNAPSHOT_SPANS)))
+    return by, snap.get("device_ms", 0.0)
+
+
 def sorted_phase(root, dev, have_h5py, v0, ns):
     """Phase n: the sorted route at the slice and one north-star snapshot.
     `v0` is phase 1's K1a snapshot 0; `ns` phase 5's north-star numbers
@@ -2919,6 +2950,12 @@ def sorted_phase(root, dev, have_h5py, v0, ns):
     print("north-star sorted snapshot: first %.4f s, then %.4f ms; beside "
           "this card's banded snapshot %.4f ms and K1a launch %.4f ms "
           "(phase 5)" % (first_s, t_ns, ns["snap_ms"], ns["k1a_ms"]))
+    span_ms, span_total = snapshot_span_ms(snap, dev)
+    print("north-star sorted snapshot, stream ms by span: %s; together "
+          "%.4f of the snapshot span's %.4f ms (%.2f%%)"
+          % (", ".join("%s %.4f" % (k, span_ms[k]) for k in SNAPSHOT_SPANS),
+             sum(span_ms.values()), span_total,
+             100.0 * sum(span_ms.values()) / max(span_total, 1e-30)))
     pick, lens = golden_pick(ninst)
     pk = torch.as_tensor(pick, device=dev)
     seh, sel, amps, _ = snapshot_nudft_inputs(ninst, nsim.sky, Mh, Ml, pch,
@@ -2962,7 +2999,8 @@ def sorted_phase(root, dev, have_h5py, v0, ns):
     torch.cuda.empty_cache()
     return dict(max_abs_err=d_abs, ms=ms_k, plain_ms=ms_p, launches=launches,
                 k1a=got["k1a"], wall_s=wall, snap_ms=t_snap, ns_ms=t_nk,
-                ns_snap_ms=t_ns,
+                ns_snap_ms=t_ns, ns_span_ms=span_ms,
+                ns_span_total_ms=span_total,
                 ns_bound=ns_bd, **bd)
 
 

@@ -22,6 +22,7 @@ exact zeros.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -109,8 +110,13 @@ def delay_spread_plain(tau_h, tau_l, P, nu0, dnu, nchan, beta=2.0, K=13,
     complex128:
     grid[b, (m0 + j) mod n, i] += w_j(z0) P[s, i] e^{-2 pi i frac(tau nu_c)}
     over sources s and taps j = -K/2..K/2."""
-    x = spread_inputs(tau_h, tau_l, P, nu0, dnu, nchan, beta, chan0)
-    alpha = _alpha(K, beta, alpha)
+    return _plain(spread_inputs(tau_h, tau_l, P, nu0, dnu, nchan, beta,
+                                chan0), K, _alpha(K, beta, alpha))
+
+
+def _plain(x, K, alpha):
+    """delay_spread_plain's grid of the checked inputs `x` (spread_inputs)
+    with the KB shape `alpha`."""
     th, P, m0, z0, n = x["th"], x["P"], x["m0"], x["z0"], x["n"]
     dev = th.device
     S, B = th.shape
@@ -200,17 +206,31 @@ def delay_spread_cuda(tau_h, tau_l, P, nu0, dnu, nchan, beta=2.0, K=13,
     delay_spread_plain returns, for CUDA tensors; the plain version for
     CPU tensors. `setup` (order, starts) from nufft_delay.
     _sorted_spread_setup on these delays' bins skips the kernel's sort
-    (the plain version needs no sort)."""
-    if tau_h.device.type == "cpu":
-        return delay_spread_plain(tau_h, tau_l, P, nu0, dnu, nchan,
-                                  beta=beta, K=K, alpha=alpha, chan0=chan0)
-    if tau_h.device.type != "cuda":
+    (the plain version needs no sort).
+
+    Two spans: "spread.sort", the bins and, on a card, the per-baseline
+    sort, the kernel's (B, S) layouts and the zeroed grid (kernel_args);
+    then "spread", the launch (or the plain spread), which counts the
+    (source, baseline) pairs it spreads as spread.pairs."""
+    dev = tau_h.device
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError("delay_spread_cuda runs on CUDA or CPU tensors, got "
-                         "%s" % tau_h.device)
-    with torch.cuda.device(tau_h.device):
-        return launch(kernel_args(tau_h, tau_l, P, nu0, dnu, nchan,
-                                  beta=beta, K=K, alpha=alpha, chan0=chan0,
-                                  setup=setup))
+                         "%s" % dev)
+    on_card = (torch.cuda.device(dev) if dev.type == "cuda"
+               else contextlib.nullcontext())
+    with on_card:
+        with tracing.span("spread.sort"):
+            if dev.type == "cpu":
+                a = spread_inputs(tau_h, tau_l, P, nu0, dnu, nchan, beta,
+                                  chan0)
+            else:
+                a = kernel_args(tau_h, tau_l, P, nu0, dnu, nchan, beta=beta,
+                                K=K, alpha=alpha, chan0=chan0, setup=setup)
+        with tracing.span("spread"):
+            tracing.count("spread.pairs", tau_h.shape[0] * tau_h.shape[1])
+            if dev.type == "cpu":
+                return _plain(a, K, _alpha(K, beta, alpha))
+            return launch(a)
 
 
 delay_spread_cuda.launches = 0

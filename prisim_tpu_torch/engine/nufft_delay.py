@@ -35,6 +35,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import tracing
 from .observe import snapshot_nudft_inputs
 
 __all__ = ["nufft_delay_visibilities", "nufft_delay_visibilities_spectral",
@@ -494,18 +495,25 @@ def _nufft_snapshot(seh, sel, P, bl_hi, bl_lo, Q, nu0, dnu, nchan, beta=2.0,
     spectral coefficients P (S, r) on baselines bl_hi/bl_lo (B, 3): the
     sources above the horizon, in blocks of baselines of at most
     _BLOCK_PAIRS pairs, each block's delays and multi-rank spread (one
-    launch a block)."""
+    launch a block, as nufft_delay_multirank_sorted). Spans of each block:
+    "delays", the spread's "spread.sort" and "spread", and "post"; the
+    number of blocks is counted as spread.blocks."""
     keep = live_sources(P)
     seh, sel, P = seh[keep], sel[keep], P[keep]
     B = bl_hi.shape[0]
     step = max(1, _BLOCK_PAIRS // max(1, int(keep.numel())))
+    alpha = _alpha(K, beta, None)
+    tracing.count("spread.blocks", -(-B // step))
     out = []
     for b0 in range(0, B, step):
-        th, tl = delays_two_float(seh, sel, bl_hi[b0:b0 + step],
-                                  bl_lo[b0:b0 + step])
-        out.append(nufft_delay_multirank_sorted(
-            th, tl, P, Q, nu0, dnu, nchan, beta=beta, K=K, chan0=chan0))
-        del th, tl
+        with tracing.span("delays"):
+            th, tl = delays_two_float(seh, sel, bl_hi[b0:b0 + step],
+                                      bl_lo[b0:b0 + step])
+        grid = _spread(th, tl, P, nu0, dnu, nchan, beta, K, alpha, chan0,
+                       None)
+        with tracing.span("post"):
+            out.append(_delay_post(grid, Q, nchan, K, alpha))
+        del th, tl, grid
     return out[0] if len(out) == 1 else torch.cat(out)
 
 
@@ -514,10 +522,10 @@ def simulate_snapshot_nufft_jit(instrument, sky, Mh, Ml, pch, pcl,
                                 spread="sorted"):
     """One accumulation through the delay-space NUFFT with the fixed
     Chebyshev basis (chebyshev_projection): rotate, then for the sources
-    above the horizon beam x flux and P = spectral_project(amps, pinvQ),
-    then, in blocks of baselines, the delays and the multi-rank spread
-    (_nufft_snapshot). Returns (B, C) complex64 on the instrument's
-    device.
+    above the horizon beam x flux (span "beam_flux") and P =
+    spectral_project(amps, pinvQ) (span "project"), then, in blocks of
+    baselines, the delays and the multi-rank spread (_nufft_snapshot).
+    Returns (B, C) complex64 on the instrument's device.
 
     spread: 'sorted' or 'scatter', accepted for the reference's signature
     and checked; it selects nothing, since both of the reference's spreads
@@ -525,10 +533,13 @@ def simulate_snapshot_nufft_jit(instrument, sky, Mh, Ml, pch, pcl,
     if spread not in ("sorted", "scatter"):
         raise ValueError("spread must be 'sorted' or 'scatter', got %r"
                          % (spread,))
-    seh, sel, amps, _ = snapshot_nudft_inputs(instrument, sky, Mh, Ml, pch,
-                                              pcl, beam_fn,
-                                              above_horizon=True)
-    P = spectral_project(amps, torch.as_tensor(pinvQ, device=amps.device))
+    with tracing.span("beam_flux"):
+        seh, sel, amps, _ = snapshot_nudft_inputs(instrument, sky, Mh, Ml,
+                                                  pch, pcl, beam_fn,
+                                                  above_horizon=True)
+    with tracing.span("project"):
+        P = spectral_project(amps, torch.as_tensor(pinvQ,
+                                                   device=amps.device))
     del amps
     return _nufft_snapshot(seh, sel, P, instrument.bl_hi, instrument.bl_lo,
                            Q, instrument.nu0, instrument.dnu,

@@ -254,16 +254,19 @@ def _nufft_drift_core(x, sched_t, *, nu0, dnu, rank, K, beta, has_chan,
     its own sub-band, whose Chebyshev basis it fits (chebyshev_basis_jit,
     kept in x), with the carrier offset by chan0 dnu tau cycles for a
     'chan' shard; the shard's sources below the horizon are left out
-    before the beam. Returns (B_shard, C_shard) complex64."""
+    before the beam. Spans "beam_flux" and "project", then those of
+    _nufft_snapshot's blocks. Returns (B_shard, C_shard) complex64."""
     from ..engine.nufft_delay import (_nufft_snapshot, chebyshev_basis_jit,
                                       spectral_project)
     if "basis" not in x:
         x["basis"] = chebyshev_basis_jit(x["freqs"], rank)
     pinvQ, Qb = x["basis"]
-    seh, sel, amps, _ = rotated_sources(*sched_t, x["seqh"], x["seql"],
-                                        x["flux"], x["freqs"], beam_fn,
-                                        above_horizon=True)
-    P = spectral_project(amps, pinvQ)
+    with tracing.span("beam_flux"):
+        seh, sel, amps, _ = rotated_sources(*sched_t, x["seqh"], x["seql"],
+                                            x["flux"], x["freqs"], beam_fn,
+                                            above_horizon=True)
+    with tracing.span("project"):
+        P = spectral_project(amps, pinvQ)
     del amps
     return _nufft_snapshot(seh, sel, P, x["blh"], x["bll"], Qb, nu0, dnu,
                            x["freqs"].shape[0], beta=beta, K=K,

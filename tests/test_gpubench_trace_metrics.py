@@ -1,7 +1,7 @@
 """The benchmark's readers of the program's spans and counters
 (gpubench/spans.py, gpubench/metrics/{plan_s, prep_ms, k2_tiles,
 snap_idle_share, live_src_share, noise_s, phasing_s, amps_kernel_share,
-amps_roofline}.py) on hand-built
+amps_roofline, spread_roofline, nufft_snap_ms, sort_ms}.py) on hand-built
 records and a synthetic device trace, on a checkout without the recorder,
 and in a traced tiny cell on the CPU, where the recorder keeps the
 profiled simulation alone."""
@@ -246,7 +246,7 @@ def test_amps_roofline():
 
 
 def test_benchmark_lists_the_amps_metrics():
-    """The two readers of the airy_amps kernel, last in per_layer, in the
+    """The two readers of the airy_amps kernel, together in per_layer, in the
     snapshots' layer, in the two direct cells."""
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
     entries = {m["name"]: m for m in bench["per_layer"]}
@@ -258,7 +258,123 @@ def test_benchmark_lists_the_amps_metrics():
             e["unit"], e["source"], e["moves"], e["layer"])
         assert e["layer"] == snap and e["moves"] == "vis_rate"
         assert e["workloads"] == ["hera37.direct", "hera331.direct"]
-    assert [m["name"] for m in bench["per_layer"][-len(AMPS):]] == list(AMPS)
+    names = [m["name"] for m in bench["per_layer"]]
+    start = names.index(AMPS[0])
+    assert names[start:start + len(AMPS)] == list(AMPS)
+
+
+SORTED = ("spread_roofline", "nufft_snap_ms", "sort_ms")
+
+
+def _sorted_route(device_ms=True):
+    """A sorted-route simulation: the gate's direct snapshot 0 (beam_flux,
+    k1a, no "snapshot"), then under "snapshots" two snapshots of two
+    blocks of baselines each; stream milliseconds on every span, or on
+    none."""
+    def dm(v):
+        return v if device_ms else None
+    recs = [_rec(1, None, "simulation", 0, 1000),
+            _rec(2, 1, "visibilities", 0, 900),
+            _rec(3, 2, "gate", 0, 200, device_ms=dm(150.0)),
+            _rec(4, 3, "beam_flux", 0, 50, device_ms=dm(40.0)),
+            _rec(5, 3, "k1a", 50, 200, device_ms=dm(110.0)),
+            _rec(6, 2, "snapshots", 200, 900, device_ms=dm(600.0))]
+    rid = 7
+    for t, a in enumerate((200, 500)):
+        snap = rid
+        recs.append(_rec(snap, 6, "snapshot", a, a + 300,
+                         {"spread.blocks": 2}, device_ms=dm(250.0 + 50 * t)))
+        recs += [_rec(rid + 1, snap, "beam_flux", a, a + 10, device_ms=dm(5.0)),
+                 _rec(rid + 2, snap, "project", a + 10, a + 20,
+                      device_ms=dm(2.0))]
+        rid += 3
+        for b in range(2):
+            c = a + 20 + 130 * b
+            recs += [_rec(rid, snap, "delays", c, c + 10, device_ms=dm(3.0)),
+                     _rec(rid + 1, snap, "spread.sort", c + 10, c + 50,
+                          device_ms=dm(30.0 + 10 * t + b)),
+                     _rec(rid + 2, snap, "spread", c + 50, c + 120,
+                          {"spread.pairs": 1000}, device_ms=dm(60.0)),
+                     _rec(rid + 3, snap, "post", c + 120, c + 130,
+                          device_ms=dm(2.0))]
+            rid += 4
+    return recs
+
+
+def test_sorted_span_readers(monkeypatch):
+    """nufft_snap_ms: the snapshots' stream ms, the mean (the gate's
+    snapshot 0 is none of them); sort_ms: each snapshot's spread.sort
+    spans summed over its blocks, then the mean."""
+    info = _info(monkeypatch, _sorted_route())
+    assert _read("nufft_snap_ms", info) == pytest.approx(275.0)
+    # (30 + 31 + 40 + 41) / 2
+    assert _read("sort_ms", info) == pytest.approx(71.0)
+    # the other engines' readers find nothing of theirs here
+    for name in ("prep_ms", "k2_tiles", "plan_s"):
+        assert _read(name, info) is None, name
+
+
+@pytest.mark.parametrize("records", ["no_device_ms", "direct", "none"])
+def test_sorted_span_readers_read_nothing_without_their_spans(monkeypatch,
+                                                             records):
+    """No stream times (a CPU run), another engine's simulation, or no
+    recorder at all (a checkout older than it): nothing, and no raise."""
+    if records == "none":
+        monkeypatch.setitem(sys.modules, "prisim_tpu_torch.tracing", None)
+        info = SimpleNamespace(trace=_device([(0, 1)]))
+    else:
+        info = _info(monkeypatch, _sorted_route(device_ms=False)
+                     if records == "no_device_ms" else _direct())
+    for name in ("nufft_snap_ms", "sort_ms"):
+        assert _read(name, info) is None, name
+
+
+def test_spread_roofline():
+    """The benchmark's count of the spread over the kernels' own device
+    time: live pairs at 4 K r ops on the FP64 tensor cores and 2 K
+    (ncoef - 1) on the FP64 units, or the delays, payload and grid at the
+    HBM peak, whichever is longer, a snapshot at a time; nothing without
+    the kernel or the trace, or in another engine's cell."""
+    mod = H.load_metric("spread_roofline")
+    kernel = "void (anonymous namespace)::delay_spread_kernel(...)"
+    ops = [(kernel, 0.0, 2e-3), ("nudft_k1<false, false>", 2e-3, 1.0),
+           (kernel, 1.0, 1.0 + 3e-3)]
+    info = _kernel_info(ops, engine="sorted")
+    info.cell["config"] = "hera331-nside256-sorted"
+    info.ref.nbl = 30
+    want = 0.0
+    for live in (400, 600):
+        pairs = live * 30.0
+        t_ops = pairs * 4 * 13 * 32 / 67e12 + pairs * 2 * 13 * 12 / 34e12
+        nbytes = pairs * 8 + live * 32 * 8 + 30 * 2 * 8 * 32 * 16
+        want += max(t_ops, nbytes / 3.35e12)
+    assert mod.read(info) == pytest.approx(100.0 * want / 5e-3, rel=1e-12)
+    # the north star: ops-bound, 8.43 ms a snapshot of 393,216 live sources
+    ns = mod.snapshot_bound_s(393216, 630, 1024, 32)
+    pairs = 393216 * 630.0
+    assert ns == pytest.approx(pairs * 1664 / 67e12 + pairs * 312 / 34e12,
+                               rel=1e-12)
+    assert 8.4e-3 < ns < 8.45e-3
+    assert mod.read(_kernel_info(ops[1:2], engine="sorted")) is None
+    assert mod.read(_kernel_info(ops, engine="direct")) is None
+    assert mod.read(SimpleNamespace(trace=None)) is None
+
+
+def test_benchmark_lists_the_sorted_metrics():
+    """The three readers of the sorted route, last in per_layer, in the
+    route's own layer, in its cell alone."""
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    entries = {m["name"]: m for m in bench["per_layer"]}
+    for name in SORTED:
+        mod = H.load_metric(name)
+        e = entries[name]
+        assert (mod.UNIT, mod.SOURCE, mod.MOVES, mod.LAYER) == (
+            e["unit"], e["source"], e["moves"], e["layer"])
+        assert e["layer"] == \
+            "engine snapshots: engine/nufft_delay -> csrc/spread.cu"
+        assert e["moves"] == "vis_rate" and e["workloads"] == ["hera331.sorted"]
+    assert [m["name"] for m in bench["per_layer"][-len(SORTED):]] == \
+        list(SORTED)
 
 
 CELLS = r'''

@@ -4,7 +4,8 @@ exit non-zero with no result line when no CUDA card is visible. The
 profiler's device busy time is the union of the device events' intervals.
 chip_smoke's north-star run (phase p) takes hera331_northstar.yaml's
 sections, and the phase runs on the CPU at a small size, as does phase q
-(kernel airy_amps against the torch chain)."""
+(kernel airy_amps against the torch chain) and phase n's split of the
+sorted snapshot by its spans."""
 
 import ast
 import copy
@@ -180,3 +181,34 @@ def test_airy_amps_phase_on_cpu(monkeypatch):
     fake.off = True
     with pytest.raises(SystemExit, match="differs"):
         cs.airy_amps_phase(beam_fn, freqs, cpu, shapes=shapes[:1])
+
+
+def test_snapshot_span_ms_on_cpu():
+    """Phase n's split of the north-star sorted snapshot by its spans, on a
+    small sorted snapshot on the CPU: the six spans are found (their stream
+    times exist on a card only and read 0 here); a snapshot without them
+    fails the check."""
+    cs = _chip_smoke()
+    from prisim_tpu_torch import config, driver
+    from prisim_tpu_torch.engine import nufft_delay as nd
+    from prisim_tpu_torch.engine.observe import schedule_tensors
+    cpu = torch.device("cpu")
+    parms = config.load_parms({
+        "array": {"layout": "HERA-7", "redundant": True},
+        "bandpass": {"freq": 150e6, "freq_resolution": 100e6 / 32,
+                     "nchan": 32},
+        "skyparm": {"model": "usm", "nside": 8},
+        "obsparm": {"obs_mode": "drift", "n_acc": 1, "t_acc": 60.0},
+        "processing": {"engine": "nufft", "nufft_spread": "sorted"}})
+    sim = driver.prepare_simulation(parms, cpu)
+    sched = [a[0] for a in schedule_tensors(sim.obs, sim.inst.latitude, cpu)]
+    pinvQ, Q = nd.chebyshev_projection(sim.freqs, 16)
+
+    def snap():
+        return nd.simulate_snapshot_nufft_jit(sim.inst, sim.sky, *sched,
+                                              sim.beam_fn, pinvQ, Q)
+    by, total = cs.snapshot_span_ms(snap, cpu)
+    assert sorted(by) == sorted(cs.SNAPSHOT_SPANS)
+    assert total == 0.0 and not any(by.values())
+    with pytest.raises(SystemExit, match="sorted snapshot spans"):
+        cs.snapshot_span_ms(lambda: None, cpu)
