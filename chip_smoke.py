@@ -3,9 +3,9 @@
     python3 chip_smoke.py
 
 Builds the NUDFT kernels K1a, K1b and K1c (csrc/nudft.cu, instances of
-one kernel), K2 (csrc/banded.cu), delay_spread (csrc/spread.cu) and
-airy_amps (csrc/beam.cu) with nvcc (sm_90a), the four builds started
-together, then:
+one kernel), K2 (csrc/banded.cu), delay_spread (csrc/spread.cu),
+airy_amps (csrc/beam.cu) and banded_prep (csrc/prep.cu) with nvcc
+(sm_90a), the five builds started together, then:
 
 1. K1a phase: K1a and its plain PyTorch version on the card at the slice's
    snapshot shape (HERA-37 non-redundant: 666 baselines x 1024 channels x
@@ -227,14 +227,29 @@ q. Kernel airy_amps (csrc/beam.cu), run right after the K1a phase: the
    for bit, one launch each; both times and the kernel's least-bytes
    bound. The direct and banded slice runs then count its launches: one
    per accumulation, and one for the banded gate's source chunk.
+r. Kernel banded_prep (csrc/prep.cu), run right after the north-star
+   phase: the banded engine's prep (rotation, u streams of every
+   direction, the float64 Airy truth payload) by the kernel against the
+   torch chain it replaces (nufft_banded.banded_prep_plain) on the card,
+   on the arguments run.prep_args gives for every source chunk of
+   snapshot 0, at the slice (49,152 sources in one chunk) and at the
+   north star (3 chunks of 262,144 sources x 384 directions x rank 32):
+   u streams, ok and vectors bit for bit, the payload to 1e-13 of max|P|
+   with the same zeros; the times of a snapshot's preps, kernel and
+   chain, and the kernel's least-bytes bound and share. The banded slice
+   run counts its launches (one a chunk and snapshot, the gate's
+   included), and the north-star phase those of its gate and one
+   snapshot; the kernels line gives their sum, the main path's own
+   launches, and leaves out this phase's comparisons and timing loops.
 
 After the phases it prints the card's name and power limit, the roofline
 share (bound / time, against the H100 data-sheet peaks) of K1a, K1b, K1c,
-K2, delay_spread and airy_amps at the slice and the north star (airy_amps
-at the direct cells' shapes), and the kernels line: each kernel's
-launches in its slice run (K1a and K2 also in phases k-m's and p's runs,
-K1a and delay_spread in phases n-o's, airy_amps in the direct and banded
-slice runs),
+K2, delay_spread, airy_amps and banded_prep at the slice and the north
+star (airy_amps at the direct cells' shapes), and the kernels line: each
+kernel's launches in its slice run (K1a and K2 also in phases k-m's and
+p's runs, K1a and delay_spread in phases n-o's, airy_amps in the direct
+and banded slice runs, banded_prep in the banded slice run and phase
+5's gate and snapshot),
 error against its plain version, time, plain time, bound (from this run's
 inputs) and library time (null: no single PyTorch call computes any of
 them).
@@ -270,6 +285,9 @@ EXT_BAR = 3e-6        # K1c vs the golden, max|dV| / max|V|
 # to the complex64 rounding of the output; an f32 sum would read ~1e-6
 PLAIN_BAR = 1e-7
 N_GOLDEN_BL = 16
+# banded_prep's payload vs the torch chain's, max|dP| / max|P|: both
+# float64, the node-to-coefficient sums in another order
+PREP_BAR = 1e-13
 N_TIMED = 3
 # airy_amps's (sources, channels) in the direct cells' snapshots:
 # hera331.direct (nside 256 x 1024 ch) and hera37.direct (nside 128 x 256)
@@ -609,6 +627,95 @@ def airy_amps_phase(beam_fn, freqs, dev, shapes=AIRY_SHAPES):
     return dict(rows[0], shapes=rows)
 
 
+def prep_bound(plan, args, airy):
+    """banded_prep's least bytes for one chunk's prep, at HBM_BPS: the u
+    streams written once (8 B a direction and padded source), the source
+    vectors read once (24 B a source) and, with the truth payload, the
+    payload rows written and the node fluxes read once (8 B each a rank and
+    source); the gpubench metric prep_roofline's count."""
+    S = args[1].shape[0]
+    S_pad = -(-S // plan.T_s) * plan.T_s
+    nbytes = 8 * plan.ndir * S_pad + 24 * S
+    if airy is not None:
+        nbytes += 8 * plan.rank * (S_pad + S)
+    return nbytes
+
+
+def banded_prep_phase(label, parms, dev):
+    """Phase r: kernel banded_prep against the torch chain it replaces
+    (nufft_banded.banded_prep_plain) on the inputs of every source chunk of
+    the banded engine's snapshot 0 as the driver builds it for `parms`
+    (spatially sorted, the truth payload of its Airy dish): the u streams,
+    ok and the rotated and centred vectors equal bit for bit, the payload
+    to PREP_BAR of max|P| with the same zeros, one launch a chunk; the
+    times of a snapshot's preps (kernel, chain, chain, kernel) and the
+    kernel's least-bytes bound. Returns the kernels line's numbers."""
+    from prisim_tpu_torch.driver import banded_engine, prepare_simulation
+    from prisim_tpu_torch.engine import cuda_prep
+    from prisim_tpu_torch.engine import nufft_banded as nb
+    from prisim_tpu_torch.engine.observe import schedule_tensors
+    sim = prepare_simulation(parms, dev)
+    plan, run = banded_engine(parms, sim)
+    Mh, Ml, pch, pcl = (x[0] for x in schedule_tensors(
+        sim.obs, sim.inst.latitude, dev))
+    calls = [run.prep_args(c, Mh, Ml, pch, pcl) for c in range(run.n_chunks)]
+    del sim
+    if any(airy is None for _, airy in calls):
+        raise SystemExit("%s prep: the engine computes no Airy payload in "
+                         "the prep (truth=%s, rank %d)"
+                         % (label, run.truth, plan.rank))
+    n0 = cuda_prep.banded_prep_cuda.launches
+    worst = 0.0
+    for c, (args, airy) in enumerate(calls):
+        got = cuda_prep.banded_prep_cuda(*args, airy=airy, vectors=True)
+        want = nb.banded_prep_plain(*args, airy=airy, vectors=True)
+        sync(dev)
+        same = (all(torch.equal(g, w) for g, w in zip(
+            got[:2] + got[4], want[:2] + want[4]))
+            and bool(got[3]) == bool(want[3]))
+        zeros = bool(torch.equal(got[2] == 0, want[2] == 0))
+        scale = float(want[2].abs().max())
+        err = float((got[2] - want[2]).abs().max())
+        worst = max(worst, err)
+        print("%s prep chunk %d of %d (%d sources, %d directions, rank %d): "
+              "u streams, ok and vectors %s; payload max|dP| = %.4e of "
+              "max|P| %.4e, zeros %s; ok %s"
+              % (label, c, len(calls), args[1].shape[0], plan.ndir,
+                 plan.rank, "bit-identical" if same else "NOT bit-identical",
+                 err, scale, "equal" if zeros else "DIFFER", bool(got[3])))
+        if not (same and zeros and err <= PREP_BAR * scale and bool(got[3])):
+            raise SystemExit("%s prep: banded_prep differs from the torch "
+                             "chain at chunk %d" % (label, c))
+        del got, want
+    assert cuda_prep.banded_prep_cuda.launches == n0 + len(calls)
+
+    def kernel():
+        for args, airy in calls:
+            cuda_prep.banded_prep_cuda(*args, airy=airy)
+
+    def plain():
+        for args, airy in calls:
+            nb.banded_prep_plain(*args, airy=airy)
+
+    # times: kernel, plain, plain, kernel (one call, one card)
+    t_k = cuda_time_ms(kernel)
+    t_p = cuda_time_ms(plain)
+    t_p2 = cuda_time_ms(plain)
+    t_k2 = cuda_time_ms(kernel)
+    bd = bound(0.0, sum(prep_bound(plan, a, airy) for a, airy in calls), 1.0)
+    ms_k, ms_p = 0.5 * (t_k + t_k2), 0.5 * (t_p + t_p2)
+    print("%s banded_prep time %.4f ms a snapshot (runs %.4f, %.4f; %d "
+          "chunks), torch chain %.4f ms (runs %.4f, %.4f); bound %.4f ms "
+          "(%s), share %.1f%%" % (label, ms_k, t_k, t_k2, len(calls), ms_p,
+                                 t_p, t_p2, bd["bound_ms"], bd["bound_by"],
+                                 100.0 * bd["bound_ms"] / ms_k))
+    del calls
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return dict(bd, ms=ms_k, plain_ms=ms_p, max_abs_err=worst,
+                launches=cuda_prep.banded_prep_cuda.launches - n0)
+
+
 def phased_snapshot0(vs, parms, v0, t=0):
     """Snapshot `t` (default 0) `v0` (B, C), phased as run_simulation
     phases its run."""
@@ -704,11 +811,12 @@ def northstar_phase(cuda):
     against its plain version on the first source chunk, and K1a against
     the f64 golden on N_GOLDEN_BL baselines, at this shape."""
     from prisim_tpu_torch.driver import banded_engine, prepare_simulation
-    from prisim_tpu_torch.engine import cuda_banded, cuda_nudft
+    from prisim_tpu_torch.engine import cuda_banded, cuda_nudft, cuda_prep
     from prisim_tpu_torch.engine.nufft_banded import (banded_pair_count,
                                                       banded_spread_plain)
     from prisim_tpu_torch.engine.observe import (schedule_tensors,
                                                  snapshot_nudft_inputs)
+    p0 = cuda_prep.banded_prep_cuda.launches
     parms = northstar_parms()
     t0 = time.time()
     sim = prepare_simulation(parms, cuda)
@@ -732,6 +840,10 @@ def northstar_phase(cuda):
              cuda_banded.banded_spread_cuda.launches - n2))
     gate_report("north-star", gate)
     v, ok = run(Mh, Ml, pch, pcl)
+    n_prep = cuda_prep.banded_prep_cuda.launches - p0
+    print("north-star banded_prep launches, gate and one snapshot: %d (one "
+          "a source chunk: %d expected)" % (n_prep, 2 * run.n_chunks))
+    assert n_prep == 2 * run.n_chunks, n_prep
     assert bool(ok) and v.shape == (plan.nbl_full, 1024)
     assert bool(torch.isfinite(v).all())
     d0 = float(np.abs(v.cpu().numpy() - gate[1]).max()
@@ -826,7 +938,7 @@ def northstar_phase(cuda):
         raise SystemExit("north-star K1a disagrees with the golden: %.3e "
                          "(bar %.0e)" % (g_rel_v, BAR))
     return dict(k2_ms=t_k, k2_bound=k2_bd, k1a_ms=k1a_ms, k1a_bound=k1a_bd,
-                snap_ms=t_snap)
+                snap_ms=t_snap, prep_launches=n_prep)
 
 
 def joined(hi, lo):
@@ -3267,7 +3379,7 @@ def main():
     from prisim_tpu_torch._build import build_info, load_kernel_library
     from prisim_tpu_torch.driver import prepare_simulation, run_simulation
     from prisim_tpu_torch.engine import (cuda_banded, cuda_beam, cuda_nudft,
-                                         cuda_spread)
+                                         cuda_prep, cuda_spread)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3283,7 +3395,7 @@ def main():
     print("h5py importable: %s; yaml importable: %s" % (have_h5py, have_yaml))
 
     t0 = time.time()
-    libs = ("nudft", "banded", "spread", "beam")
+    libs = ("nudft", "banded", "spread", "beam", "prep")
     with ThreadPoolExecutor(max_workers=len(libs)) as pool:
         list(pool.map(load_kernel_library, libs))
     print("kernel builds (in parallel): %.2f s" % (time.time() - t0))
@@ -3350,10 +3462,12 @@ def main():
     cuda_nudft.nudft_cuda.launches = 0
     cuda_banded.banded_spread_cuda.launches = 0
     cuda_beam.airy_amps_cuda.launches = 0
+    cuda_prep.banded_prep_cuda.launches = 0
     vs, outdir = run_simulation(banded, verbose=True, save=True, device=cuda)
     k2_launches = cuda_banded.banded_spread_cuda.launches
     gate_k1a = cuda_nudft.nudft_cuda.launches
     gate_airy = cuda_beam.airy_amps_cuda.launches
+    prep_launches = cuda_prep.banded_prep_cuda.launches
     del os.environ["PRISIM_DEBUG_XCHECK_DUMP"]
     wall = time.time() - t0
     print("banded slice wall-clock: %.3f s, K2 launches: %d (gate 1 + 4 "
@@ -3364,6 +3478,9 @@ def main():
           % (wall, k2_launches, gate_k1a, gate_airy))
     assert k2_launches == 5 and gate_k1a == 2 and gate_airy == 1, (
         k2_launches, gate_k1a, gate_airy)
+    print("banded slice banded_prep launches: %d (one a source chunk and "
+          "snapshot, the gate's included: 5 expected)" % prep_launches)
+    assert prep_launches == 5, prep_launches
     airy_launches += gate_airy
     assert vs.skyvis.shape == (666, 1024, 4), vs.skyvis.shape
     assert np.isfinite(vs.skyvis).all() and np.isfinite(vs.vis).all()
@@ -3386,7 +3503,16 @@ def main():
 
     t0 = time.time()
     ns = northstar_phase(cuda)
+    prep_launches += ns["prep_launches"]
     print("[north-star phase: %.2f s]" % (time.time() - t0))
+
+    t0 = time.time()
+    prep_sl = banded_prep_phase("slice", banded, cuda)
+    prep_ns = banded_prep_phase("north-star", northstar_parms(), cuda)
+    print("banded_prep phase launches (comparisons and timing loops, not "
+          "in the kernels line): slice %d, north star %d"
+          % (prep_sl["launches"], prep_ns["launches"]))
+    print("[banded_prep phase: %.2f s]" % (time.time() - t0))
 
     grad = slice_parms(out_root, have_h5py, "auto", "hera37_usm64_gradient",
                        processing={"gradient_mode": "baseline"})
@@ -3559,6 +3685,8 @@ def main():
             ("K1c, north-star DSM snapshot", ns_k1c["ms"], ns_k1c),
             ("K2, slice snapshot", k2["ms"], k2),
             ("K2, north-star snapshot", ns["k2_ms"], ns["k2_bound"]),
+            ("banded_prep, slice snapshot", prep_sl["ms"], prep_sl),
+            ("banded_prep, north-star snapshot", prep_ns["ms"], prep_ns),
             ("delay_spread, slice snapshot", srt["ms"], srt),
             ("delay_spread, north-star snapshot", srt["ns_ms"],
              srt["ns_bound"])) + tuple(
@@ -3591,7 +3719,9 @@ def main():
             spread_launches, srt),
         # no TPU kernel: XLA fused the chain it replaces on the TPU
         row("airy_amps", cuda_beam.KERNEL_SOURCE, None, airy_launches,
-            airy)]}))
+            airy),
+        row("banded_prep", cuda_prep.KERNEL_SOURCE, None, prep_launches,
+            prep_ns)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -182,11 +182,7 @@ def airy_beam_df(s_hi, s_lo, freqs, diameter, power=True):
                  <= 32 (callers check airy_df_available)
     Returns the (S, r) float64 power (or field) pattern, zero below the
     horizon (sign of the two-float Up component)."""
-    freqs = np.asarray(freqs, np.float64)
-    a = np.pi * freqs * (diameter / CNST.c)      # x = a * sin(theta)
-    if a.max() > _AIRY_TAIL_HI:
-        raise ValueError("airy_beam_df: pi*D*nu/c = %.1f exceeds the "
-                         "[8,32] tail fit domain" % a.max())
+    a = _airy_df_scale(freqs, diameter)
     s = s_hi.double() + s_lo.double()
     s2 = torch.clamp(s[:, 0] * s[:, 0] + s[:, 1] * s[:, 1], max=1.0)
     x = torch.sqrt(s2)[:, None] * torch.as_tensor(a, device=s.device)[None]
@@ -196,6 +192,17 @@ def airy_beam_df(s_hi, s_lo, freqs, diameter, power=True):
     if power:
         p = p * p
     return torch.where((s[:, 2] > 0.0)[:, None], p, torch.zeros_like(p))
+
+
+def _airy_df_scale(freqs, diameter):
+    """airy_beam_df's float64 factors a = pi D nu / c (x = a sin(theta)) of
+    the (r,) host frequencies; raises ValueError past the tail fit."""
+    freqs = np.asarray(freqs, np.float64)
+    a = np.pi * freqs * (diameter / CNST.c)
+    if a.max() > _AIRY_TAIL_HI:
+        raise ValueError("airy_beam_df: pi*D*nu/c = %.1f exceeds the "
+                         "[8,32] tail fit domain" % a.max())
+    return a
 
 
 def airy_df_available(freqs, diameter):

@@ -808,7 +808,9 @@ def _make_beam_fn(parms, telescope, freqs, pointing_info=None):
     observe._beam_and_flux weights CUDA tensors with the airy_amps kernel,
     and, where the telescope's own dish (the X feed's) points at zenith,
     beam_fn.df_eval(s_hi, s_lo, nu) -> (S, len(nu)) float64, the truth
-    pattern of the banded engine's truth-amps path."""
+    pattern of the banded engine's truth-amps path, with beam_fn.df_airy,
+    its dish diameter, by which the banded prep computes that pattern in
+    its kernel."""
     bm = parms.get("beam") or {}
     achromatic = bm.get("chromatic") is False
     sel_freq = float(bm.get("select_freq") or 150e6)
@@ -875,6 +877,7 @@ def _make_beam_fn(parms, telescope, freqs, pointing_info=None):
             if zenith and airy_df_available(freqs, dia):
                 beam_fn.df_eval = functools.partial(airy_beam_df,
                                                     diameter=dia)
+                beam_fn.df_airy = dia
     return beam_fn
 
 
@@ -1272,7 +1275,8 @@ def _banded_settings(parms, sim):
     """(rank, node_model, truth, plan_kw) of the banded NUFFT engine for
     `sim`, as the reference's driver picks them (prisim_tpu/driver.py:
     1139-1410): _nufft_rank's rank; the node model; truth amps ({"beam_df",
-    "flux_nodes"}) where the beam has a truth form (beam_fn.df_eval), with
+    "flux_nodes", "airy_diameter"}) where the beam has a truth form
+    (beam_fn.df_eval, and beam_fn.df_airy or None), with
     dot_split 4 in the plan keywords. Prints the reference's warnings."""
     proc = parms["processing"]
     freqs = sim.freqs
@@ -1298,7 +1302,8 @@ def _banded_settings(parms, sim):
         plan_kw.setdefault("dot_split", 4)
         nm = chebyshev_node_model(freqs, rank)
         truth = {"beam_df": sim.beam_fn.df_eval,
-                 "flux_nodes": sim.skymodel.generate_spectrum(nm.nu_nodes)}
+                 "flux_nodes": sim.skymodel.generate_spectrum(nm.nu_nodes),
+                 "airy_diameter": getattr(sim.beam_fn, "df_airy", None)}
     return rank, node_model, truth, plan_kw
 
 

@@ -15,7 +15,10 @@ d share one source stream u.
   reach: row p of baseline b holds grid bin blk_lo_b * G_blk + p.
 * `_prep` computes u per direction in two-float and transposes the
   spectral payload; sources are padded to the tile with u = 3, outside
-  every physical u (|u| <= 2), and zero payload.
+  every physical u (|u| <= 2), and zero payload. The snapshot functions
+  take it, with the rotation and the truth payload before it, as one
+  launch of kernel banded_prep (csrc/prep.cu, wrapper cuda_prep.py) on a
+  CUDA card and as `banded_prep_plain`, that chain, on the CPU.
 * The spread is kernel K2 (csrc/banded.cu, wrapper cuda_banded.py) on a
   CUDA card and `banded_spread_plain` on the CPU. Both return the rows
   (B, R_max, 2r) in float64: the TPU kernel's f32 dot, Kahan carries,
@@ -44,6 +47,8 @@ from .. import constants as CNST
 from .. import healpix as hp
 from .. import tracing
 from .. import twofloat as tf
+from ..beams.analytic import airy_beam_df
+from .cuda_prep import MAX_RANK, AiryPayload, banded_prep_cuda
 from .nufft_delay import (chebyshev_node_model, kb_fourier, kb_tap_coeffs,
                           spectral_project)
 from .observe import (_beam_and_flux, check_kernel_knobs, df_rotate3,
@@ -52,13 +57,15 @@ from .observe import (_beam_and_flux, check_kernel_knobs, df_rotate3,
 __all__ = ["banded_spread_available", "make_banded_plan", "BandedPlan",
            "PlanRejected", "group_directions", "nufft_banded_visibilities",
            "simulate_snapshot_nufft_banded",
-           "spatial_permutation", "reorder_sources", "banded_spread_plain",
+           "spatial_permutation", "reorder_sources", "banded_prep_plain",
+           "banded_spread_plain",
            "banded_worklist_plain", "banded_pair_count", "K2_ROWS",
            "K2_TILE",
            "make_coeff_fn", "make_coeff_fn_truth", "make_banded_snapshot_fns"]
 
 _PAD_U = 3.0            # outside any physical u (|s_eff . b_hat| <= 2)
 _VALID_U = 2.5          # u below this is a source, at or above it a pad
+_UNIT_U = float(np.float32(2.0 + 1e-4))   # max |u_hi| of unit sources
 # Longest per-baseline row range a plan takes (R_max); the port's arrays
 # stay far below it (HERA-331: 840 rows).
 _MAX_ROWS = 65535 * 32
@@ -314,24 +321,55 @@ def _two_float_u(seh, sel, dirs_hi, dirs_lo):
     return th, tl
 
 
+def _payload_rows(P, S_pad):
+    """The payload (S, r) as K2 takes it: (r, S_pad), zero past S."""
+    S = P.shape[0]
+    if S_pad != S:
+        P = torch.nn.functional.pad(P, (0, 0, 0, S_pad - S))
+    return P.t().contiguous()
+
+
 def _prep(plan, seh, sel, P):
     """Per-direction u streams and the transposed spectral payload.
 
-    seh/sel (S, 3) float32 two-float s_eff; P (S, r) float32 or float64.
-    Returns (u_h (1, D*S_pad) f32, u_l, P_r (r, S_pad) in P's dtype, ok):
-    ok (0-d bool tensor) is False when a source vector is not unit, so
-    that its bins could leave the static row range."""
+    seh/sel (S, 3) float32 two-float s_eff; P (S, r) float32 or float64,
+    or None. Returns (u_h (1, D*S_pad) f32, u_l, P_r (r, S_pad) in P's
+    dtype or None, ok): ok (0-d bool tensor) is False when a source vector
+    is not unit, so that its bins could leave the static row range."""
     S = seh.shape[0]
     S_pad = -(-S // plan.T_s) * plan.T_s
     dev = seh.device
     uh, ul = _two_float_u(seh, sel, plan.tensor("dirs_hi", dev),
                           plan.tensor("dirs_lo", dev))
-    ok = uh.abs().max() <= float(np.float32(2.0 + 1e-4))
+    ok = uh.abs().max() <= _UNIT_U
     if S_pad != S:
         uh = torch.nn.functional.pad(uh, (0, S_pad - S), value=_PAD_U)
         ul = torch.nn.functional.pad(ul, (0, S_pad - S))
-        P = torch.nn.functional.pad(P, (0, 0, 0, S_pad - S))
-    return (uh.reshape(1, -1), ul.reshape(1, -1), P.t().contiguous(), ok)
+    P_r = None if P is None else _payload_rows(P, S_pad)
+    return uh.reshape(1, -1), ul.reshape(1, -1), P_r, ok
+
+
+def banded_prep_plain(plan, s_eq_hi, s_eq_lo, Mh, Ml, pch, pcl, airy=None,
+                      vectors=False):
+    """The plain PyTorch version of kernel banded_prep (cuda_prep.py), the
+    eager chain it replaces, with banded_prep_cuda's arguments and
+    returns: the source vectors rotated (observe.df_rotate3) and phase
+    centred in two-float, the payload of an AiryPayload `airy` (the
+    truth-amps payload of make_coeff_fn_truth for airy_beam_df of its
+    diameter), and _prep's u streams, payload rows and ok. Returns
+    (u_h, u_l, P_r or None, ok, (sh, sl, seh, sel) with `vectors`, else
+    None)."""
+    sh, slo = df_rotate3(Mh, Ml, s_eq_hi, s_eq_lo)
+    seh, sel = tf.df_add(sh, slo, -pch[None, :], -pcl[None, :])
+    seh, sel = seh.contiguous(), sel.contiguous()
+    P = None
+    if airy is not None:
+        P = _truth_payload(functools.partial(airy_beam_df,
+                                             diameter=airy.diameter),
+                           airy.nu_nodes, airy.node2coef64, sh, slo,
+                           airy.flux_nodes)
+    u_h, u_l, P_r, ok = _prep(plan, seh, sel, P)
+    return u_h, u_l, P_r, ok, (sh, slo, seh, sel) if vectors else None
 
 
 def _f32(x, dev):
@@ -599,14 +637,17 @@ def make_coeff_fn_truth(freqs, rank, beam_df_fn):
     Returns coeffs_df(sh, sl, flux_nodes) -> (S, r) float64; carries the
     NodeModel as .node_model."""
     nm = chebyshev_node_model(freqs, rank)
-
-    def coeffs_df(sh, sl, flux_nodes):
-        b = beam_df_fn(sh, sl, nm.nu_nodes)
-        return (b * flux_nodes) @ torch.as_tensor(nm.node2coef64,
-                                                  device=b.device)
-
+    coeffs_df = functools.partial(_truth_payload, beam_df_fn, nm.nu_nodes,
+                                  nm.node2coef64)
     coeffs_df.node_model = nm
     return coeffs_df
+
+
+def _truth_payload(beam_df_fn, nu_nodes, node2coef64, sh, sl, flux_nodes):
+    """The truth-amps payload (S, r) float64: beam_df_fn(sh, sl, nu_nodes)
+    times flux_nodes, through node2coef64 (r, r)."""
+    b = beam_df_fn(sh, sl, nu_nodes)
+    return (b * flux_nodes) @ torch.as_tensor(node2coef64, device=b.device)
 
 
 def _split64(x):
@@ -628,8 +669,17 @@ def make_banded_snapshot_fns(instrument, sky, beam_fn, plan, pinvQ, Q,
     chunked as in the reference: the two-float u streams take
     2 x D x S_chunk floats, bounded at ~0.75 GiB. ``truth`` =
     {"beam_df": fn(sh, sl, nu_nodes) -> (S, r) float64, "flux_nodes":
-    (S, r) host float64 in the ORIGINAL source order} selects the
-    truth-amps path.
+    (S, r) host float64 in the ORIGINAL source order, and optionally
+    "airy_diameter": D where fn is airy_beam_df's power pattern of a D m
+    dish (the driver marks its truth form so)} selects the truth-amps
+    path.
+
+    A chunk's prep (rotation, u streams, payload) is one launch of kernel
+    banded_prep for CUDA tensors and its plain version banded_prep_plain
+    for CPU tensors. Both compute the truth payload themselves where
+    truth["airy_diameter"] is given and the rank is at most
+    cuda_prep.MAX_RANK; every other payload is computed from their rotated
+    vectors by the torch code.
 
     Returns run(Mh, Ml, pch, pcl) -> ((B_full, C) complex64, ok 0-d bool
     tensor), with
@@ -642,7 +692,8 @@ def make_banded_snapshot_fns(instrument, sky, beam_fn, plan, pinvQ, Q,
           adequacy is gated separately by resid = max|model - amps| /
           max|amps| against the f32 full-channel amps. coherent_scale is
           max_c sum_s |A_sc| of the amps the direct side summed.
-      run.prep_chunk(c, Mh, Ml, pch, pcl) -> _prep's outputs for chunk c,
+      run.prep_chunk(c, Mh, Ml, pch, pcl) -> (u_h, u_l, P_r, ok), the prep
+          of chunk c, and run.prep_args(c, Mh, Ml, pch, pcl), its arguments,
       run.n_chunks, run.src_chunk, run.node_model and run.truth (whether
       the truth-amps path runs)."""
     dev = instrument.device
@@ -657,11 +708,16 @@ def make_banded_snapshot_fns(instrument, sky, beam_fn, plan, pinvQ, Q,
     coeffs = make_coeff_fn(instrument.freqs, plan.rank, pinvQ, beam_fn,
                            node_model=node_model)
     nm = coeffs.node_model
-    coeffs_df = None
+    coeffs_df = airy = None
     if truth is not None:
         coeffs_df = make_coeff_fn_truth(instrument.freqs, plan.rank,
                                         truth["beam_df"])
         fluxn64 = np.asarray(truth["flux_nodes"], np.float64)[perm]
+        dia = truth.get("airy_diameter")
+        if dia is not None and plan.rank <= MAX_RANK:
+            nmt = coeffs_df.node_model
+            airy = AiryPayload(dia, nmt.nu_nodes, None, torch.as_tensor(
+                np.ascontiguousarray(nmt.node2coef64), device=dev))
 
     S = int(sky.s_eq_hi.shape[0])
     if src_chunk is None:
@@ -686,20 +742,40 @@ def make_banded_snapshot_fns(instrument, sky, beam_fn, plan, pinvQ, Q,
     Qc = torch.as_tensor(nm.Q64 if nm is not None else Q,
                          dtype=torch.float64, device=dev)
 
-    def _chunk(c, Mh, Ml, pch, pcl):
+    chunk_pad = -(-src_chunk // plan.T_s) * plan.T_s
+    prep_fn = banded_prep_cuda if dev.type == "cuda" else banded_prep_plain
+
+    def prep_args(c, Mh, Ml, pch, pcl):
+        """The arguments of chunk c's prep: (plan, s_eq_hi, s_eq_lo, Mh,
+        Ml, pch, pcl) and its AiryPayload (None: the payload follows)."""
+        sl = slice(c * src_chunk, (c + 1) * src_chunk)
+        kp = None if airy is None else airy._replace(flux_nodes=fn64[sl])
+        return (plan, seqh[sl], seql[sl], Mh, Ml, pch, pcl), kp
+
+    def _chunk(c, Mh, Ml, pch, pcl, vectors=False):
+        """Chunk c's prep (u_h, u_l, P_r, ok) and, with `vectors`, its
+        slice, rotated and phase-centred vectors and payload (sl, sh, seh,
+        sel, P (S, r)), else None."""
         sl = slice(c * src_chunk, (c + 1) * src_chunk)
         tracing.count("src.processed", src_chunk)
-        sh, slo = df_rotate3(Mh, Ml, seqh[sl], seql[sl])
-        seh, sel = tf.df_add(sh, slo, -pch[None, :], -pcl[None, :])
-        if truth is not None:
-            P = coeffs_df(sh, slo, fn64[sl])
-        else:
-            P = coeffs(sh, flux[sl], pch)
-        return sl, sh, seh.contiguous(), sel.contiguous(), P
+        args, kp = prep_args(c, Mh, Ml, pch, pcl)
+        u_h, u_l, P_r, ok, vecs = prep_fn(*args, airy=kp,
+                                          vectors=vectors or kp is None)
+        P = None
+        if P_r is None:
+            sh, slo = vecs[:2]
+            P = (coeffs_df(sh, slo, fn64[sl]) if truth is not None
+                 else coeffs(sh, flux[sl], pch))
+            P_r = _payload_rows(P, chunk_pad)
+        prep = (u_h, u_l, P_r, ok)
+        if not vectors:
+            return prep, None
+        if P is None:
+            P = P_r[:, :src_chunk].t().contiguous()
+        return prep, (sl, vecs[0], vecs[2], vecs[3], P)
 
     def prep_chunk(c, Mh, Ml, pch, pcl):
-        _, _, seh, sel, P = _chunk(c, Mh, Ml, pch, pcl)
-        return _prep(plan, seh, sel, P)
+        return _chunk(c, Mh, Ml, pch, pcl)[0]
 
     def run(Mh, Ml, pch, pcl):
         rows = None
@@ -724,8 +800,8 @@ def make_banded_snapshot_fns(instrument, sky, beam_fn, plan, pinvQ, Q,
         rmax = amax = 0.0
         for c in range(n_chunks):
             with tracing.span("gate.chunk", chunk=c):
-                sl, sh, seh, sel, P = _chunk(c, Mh, Ml, pch, pcl)
-                u_h, u_l, P_r, okc = _prep(plan, seh, sel, P)
+                (u_h, u_l, P_r, okc), (sl, sh, seh, sel, P) = _chunk(
+                    c, Mh, Ml, pch, pcl, vectors=True)
                 part = _spread(plan, u_h, u_l, P_r)
                 rows = part if rows is None else rows.add_(part)
                 ok = ok and bool(okc)
@@ -751,6 +827,7 @@ def make_banded_snapshot_fns(instrument, sky, beam_fn, plan, pinvQ, Q,
 
     run.gate_fn = gate
     run.prep_chunk = prep_chunk
+    run.prep_args = prep_args
     run.n_chunks = n_chunks
     run.src_chunk = src_chunk
     run.node_model = nm

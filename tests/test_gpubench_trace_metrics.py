@@ -1,7 +1,8 @@
 """The benchmark's readers of the program's spans and counters
 (gpubench/spans.py, gpubench/metrics/{plan_s, prep_ms, k2_tiles,
 snap_idle_share, live_src_share, noise_s, phasing_s, amps_kernel_share,
-amps_roofline, spread_roofline, nufft_snap_ms, sort_ms}.py) on hand-built
+amps_roofline, spread_roofline, nufft_snap_ms, sort_ms, prep_kernel_share,
+prep_roofline}.py) on hand-built
 records and a synthetic device trace, on a checkout without the recorder,
 and in a traced tiny cell on the CPU, where the recorder keeps the
 profiled simulation alone."""
@@ -167,7 +168,7 @@ def test_nothing_where_nothing_was_recorded(monkeypatch, records):
     else:
         monkeypatch.setattr(tracing, "take", lambda: records)
     info = SimpleNamespace(trace=_device([(0, 1)]))
-    for name in NEW + AMPS[:1]:
+    for name in NEW + AMPS[:1] + PREP[:1]:
         assert _read(name, info) is None, name
 
 
@@ -361,7 +362,7 @@ def test_spread_roofline():
 
 
 def test_benchmark_lists_the_sorted_metrics():
-    """The three readers of the sorted route, last in per_layer, in the
+    """The three readers of the sorted route, together in per_layer, in the
     route's own layer, in its cell alone."""
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
     entries = {m["name"]: m for m in bench["per_layer"]}
@@ -373,8 +374,86 @@ def test_benchmark_lists_the_sorted_metrics():
         assert e["layer"] == \
             "engine snapshots: engine/nufft_delay -> csrc/spread.cu"
         assert e["moves"] == "vis_rate" and e["workloads"] == ["hera331.sorted"]
-    assert [m["name"] for m in bench["per_layer"][-len(SORTED):]] == \
-        list(SORTED)
+    names = [m["name"] for m in bench["per_layer"]]
+    start = names.index(SORTED[0])
+    assert names[start:start + len(SORTED)] == list(SORTED)
+
+
+PREP = ("prep_kernel_share", "prep_roofline")
+
+
+def _banded_with_kernel(kernel_preps):
+    """_banded's records, with one banded_prep launch in the prep spans
+    numbered `kernel_preps` (0-3: the snapshots' chunks in order) and in
+    the gate's."""
+    recs = _banded()
+    preps = [r for r in recs if r["name"] == "prep" and r["parent"] != 6]
+    for i, r in enumerate(preps):
+        if i in kernel_preps:
+            r["launches"]["banded_prep"] = 1
+    recs[6]["launches"]["banded_prep"] = 1
+    return recs
+
+
+@pytest.mark.parametrize("kernel_preps,want", [
+    ((0, 1, 2, 3), 100.0), ((1, 2, 3), 75.0), ((), None)])
+def test_prep_kernel_share(monkeypatch, kernel_preps, want):
+    """src.processed of the snapshots' prep spans that launched
+    banded_prep, over all their prep spans'; the gate's chunk is no
+    snapshot's; nothing where no snapshot's prep took the kernel (the
+    parent) or no snapshot has a prep span (the direct engine)."""
+    info = _info(monkeypatch, _banded_with_kernel(kernel_preps))
+    got = _read("prep_kernel_share", info)
+    assert got == (None if want is None else pytest.approx(want))
+    info = _info(monkeypatch, _direct())
+    assert _read("prep_kernel_share", info) is None
+
+
+def _prep_plan(truth=True):
+    return dict(K=9, rank=32, ndir=384, nbl=630, R_max=840, n_chunks=3,
+                src_chunk=262144, truth=truth)
+
+
+def test_prep_roofline():
+    """The least bytes of every chunk's prep (u streams, source vectors
+    and, with truth amps, the payload rows and node fluxes) in the cell's
+    snapshots and the gate's, over the kernel's own device time at
+    3.35 TB/s; nothing without the kernel, the trace or the plan."""
+    mod = H.load_metric("prep_roofline")
+    kernel = "void (anonymous namespace)::banded_prep_kernel<true>(...)"
+    ops = [(kernel, 0.0, 2e-3), ("banded_k2_kernel", 2e-3, 1.0),
+           (kernel, 1.0, 1.0 + 3e-3)]
+    info = _kernel_info(ops, engine="banded")
+    info.cell["n_acc"] = 25
+    info.plan = _prep_plan()
+    # the north star: 262,144 x (384 x 8 + 24 + 32 x 16) = 945.8 MB a chunk
+    nbytes = 262144 * (384 * 8 + 24 + 32 * 16)
+    assert mod.chunk_bytes(info.plan) == nbytes == 945815552
+    assert mod.read(info) == pytest.approx(
+        100.0 * 3 * 26 * nbytes / 3.35e12 / 5e-3, rel=1e-12)
+    assert mod.chunk_bytes(_prep_plan(truth=False)) == 262144 * (384 * 8
+                                                                 + 24)
+    info.plan = None
+    assert mod.read(info) is None
+    info.plan = _prep_plan()
+    info.trace = SimpleNamespace(kernel_seconds=lambda pattern: 0.0)
+    assert mod.read(info) is None
+    assert mod.read(SimpleNamespace(trace=None, plan=_prep_plan())) is None
+
+
+def test_benchmark_lists_the_prep_metrics():
+    """The two readers of the banded_prep kernel, last in per_layer, in the
+    snapshots' layer, in the banded cell alone."""
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    entries = {m["name"]: m for m in bench["per_layer"]}
+    for name in PREP:
+        mod = H.load_metric(name)
+        e = entries[name]
+        assert (mod.UNIT, mod.SOURCE, mod.MOVES, mod.LAYER) == (
+            e["unit"], e["source"], e["moves"], e["layer"])
+        assert e["layer"] == entries["prep_ms"]["layer"]
+        assert e["moves"] == "vis_rate" and e["workloads"] == ["hera331.banded"]
+    assert [m["name"] for m in bench["per_layer"][-len(PREP):]] == list(PREP)
 
 
 CELLS = r'''
@@ -429,7 +508,8 @@ def test_traced_and_untraced_tiny_cells_on_the_cpu(tmp_path):
     for name in ("plan_s", "live_src_share", "noise_s", "phasing_s"):
         assert m[name]["value"] >= 0, name
     # the card's readers: stream times, K2's worklist, the device trace
-    for name in ("prep_ms", "k2_tiles", "snap_idle_share"):
+    for name in ("prep_ms", "k2_tiles", "snap_idle_share",
+                 "prep_kernel_share", "prep_roofline"):
         assert name not in m
     assert got["roots"] == 1 and got["snaps"] == got["n_acc"]
     assert m["noise_s"]["value"] + m["phasing_s"]["value"] == \

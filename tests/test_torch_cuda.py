@@ -387,6 +387,7 @@ def test_span_counters_match_the_kernels_own_counts(cuda, case):
     src.live equal to live_order's n_live; the spans record the launches
     and their stream milliseconds."""
     from prisim_tpu_torch import tracing
+    from prisim_tpu_torch._build import load_kernel_library
     from prisim_tpu_torch.engine.cuda_nudft import live_order
     rng = np.random.RandomState(1)
     bl = np.concatenate([rng.uniform(-300, 300, (30, 3)) * [1, 1, 0.01],
@@ -402,6 +403,9 @@ def test_span_counters_match_the_kernels_own_counts(cuda, case):
     sh, sl = (torch.as_tensor(x, device=cuda) for x in tf.split_f64(se))
     bh, blo = (torch.as_tensor(x, device=cuda) for x in tf.split_f64(bl1))
     amps = torch.as_tensor(amps, device=cuda)
+    # loaded before the trace opens: a first load is a kernels.load span
+    for lib in ("banded", "nudft"):
+        load_kernel_library(lib)
     tracing.take()
     with tracing.on():
         with tracing.span("simulation", device=str(cuda)):
@@ -920,3 +924,183 @@ def test_airy_amps_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError):
         airy_amps_cuda(s, fl.cpu(), 14.0, f)
     assert airy_amps_cuda.launches == n0
+
+
+# --------------------------------------------------------------------------
+# kernel banded_prep against the torch chain it replaces
+# --------------------------------------------------------------------------
+
+# P_r of the kernel against the chain's, max|d| / max|P|: both float64, the
+# node-to-coefficient sums in another order
+PREP_BAR = 1e-13
+
+
+def _prep_case(case, cuda):
+    """(plan, the chain's arguments (s_eq_hi, s_eq_lo, Mh, Ml, pch, pcl),
+    AiryPayload) of a prep case: the slice (HERA-37 non-redundant, 1024
+    channels, rank 32, 49,152 sources), a north-star chunk's first 100,000
+    sources (HERA-331 redundant: 384 directions, rank 32), 5,000 sources
+    that the tile pads to 6,144 (HERA-19, rank 16), and that case with one
+    source vector four times too long (ok False)."""
+    from prisim_tpu_torch import baselines, layouts
+    from prisim_tpu_torch.engine.cuda_prep import AiryPayload
+    from prisim_tpu_torch.engine.nufft_delay import chebyshev_node_model
+    from prisim_tpu_torch.engine.observe import enu_rotation_from_eq
+    layout, redundant, S, r = {
+        "slice": ("HERA-37", False, 49152, 32),
+        "north_star_chunk": ("HERA-331", True, 100000, 32),
+        "ragged": ("HERA-19", True, 5000, 16),
+        "not_unit": ("HERA-19", True, 5000, 16)}[case]
+    bl = baselines.build_baselines(layouts.preset_layout(layout),
+                                   redundant=redundant).vectors
+    freqs = 100e6 + 97656.25 * np.arange(1024)
+    plan = nb.make_banded_plan(bl, freqs[0], 97656.25, 1024, rank=r)
+    rng = np.random.RandomState(S + r)
+    s = rng.randn(S, 3)
+    s /= np.linalg.norm(s, axis=1, keepdims=True)
+    M = enu_rotation_from_eq(rng.uniform(0, 360), -30.7224)
+    if case == "not_unit":
+        s[7] = M.T @ [4.0, 0.0, 0.0]         # four times due east
+    pc = np.asarray([0.0, 0.0, 1.0])
+    dev = [torch.as_tensor(x, device=cuda) for pair in (
+        tf.split_f64(s), tf.split_f64(M), tf.split_f64(pc)) for x in pair]
+    nm = chebyshev_node_model(freqs, r)
+    flux = rng.uniform(0.5, 20.0, (S, r))
+    flux[11] = 0.0
+    airy = AiryPayload(14.0, nm.nu_nodes,
+                       torch.as_tensor(flux, device=cuda),
+                       torch.as_tensor(np.ascontiguousarray(nm.node2coef64),
+                                       device=cuda))
+    if case == "north_star_chunk":
+        assert plan.ndir == 384
+    return plan, dev, airy
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("payload", ["airy", "none"])
+@pytest.mark.parametrize("case", ["slice", "north_star_chunk", "ragged",
+                                  "not_unit"])
+def test_banded_prep_matches_the_torch_chain(cuda, case, payload):
+    """banded_prep against banded_prep_plain (the chain) on the same card:
+    u_h, u_l, ok and the rotated and centred vectors bit for bit; the Airy
+    payload to 1e-13 of max|P| with the same zeros (below the horizon, zero
+    flux, the pads); one launch, which the enclosing span records."""
+    from prisim_tpu_torch import tracing
+    from prisim_tpu_torch.engine.cuda_prep import banded_prep_cuda
+    plan, args, airy = _prep_case(case, cuda)
+    airy = airy if payload == "airy" else None
+    want = nb.banded_prep_plain(plan, *args, airy=airy, vectors=True)
+    n0 = banded_prep_cuda.launches
+    tracing.take()
+    with tracing.on():
+        with tracing.span("simulation", device=str(cuda)):
+            with tracing.span("prep"):
+                got = banded_prep_cuda(plan, *args, airy=airy, vectors=True)
+    torch.cuda.synchronize()
+    rec = next(r for r in tracing.take() if r["name"] == "prep")
+    assert banded_prep_cuda.launches == n0 + 1
+    assert rec["launches"] == {"banded_prep": 1}
+    u_h, u_l, P_r, ok, vecs = got
+    S_pad = -(-args[0].shape[0] // plan.T_s) * plan.T_s
+    assert u_h.shape == (1, plan.ndir * S_pad) == want[0].shape
+    assert torch.equal(u_h, want[0]) and torch.equal(u_l, want[1])
+    assert bool(ok) == bool(want[3]) == (case != "not_unit")
+    for g, w in zip(vecs, want[4]):
+        assert torch.equal(g, w)
+    if airy is None:
+        assert P_r is None and want[2] is None
+        return
+    P = want[2]
+    assert P_r.shape == P.shape == (plan.rank, S_pad)
+    assert torch.equal(P_r == 0, P == 0)
+    scale = float(P.abs().max())
+    assert scale > 0
+    assert float((P_r - P).abs().max()) <= PREP_BAR * scale
+    live = (P != 0).any(dim=0)
+    assert 0 < int(live.sum()) < args[0].shape[0]
+
+
+@pytest.mark.gpu
+def test_banded_snapshots_and_gate_with_the_kernel_match_the_chain(
+        cuda, monkeypatch):
+    """The banded engine's snapshots and gate with banded_prep against the
+    same engine with the chain in its place, on one card: HERA-19 x 1024
+    channels (rank 32, truth amps from the driver's Airy form), nside 32,
+    3 source chunks of 5,000 (the tile pads each): V and the gate's
+    banded and direct snapshots to 1e-7 of max|V|, ok and the model
+    residual equal, and K2's worklist of every chunk (tiles, counts,
+    offsets) equal."""
+    from prisim_tpu_torch.config import load_parms
+    from prisim_tpu_torch.driver import _banded_settings, prepare_simulation
+    from prisim_tpu_torch.engine.cuda_prep import banded_prep_cuda
+    from prisim_tpu_torch.engine.nufft_delay import chebyshev_projection
+    from prisim_tpu_torch.engine.observe import schedule_tensors
+    parms = load_parms({
+        "telescope": {"id": "hera"},
+        "array": {"layout": "HERA-19", "redundant": True},
+        "bandpass": {"nchan": 1024, "freq_resolution": 97656.25},
+        "obsparm": {"n_acc": 2, "t_acc": 60.0},
+        "skyparm": {"model": "usm", "nside": 32},
+        "processing": {"engine": "auto"},
+        "save_formats": {"fmt": "none", "npz": False}})
+    sim = prepare_simulation(parms, cuda)
+    rank, node_model, truth, plan_kw = _banded_settings(parms, sim)
+    assert rank == 32 and truth is not None
+    plan = nb.make_banded_plan(np.asarray(sim.bls.vectors), sim.inst.nu0,
+                               sim.inst.dnu, sim.freqs.size, rank=rank,
+                               **plan_kw)
+    pinvQ, Q = chebyshev_projection(sim.freqs, rank)
+
+    def fns():
+        return nb.make_banded_snapshot_fns(
+            sim.inst, sim.sky, sim.beam_fn, plan, pinvQ, Q,
+            gate_src_block=sim.src_block, node_model=node_model,
+            truth=truth, src_chunk=5000)
+    kern = fns()
+    with monkeypatch.context() as m:
+        m.setattr(nb, "banded_prep_cuda", nb.banded_prep_plain)
+        chain = fns()
+    assert kern.n_chunks == 3
+    sched = schedule_tensors(sim.obs, sim.inst.latitude, cuda)
+    n0 = banded_prep_cuda.launches
+    for t in range(2):
+        a = [x[t] for x in sched]
+        (vk, okk), (vc, okc) = kern(*a), chain(*a)
+        scale = float(vc.abs().max())
+        assert bool(okk) and bool(okc)
+        assert float((vk - vc).abs().max()) <= 1e-7 * scale
+        for c in range(kern.n_chunks):
+            wk = banded_worklist_cuda(plan, *kern.prep_chunk(c, *a)[:3])
+            wc = banded_worklist_cuda(plan, *chain.prep_chunk(c, *a)[:3])
+            for g, w in zip(wk[1:], wc[1:]):
+                assert torch.equal(g, w)
+    gk, gc = kern.gate_fn(*a), chain.gate_fn(*a)
+    assert banded_prep_cuda.launches == n0 + 2 * 2 * 3 + 3
+    scale = np.abs(gc[0]).max()
+    for i in (0, 1):
+        assert np.abs(gk[i] - gc[i]).max() <= 1e-7 * scale
+    assert gk[2] and gc[2]
+    assert gk[3] == pytest.approx(gc[3], rel=1e-6)
+    assert gk[4] == pytest.approx(gc[4], rel=1e-12)
+
+
+@pytest.mark.gpu
+def test_banded_prep_rejects_bad_inputs(cuda):
+    from prisim_tpu_torch.engine.cuda_prep import banded_prep_cuda
+    plan, args, airy = _prep_case("ragged", cuda)
+    n0 = banded_prep_cuda.launches
+    with pytest.raises(TypeError):
+        banded_prep_cuda(plan, args[0].double(), *args[1:], airy=airy)
+    with pytest.raises(ValueError):
+        banded_prep_cuda(plan, *args[:2], args[2].cpu(), *args[3:])
+    with pytest.raises(ValueError):
+        banded_prep_cuda(plan, *args[:5], args[5][None], airy=airy)
+    with pytest.raises(ValueError):
+        banded_prep_cuda(plan, *args, airy=airy._replace(
+            flux_nodes=airy.flux_nodes.cpu()))
+    with pytest.raises(ValueError):
+        banded_prep_cuda(plan, *args, airy=airy._replace(
+            node2coef64=airy.node2coef64.t()))
+    with pytest.raises(ValueError):
+        banded_prep_cuda(plan, *args, airy=airy._replace(diameter=1000.0))
+    assert banded_prep_cuda.launches == n0

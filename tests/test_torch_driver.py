@@ -875,6 +875,7 @@ def test_truth_beam_only_for_plain_dishes(tmp_path, monkeypatch, case):
                              file=write_fits_beam(tmp_path / "b.fits"))
     sim = drv_t.prepare_simulation(parms, torch.device("cpu"))
     assert hasattr(sim.beam_fn, "df_eval") == (case == "plain_hera")
+    assert hasattr(sim.beam_fn, "df_airy") == (case == "plain_hera")
     assert sim.beam_fn.needs_pointing == (case == "steered")
     if case != "sector":
         return
@@ -959,6 +960,7 @@ def test_airy_dish_is_marked_for_the_kernel(tmp_path, case):
                                    torch.device("cpu"))
     if case in _AIRY_REFUSED:
         assert not hasattr(sim.beam_fn, "airy")
+        assert not hasattr(sim.beam_fn, "df_airy")
         return
     odc = sim.telescope.get("orientation_dircos")
     want = {"hera_zenith": (14.0, odc), "hera_steered": (14.0, odc),
@@ -969,6 +971,9 @@ def test_airy_dish_is_marked_for_the_kernel(tmp_path, case):
     assert (odc is None) == (case == "hera_pol_y_dircos")
     # the float64 truth pattern: the telescope's own dish, about zenith
     assert hasattr(sim.beam_fn, "df_eval") == (case != "hera_steered")
+    assert getattr(sim.beam_fn, "df_airy", None) == (
+        None if case == "hera_steered" else
+        {"hirax": 6.0, "dish": 10.0}.get(case, 14.0))
     if case == "hera_steered":
         assert odc[2] < 0.99            # off zenith
     rng = np.random.RandomState(3)

@@ -3,9 +3,10 @@ card: they import neither jax nor the JAX package themselves, and they
 exit non-zero with no result line when no CUDA card is visible. The
 profiler's device busy time is the union of the device events' intervals.
 chip_smoke's north-star run (phase p) takes hera331_northstar.yaml's
-sections, and the phase runs on the CPU at a small size, as does phase q
-(kernel airy_amps against the torch chain) and phase n's split of the
-sorted snapshot by its spans."""
+sections, and the phase runs on the CPU at a small size, as do phase q
+(kernel airy_amps against the torch chain), phase r (kernel banded_prep
+against the torch chain) and phase n's split of the sorted snapshot by
+its spans."""
 
 import ast
 import copy
@@ -181,6 +182,63 @@ def test_airy_amps_phase_on_cpu(monkeypatch):
     fake.off = True
     with pytest.raises(SystemExit, match="differs"):
         cs.airy_amps_phase(beam_fn, freqs, cpu, shapes=shapes[:1])
+
+
+@pytest.mark.parametrize("src_chunk", [None, 2500])
+def test_banded_prep_phase_on_cpu(monkeypatch, src_chunk):
+    """Phase r on the CPU at a small size (HERA-19, 256 channels, nside 16:
+    rank 16 with the truth amps of HERA's Airy dish), banded_prep_cuda
+    replaced by a counting copy of the chain, the CUDA timer stubbed: every
+    chunk's outputs agree (one chunk of 3,072 sources padded to 4,096, or
+    2 of 2,500 that the tile pads),
+    one launch a chunk is checked, the bound counts the u streams, the
+    vectors, the payload rows and the node fluxes; a u stream one ulp off
+    fails the phase, as does a run with no Airy truth payload."""
+    cs = _chip_smoke()
+    from prisim_tpu_torch import driver
+    from prisim_tpu_torch.engine import cuda_prep
+    from prisim_tpu_torch.engine import nufft_banded as nb
+    cpu = torch.device("cpu")
+
+    def fake(*a, **k):
+        fake.launches += 1
+        out = nb.banded_prep_plain(*a, **k)
+        if fake.off:
+            out[0][0, 7] = torch.nextafter(out[0][0, 7], torch.tensor(9.0))
+        return out
+
+    fake.launches, fake.off = 0, False
+    monkeypatch.setattr(cuda_prep, "banded_prep_cuda", fake)
+    monkeypatch.setattr(cs, "cuda_time_ms", lambda fn: (fn(), 1.0)[1])
+    if src_chunk:
+        make = nb.make_banded_snapshot_fns
+        monkeypatch.setattr(driver, "make_banded_snapshot_fns", lambda *a, **k:
+                            make(*a, **dict(k, src_chunk=src_chunk)))
+    parms = cs.northstar_parms(array={"layout": "HERA-19"},
+                               bandpass={"nchan": 256},
+                               skyparm={"nside": 16})
+    got = cs.banded_prep_phase("small", parms, cpu)
+    n = 2 if src_chunk else 1
+    assert got["launches"] == fake.launches == n * (1 + 2)
+    assert got["max_abs_err"] == 0.0 and got["ms"] == got["plain_ms"] == 1.0
+    sim = driver.prepare_simulation(parms, cpu)
+    plan, run = driver.banded_engine(parms, sim)
+    assert plan.rank == 16 and run.truth and run.n_chunks == n
+    assert sim.sky.flux.shape[0] == 3072
+    S_c = run.src_chunk          # whole tiles, or the given chunk
+    assert S_c == (src_chunk or 4096)
+    S_pad = -(-S_c // plan.T_s) * plan.T_s
+    want = n * (8 * plan.ndir * S_pad + 24 * S_c + 8 * 16 * (S_pad + S_c))
+    assert got["bound_ms"] == pytest.approx(want / 3.35e12 * 1e3, rel=1e-12)
+    fake.off = True
+    with pytest.raises(SystemExit, match="differs"):
+        cs.banded_prep_phase("small", parms, cpu)
+    fake.off = False
+    with pytest.raises(SystemExit, match="no Airy payload"):
+        cs.banded_prep_phase("small", cs.northstar_parms(
+            array={"layout": "HERA-19"}, bandpass={"nchan": 256},
+            skyparm={"nside": 16}, processing={"nufft_truth_amps": False}),
+            cpu)
 
 
 def test_snapshot_span_ms_on_cpu():
