@@ -272,6 +272,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from gpubench.peaks import FP64_FLOPS, FP64_TC_FLOPS, HBM_BPS, bound_s
+
 BAR = 2e-6            # max|dV| / max|V|, the f32 engines' bar
 GATE_TOL = 2e-6       # banded gate: max|dV| / max_c sum_s |A|
 # K2 vs its plain version, max|d rows| / max|rows|: both sum in float64
@@ -292,11 +294,6 @@ N_TIMED = 3
 # airy_amps's (sources, channels) in the direct cells' snapshots:
 # hera331.direct (nside 256 x 1024 ch) and hera37.direct (nside 128 x 256)
 AIRY_SHAPES = ((786432, 1024), (196608, 256))
-# Data-sheet peaks of the H100 SXM (NVIDIA, at 700 W): HBM3 bytes/s, and
-# float64 FLOP/s outside the tensor cores and on them (DMMA)
-HBM_BPS = 3.35e12
-FP64_FLOPS = 34e12
-FP64_TC_FLOPS = 67e12
 # float64 operations per (source, baseline, channel) term, an FMA as 2:
 # K1a A w (2 multiplies) and 4 FMAs into the accumulators; K1b 3 moments
 # of 2 FMAs more each; K1c one multiply by the weight more
@@ -304,11 +301,11 @@ K1A_FLOPS, K1B_FLOPS, K1C_FLOPS = 10, 22, 11
 
 
 def bound(flops, nbytes, peak):
-    """The least time of `flops` operations at `peak` and `nbytes` moved
-    at HBM_BPS: {"bound_ms", "bound_by"}."""
-    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BPS * 1e3
-    return dict(bound_ms=max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes")
+    """gpubench.peaks.bound_s in milliseconds, and what sets it:
+    {"bound_ms", "bound_by"}."""
+    t = bound_s(flops, nbytes, peak)
+    return dict(bound_ms=t * 1e3,
+                bound_by="operations" if flops / peak >= t else "bytes")
 
 
 def nudft_bound(amps, B, flops_per_term, out_planes=1, extra_bytes=0):

@@ -1121,11 +1121,20 @@ def _run_sectors(parms, outdir, verbose, save, devs, n_sectors):
     return outs, outdir
 
 
-def _run_components(parms, outdir, verbose, save, devs, sky_override,
-                    comps):
-    """One run_simulation per polarization component; comps holds (suffix
-    for simid and outdir, beam.pol, Mueller component or None) for each.
-    Returns [(VisibilitySet, outdir or None), ...]."""
+def _run_pols(parms, outdir, verbose, save, devs, sky_override, full):
+    """beam.pol XY/dual (prisim_tpu/driver.py:855-889) or, with `full`,
+    beam.pol full (:890-922): one simulation per component, each saving its
+    own products, plus the combined UVFITS exports under the first
+    component's directory (and UVH5 where save_formats.uvh5 asks for it;
+    the reference writes UVH5 always, so a run without h5py could not
+    save). XY: the X and Y feeds (Y is X rotated 90 deg in azimuth),
+    exported as 2-pol and as 4-pol with flagged zero cross-pols. full: XX,
+    YY and the XY = YX leakage product of crossed-dipole Jones vectors
+    (beams/jones.py), each a pol-X run with its Mueller weight as the
+    beam, exported as 4-pol with real cross-pols. Returns (list of
+    VisibilitySet, the first component's outdir or None)."""
+    comps = ([("_" + c.lower(), "X", c) for c in ("XX", "YY", "XY")] if full
+             else [("_pol" + p, p, None) for p in ("X", "Y")])
     outs = []
     for suffix, pol, mueller in comps:
         p2 = copy.deepcopy(parms)
@@ -1138,62 +1147,27 @@ def _run_components(parms, outdir, verbose, save, devs, sky_override,
             p2, outdir=None if outdir is None else outdir + suffix,
             verbose=verbose, save=save, devices=devs,
             _sky_override=sky_override))
-    return outs
-
-
-def _run_dual_pol(parms, outdir, verbose, save, devs, sky_override):
-    """beam.pol XY/dual (prisim_tpu/driver.py:855-889): the X and Y feeds
-    as two simulations (the Y feed is X rotated 90 deg in azimuth), each
-    saving its own products, plus the combined 2-pol and 4-pol (XX, YY
-    and flagged zero cross-pols) UVFITS exports under the X run's
-    directory, and UVH5 where save_formats.uvh5 asks for it (the
-    reference writes UVH5 always, so a run without h5py could not save)."""
-    (vs_x, dir_x), (vs_y, _) = _run_components(
-        parms, outdir, verbose, save, devs, sky_override,
-        [("_pol" + p, p, None) for p in ("X", "Y")])
-    if save and dir_x is not None:
-        base = os.path.join(dir_x, "simdata", "simvis_dualpol")
-        base4 = os.path.join(dir_x, "simdata", "simvis_4pol")
-        kinds = _combined_exports(parms, (base, dict(vs_second=vs_y)),
-                                  (base4, dict(vs_second=vs_y,
-                                               four_pol=True)), vs0=vs_x)
+    vss, dir0 = [vs for vs, _ in outs], outs[0][1]
+    if save and dir0 is not None:
+        from .io.uvfits import save_uvfits
+        from .io.uvh5 import save_uvh5
+        stem = os.path.join(dir0, "simdata", "simvis_")
+        second = dict(vs_second=vss[1])
+        products = ([(stem + "fullpol", dict(second, four_pol=True,
+                                             vs_cross=vss[2]))] if full
+                    else [(stem + "dualpol", second),
+                          (stem + "4pol", dict(second, four_pol=True))])
+        uvh5 = bool(parms["save_formats"].get("uvh5"))
+        for base, kw in products:
+            save_uvfits(vss[0], base + ".uvfits", **kw)
+            if uvh5:
+                save_uvh5(vss[0], base + ".uvh5", **kw)
         if verbose:
-            print("[prisim_tpu_torch] dual-pol exports -> %s.{%s} + %s.{%s}"
-                  % (base, kinds, base4, kinds))
-    return [vs_x, vs_y], dir_x
-
-
-def _run_full_pol(parms, outdir, verbose, save, devs, sky_override):
-    """beam.pol full (prisim_tpu/driver.py:890-922): XX, YY and the XY = YX
-    leakage product of crossed-dipole Jones vectors (beams/jones.py) as
-    three component simulations of pol X, each with its Mueller weight as
-    the beam, plus the combined 4-pol UVFITS export with real cross-pols
-    under the XX run's directory (UVH5 where save_formats.uvh5 asks)."""
-    (vs_xx, dir_x), (vs_yy, _), (vs_xy, _) = _run_components(
-        parms, outdir, verbose, save, devs, sky_override,
-        [("_" + c.lower(), "X", c) for c in ("XX", "YY", "XY")])
-    if save and dir_x is not None:
-        base = os.path.join(dir_x, "simdata", "simvis_fullpol")
-        kinds = _combined_exports(parms, (base, dict(
-            vs_second=vs_yy, four_pol=True, vs_cross=vs_xy)), vs0=vs_xx)
-        if verbose:
-            print("[prisim_tpu_torch] full-pol exports -> %s.{%s}"
-                  % (base, kinds))
-    return [vs_xx, vs_yy, vs_xy], dir_x
-
-
-def _combined_exports(parms, *products, vs0):
-    """Write each (base, save kwargs) of `products` for the first component
-    `vs0` as UVFITS, and as UVH5 where save_formats.uvh5 is set; returns
-    the extensions written."""
-    from .io.uvfits import save_uvfits
-    from .io.uvh5 import save_uvh5
-    uvh5 = bool(parms["save_formats"].get("uvh5"))
-    for base, kw in products:
-        save_uvfits(vs0, base + ".uvfits", **kw)
-        if uvh5:
-            save_uvh5(vs0, base + ".uvh5", **kw)
-    return "uvfits,uvh5" if uvh5 else "uvfits"
+            print("[prisim_tpu_torch] %s exports -> %s" % (
+                "full-pol" if full else "dual-pol", " + ".join(
+                    "%s.{%s}" % (base, "uvfits,uvh5" if uvh5 else "uvfits")
+                    for base, _ in products)))
+    return vss, dir0
 
 
 def _run_simulation_inner(parms, outdir, verbose, save, devs, sky_override):
@@ -1203,59 +1177,69 @@ def _run_simulation_inner(parms, outdir, verbose, save, devs, sky_override):
     if sky_override is None and n_sectors > 1:
         return _run_sectors(parms, outdir, verbose, save, devs, n_sectors)
     pol = str((parms.get("beam") or {}).get("pol") or "X").upper()
-    if pol in ("XY", "DUAL"):
-        return _run_dual_pol(parms, outdir, verbose, save, devs, sky_override)
-    if pol == "FULL":
-        return _run_full_pol(parms, outdir, verbose, save, devs, sky_override)
+    if pol in ("XY", "DUAL", "FULL"):
+        return _run_pols(parms, outdir, verbose, save, devs, sky_override,
+                         full=pol == "FULL")
     sim = prepare_simulation(parms, dev, verbose=verbose, sky=sky_override)
     run = tracing.current("simulation")
     run.set(nbl=sim.bls.nbl, nchan=int(sim.freqs.size), n_acc=sim.obs.n_acc,
             nsrc=sim.skymodel.nsrc)
     with tracing.span("visibilities", line=verbose and
                       "visibilities computed + transferred"):
-        grad = bool(parms["processing"].get("gradient_mode"))
-        engine = _resolve_engine(parms, dev)
-        bm = parms.get("beam") or {}
-        external = bool(bm.get("use_external") and bm.get("file"))
-        if external and (engine == "nufft" or grad):
-            print("[prisim_tpu_torch] beam.use_external: the external-beam "
-                  "route runs the direct engine, without gradients")
-        elif engine == "nufft" and (grad
-                                    or sim.sky.src_shape_sigma is not None):
-            print("[prisim_tpu_torch] %s, which the NUFFT engine does not "
-                  "compute; running the direct engine"
-                  % ("processing.gradient_mode asks for baseline gradients"
-                     if grad else "the sky has source shapes (extended "
-                     "sources)"))
-            engine = "direct"
+        engine, mesh = _route(parms, sim, devs)
+        run.set(engine="direct" if engine == "external" else engine)
         gradients = None
-        mesh = None
-        if not (external or grad or sim.sky.src_shape_sigma is not None):
-            mesh = _mesh(parms, devs, engine)
-        sorted_spread = _nufft_spread(parms) in _SORTED
-        run.set(engine="direct" if external or engine != "nufft" else
-                "sorted" if sorted_spread else "banded")
-        if external:
+        if engine == "external":
             vis_tbc = _simulate_external(parms, sim, verbose)
-        elif engine == "nufft" and sorted_spread:
+        elif engine == "sorted":
             vis_tbc = _simulate_sorted(parms, sim, verbose, mesh)
-        elif engine == "nufft":
+        elif engine == "banded":
             vis_tbc = _simulate_banded(parms, sim, verbose, mesh)
-        elif mesh is not None:
-            vis_tbc = _simulate_direct_mesh(parms, sim, verbose, mesh)
         else:
-            out = simulate_drift(sim.inst, sim.sky, sim.obs, sim.beam_fn,
-                                 src_block=sim.src_block, gradient=grad)
-            vis_tbc = out[0] if grad else out
-            if grad:
-                # (T, 3, B, C) -> the reference's (3, nbl, nchan, n_acc)
-                gradients = {"baseline": np.ascontiguousarray(
-                    np.transpose(out[1].cpu().numpy(), (1, 2, 3, 0)))}
+            vis_tbc, gradients = _simulate_direct(parms, sim, verbose, mesh)
         with tracing.span("transfer"):
             skyvis = np.ascontiguousarray(
                 np.transpose(vis_tbc.cpu().numpy(), (1, 2, 0)))
     return _finalize_simulation(parms, sim, skyvis, outdir, verbose, save,
                                 dev, gradients=gradients)
+
+
+def _route(parms, sim, devs):
+    """(engine, mesh) of a simulation on `devs`, the one place that picks
+    them: the engine "direct", "banded", "sorted" or "external", and the
+    device mesh of run_simulation's docstring or None. Says why when an
+    external beam, a gradient run or a sky with source shapes overrides
+    processing.engine."""
+    grad = bool(parms["processing"].get("gradient_mode"))
+    engine = _resolve_engine(parms, devs[0])
+    bm = parms.get("beam") or {}
+    if bm.get("use_external") and bm.get("file"):
+        if engine == "nufft" or grad:
+            print("[prisim_tpu_torch] beam.use_external: the external-beam "
+                  "route runs the direct engine, without gradients")
+        return "external", None
+    if grad or sim.sky.src_shape_sigma is not None:
+        if engine == "nufft":
+            print("[prisim_tpu_torch] %s, which the NUFFT engine does not "
+                  "compute; running the direct engine"
+                  % ("processing.gradient_mode asks for baseline gradients"
+                     if grad else "the sky has source shapes (extended "
+                     "sources)"))
+        return "direct", None
+    if engine == "nufft":
+        engine = "sorted" if _nufft_spread(parms) in _SORTED else "banded"
+    pp = parms.get("pp") or {}
+    key = (pp.get("key") or "freq").lower()
+    n = len(devs)
+    if n < 2 or key == "none":
+        return engine, None
+    from .parallel.mesh import make_mesh
+    axes = pp.get("mesh_axes")
+    # banded rides 'bl' whatever the key (each shard FFTs the full band)
+    shape = ((n, 1) if engine == "banded" else tuple(axes) if axes
+             else (1, 1, n) if key == "src" else (1, n) if key == "freq"
+             else (n, 1))
+    return engine, make_mesh(shape, ("bl", "chan", "src")[:len(shape)], devs)
 
 
 _ON = ("auto", "true", "1", "yes", "on")
@@ -1326,6 +1310,19 @@ def banded_engine(parms, sim, collapse=True, settings=None):
             truth=truth)
 
 
+def _dump_gate(sim, sched, fast0, direct0, rank, csA0, **extra):
+    """Write a gate's inputs and readings to the .npz file named by the
+    environment variable below, when it is set (the two gates' shared
+    keys, and `extra`)."""
+    dump = os.environ.get("PRISIM_DEBUG_XCHECK_DUMP")
+    if dump:
+        Mh0, Ml0, pch0, pcl0 = (a[0].cpu().numpy() for a in sched)
+        np.savez(dump, fast0=fast0, direct0=direct0, Mh0=Mh0, Ml0=Ml0,
+                 pch0=pch0, pcl0=pcl0, freqs=sim.freqs,
+                 bl=np.asarray(sim.bls.vectors), rank=rank, csA0=csA0,
+                 **extra)
+
+
 def _banded_gate(parms, sim, plan, snap, sched, verbose, label=""):
     """The shared-amps gate of the banded engine on snapshot 0
     (processing.nufft_crosscheck, on by default): raises _EngineDemotion
@@ -1335,19 +1332,12 @@ def _banded_gate(parms, sim, plan, snap, sched, verbose, label=""):
         return
     with tracing.span("gate", line=verbose and
                       "banded %sshared-amps gate" % label):
-        Mh, Ml, pch, pcl = sched
         tol = float(proc.get("nufft_crosscheck_tol") or 2e-6)
         rtol = float(proc.get("nufft_resid_tol") or 1e-4)
         direct0, banded0, ok0, resid0, cs0 = snap.gate_fn(
-            Mh[0], Ml[0], pch[0], pcl[0])
-        dump = os.environ.get("PRISIM_DEBUG_XCHECK_DUMP")
-        if dump:
-            np.savez(dump, fast0=banded0, direct0=direct0,
-                     Mh0=Mh[0].cpu().numpy(), Ml0=Ml[0].cpu().numpy(),
-                     pch0=pch[0].cpu().numpy(), pcl0=pcl[0].cpu().numpy(),
-                     freqs=sim.freqs, bl=np.asarray(sim.bls.vectors),
-                     rank=plan.rank, resid0=resid0, csA0=cs0, ok0=ok0,
-                     truth_on=snap.truth)
+            *(a[0] for a in sched))
+        _dump_gate(sim, sched, banded0, direct0, plan.rank, cs0,
+                   resid0=resid0, ok0=ok0, truth_on=snap.truth)
         dmax = float(np.abs(banded0 - direct0).max())
         vmax = float(np.abs(direct0).max())
         # relative to the coherent flux scale max_c sum_s |A_sc| (>= max|V|),
@@ -1370,67 +1360,55 @@ def _banded_gate(parms, sim, plan, snap, sched, verbose, label=""):
 
 def _simulate_banded(parms, sim, verbose, mesh=None):
     """All accumulations through the banded NUFFT engine, behind its
-    shared-amps gate on snapshot 0 (prisim_tpu/driver.py:1346-1500), on
-    `mesh` when one is given. Returns (T, B, C) complex64 or raises
-    _EngineDemotion."""
+    shared-amps gate on snapshot 0 (prisim_tpu/driver.py:1214-1318,
+    :1346-1500); on a 'bl' `mesh` the gate takes a collapse=False plan
+    (the shards' geometry) and simulate_drift_banded_sharded the
+    snapshots. A rejected plan, a failed gate or a failed unit-source
+    check demotes the run. Returns (T, B, C) complex64."""
+    settings = None
     if mesh is not None:
-        return _simulate_banded_mesh(parms, sim, verbose, mesh)
+        key = ((parms.get("pp") or {}).get("key") or "").lower()
+        if verbose and key != "bl":
+            print("[prisim_tpu_torch] banded NUFFT on %d devices: mesh rides "
+                  "the 'bl' axis (full band per shard)" % mesh.devices.size)
+        settings = _banded_settings(parms, sim)
     try:
-        plan, snap = banded_engine(parms, sim)
+        plan, snap = banded_engine(parms, sim, collapse=mesh is None,
+                                   settings=settings)
     except PlanRejected as exc:
         raise _demote(parms, "banded NUFFT plan rejected (%s)" % exc)
-    if verbose:
+    amps = ", truth amps" if snap.truth else ""
+    if verbose and mesh is None:
         print("[prisim_tpu_torch] banded NUFFT: %d bl -> %d swept rows, "
               "%d directions, rank %d, R_max %d, n_blk max %d, %d source "
               "chunk(s) of %d%s"
               % (plan.nbl_full, plan.nbl, plan.ndir, plan.rank, plan.R_max,
-                 plan.n_blk_max, snap.n_chunks, snap.src_chunk,
-                 ", truth amps" if snap.truth else ""))
-    sched = schedule_tensors(sim.obs, sim.inst.latitude, sim.inst.device)
-    _banded_gate(parms, sim, plan, snap, sched, verbose)
-    snaps, oks = [], []
-    for t in range(sim.obs.n_acc):
-        with tracing.span("snapshot", t=t):
-            v, ok = snap(*(a[t] for a in sched))
-        snaps.append(v)
-        oks.append(ok)
-    if not bool(torch.stack(oks).all()):
-        raise _demote(parms, "banded NUFFT unit-source check failed")
-    return torch.stack(snaps)
-
-
-def _simulate_banded_mesh(parms, sim, verbose, mesh):
-    """The banded engine on a 'bl' mesh (prisim_tpu/driver.py:1214-1318):
-    the shared-amps gate on a collapse=False plan (the shards' geometry) on
-    the mesh's first device, then simulate_drift_banded_sharded. A rejected
-    plan, a failed gate or a failed unit-source check demotes the run to
-    the direct engine, which then takes the direct mesh. Returns (T, B, C)
-    complex64."""
-    from .parallel.mesh import simulate_drift_banded_sharded
-    key = ((parms.get("pp") or {}).get("key") or "").lower()
-    n = mesh.devices.size
-    if verbose and key != "bl":
-        print("[prisim_tpu_torch] banded NUFFT on %d devices: mesh rides "
-              "the 'bl' axis (full band per shard)" % n)
-    settings = _banded_settings(parms, sim)
-    rank, node_model, truth, plan_kw = settings
-    try:
-        plan, snap = banded_engine(parms, sim, collapse=False,
-                                   settings=settings)
-    except PlanRejected as exc:
-        raise _demote(parms, "banded NUFFT plan rejected (%s)" % exc)
-    if verbose:
+                 plan.n_blk_max, snap.n_chunks, snap.src_chunk, amps))
+    elif verbose:
         print("[prisim_tpu_torch] banded NUFFT: %d bl, %d directions, rank "
               "%d, R_max %d, n_blk max %d, on a (%d, 1) 'bl' mesh of %s%s"
               % (plan.nbl, plan.ndir, plan.rank, plan.R_max, plan.n_blk_max,
-                 n, ", ".join(str(d) for d in mesh.devices.flat),
-                 ", truth amps" if snap.truth else ""))
+                 mesh.devices.size,
+                 ", ".join(str(d) for d in mesh.devices.flat), amps))
     sched = schedule_tensors(sim.obs, sim.inst.latitude, sim.inst.device)
-    _banded_gate(parms, sim, plan, snap, sched, verbose, label="mesh ")
-    del plan, snap, sched
-    vis, ok = simulate_drift_banded_sharded(
-        sim.inst, sim.sky, sim.obs, sim.beam_fn, mesh, rank=rank,
-        node_model=node_model, truth=truth, plan_kw=plan_kw)
+    _banded_gate(parms, sim, plan, snap, sched, verbose,
+                 label="" if mesh is None else "mesh ")
+    if mesh is None:
+        snaps, oks = [], []
+        for t in range(sim.obs.n_acc):
+            with tracing.span("snapshot", t=t):
+                v, ok = snap(*(a[t] for a in sched))
+            snaps.append(v)
+            oks.append(ok)
+        ok = bool(torch.stack(oks).all())
+        vis = torch.stack(snaps) if ok else None
+    else:
+        from .parallel.mesh import simulate_drift_banded_sharded
+        del plan, snap, sched
+        rank, node_model, truth, plan_kw = settings
+        vis, ok = simulate_drift_banded_sharded(
+            sim.inst, sim.sky, sim.obs, sim.beam_fn, mesh, rank=rank,
+            node_model=node_model, truth=truth, plan_kw=plan_kw)
     if not ok:
         raise _demote(parms, "banded NUFFT unit-source check failed")
     return vis
@@ -1490,13 +1468,7 @@ def _simulate_sorted(parms, sim, verbose, mesh=None):
         return vis
     tol = float(proc.get("nufft_crosscheck_tol") or 1e-4)
     fast0 = vis[0].cpu().numpy()
-    dump = os.environ.get("PRISIM_DEBUG_XCHECK_DUMP")
-    if dump:
-        np.savez(dump, fast0=fast0, direct0=direct0,
-                 Mh0=sched[0][0].cpu().numpy(), Ml0=sched[1][0].cpu().numpy(),
-                 pch0=sched[2][0].cpu().numpy(),
-                 pcl0=sched[3][0].cpu().numpy(), freqs=freqs,
-                 bl=np.asarray(sim.bls.vectors), rank=rank, csA0=coherent)
+    _dump_gate(sim, sched, fast0, direct0, rank, coherent)
     dmax = float(np.abs(fast0 - direct0).max())
     vmax = float(np.abs(direct0).max())
     rel = dmax / max(vmax, 1e-30)
@@ -1510,42 +1482,30 @@ def _simulate_sorted(parms, sim, verbose, mesh=None):
     return vis
 
 
-def _simulate_direct_mesh(parms, sim, verbose, mesh):
-    """All accumulations on the direct engine over `mesh` (prisim_tpu/
-    driver.py:1567-1597): K1a on every CUDA shard, its plain version on
-    every CPU shard. Returns (T, B, C) complex64."""
-    from .parallel.mesh import (simulate_drift_sharded,
-                                simulate_drift_src_sharded)
-    src = "src" in mesh.axis_names
-    if verbose:
-        print("[prisim_tpu_torch] direct engine on a %s mesh of %s"
-              % (mesh.shape, ", ".join(str(d) for d in mesh.devices.flat)))
-    fn = simulate_drift_src_sharded if src else simulate_drift_sharded
-    return fn(sim.inst, sim.sky, sim.obs, sim.beam_fn, mesh,
-              src_block=sim.src_block)
-
-
-def _mesh(parms, devs, engine):
-    """The device mesh of a plain run on `devs`, or None on one device or
-    with pp.key: none. The banded engine rides the 'bl' axis, (n, 1),
-    whatever the key (each shard FFTs the full band); the direct engine
-    and the sorted spread take pp.key's: src (1, 1, n) over ("bl", "chan",
-    "src"), freq (1, n) and any other key (n, 1) over ("bl", "chan"),
-    pp.mesh_axes overriding the shape."""
-    from .parallel.mesh import make_mesh
-    pp = parms.get("pp") or {}
-    key = (pp.get("key") or "freq").lower()
-    n = len(devs)
-    if n < 2 or key == "none":
-        return None
-    if engine == "nufft" and _nufft_spread(parms) not in _SORTED:
-        return make_mesh((n, 1), ("bl", "chan"), devs)
-    axes = pp.get("mesh_axes")
-    if key == "src":
-        return make_mesh(tuple(axes) if axes else (1, 1, n),
-                         ("bl", "chan", "src"), devs)
-    shape = tuple(axes) if axes else ((1, n) if key == "freq" else (n, 1))
-    return make_mesh(shape, ("bl", "chan"), devs)
+def _simulate_direct(parms, sim, verbose, mesh=None):
+    """All accumulations on the direct engine (K1a, K1b or K1c on a card),
+    over `mesh` when one is given (prisim_tpu/driver.py:1567-1597).
+    Returns ((T, B, C) complex64, a gradient run's {"baseline":
+    (3, nbl, nchan, n_acc)} or None)."""
+    if mesh is not None:
+        from .parallel.mesh import (simulate_drift_sharded,
+                                    simulate_drift_src_sharded)
+        if verbose:
+            print("[prisim_tpu_torch] direct engine on a %s mesh of %s"
+                  % (mesh.shape,
+                     ", ".join(str(d) for d in mesh.devices.flat)))
+        fn = (simulate_drift_src_sharded if "src" in mesh.axis_names
+              else simulate_drift_sharded)
+        return fn(sim.inst, sim.sky, sim.obs, sim.beam_fn, mesh,
+                  src_block=sim.src_block), None
+    grad = bool(parms["processing"].get("gradient_mode"))
+    out = simulate_drift(sim.inst, sim.sky, sim.obs, sim.beam_fn,
+                         src_block=sim.src_block, gradient=grad)
+    if not grad:
+        return out, None
+    # (T, 3, B, C) -> the reference's (3, nbl, nchan, n_acc)
+    return out[0], {"baseline": np.ascontiguousarray(
+        np.transpose(out[1].cpu().numpy(), (1, 2, 3, 0)))}
 
 
 def _simulate_external(parms, sim, verbose):

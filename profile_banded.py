@@ -62,20 +62,14 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from gpubench.harness import _union
+
 N_ROWS = 20
 
 
 def busy_us(intervals):
     """Length of the union of (start, end) intervals."""
-    total, end = 0.0, None
-    for a, b in sorted(intervals):
-        if end is None or a > end:
-            total += b - a
-            end = b
-        elif b > end:
-            total += b - end
-            end = b
-    return total
+    return sum((b - a for a, b in _union(intervals)), 0.0)
 
 
 def device_report(label, prof, wall_s):

@@ -339,12 +339,16 @@ def test_low_rank_demotes_to_direct(capsys):
     np.testing.assert_array_equal(vs.skyvis, vs2.skyvis)
 
 
-def test_rejected_plan_demotes_to_direct(capsys, monkeypatch):
+def _reject_plans(monkeypatch):
     from prisim_tpu_torch.engine.nufft_banded import PlanRejected
 
     def reject(*a, **k):
         raise PlanRejected("too many delay rows")
     monkeypatch.setattr(drv_t, "make_banded_plan", reject)
+
+
+def test_rejected_plan_demotes_to_direct(capsys, monkeypatch):
+    _reject_plans(monkeypatch)
     p = cfg_t.load_parms(dict(_OCTAVE, processing={"engine": "nufft"}))
     vs, _ = drv_t.run_simulation(p, verbose=False, save=False, device="cpu")
     out = capsys.readouterr().out
@@ -369,6 +373,156 @@ def test_engine_auto_on_cpu_is_direct(monkeypatch):
     np.testing.assert_array_equal(vs.skyvis, vs2.skyvis)
     assert drv_t._resolve_engine(p, torch.device("cuda")) == "nufft"
     assert drv_t._resolve_engine(p, torch.device("cpu")) == "direct"
+
+
+CPU8 = ["cpu"] * 8
+
+
+def test_rejected_plan_on_the_mesh_demotes_to_the_direct_mesh(
+        capsys, monkeypatch):
+    """A rejected plan on the eight-device banded 'bl' mesh demotes the
+    run to the direct engine, which takes pp.key's mesh: the visibilities
+    of an engine: direct run on that mesh, bit for bit."""
+    _reject_plans(monkeypatch)
+    p = cfg_t.load_parms(dict(_OCTAVE, processing={"engine": "nufft"},
+                              pp={"key": "freq"}))
+    vs, _ = drv_t.run_simulation(p, verbose=True, save=False, devices=CPU8)
+    out = capsys.readouterr().out
+    assert "banded NUFFT plan rejected (too many delay rows)" in out
+    assert "direct engine on a {'bl': 1, 'chan': 8} mesh" in out
+    p2 = cfg_t.load_parms(dict(_OCTAVE, processing={"engine": "direct"},
+                               pp={"key": "freq"}))
+    vs2, _ = drv_t.run_simulation(p2, verbose=False, save=False,
+                                  devices=CPU8)
+    np.testing.assert_array_equal(vs.skyvis, vs2.skyvis)
+
+
+_GRAD_NOTE = ("processing.gradient_mode asks for baseline gradients, which "
+              "the NUFFT engine does not compute; running the direct engine")
+_SHAPE_NOTE = ("the sky has source shapes (extended sources), which the "
+               "NUFFT engine does not compute; running the direct engine")
+_EXT_NOTE = ("beam.use_external: the external-beam route runs the direct "
+             "engine, without gradients")
+# name: (devices, processing, pp, beam, shaped sky) -> (engine, mesh shape
+# or None, the notice printed or None)
+ROUTES = {
+    "auto_one": (1, {"engine": "auto"}, {}, {}, False, "direct", None, None),
+    "direct_one": (1, {"engine": "direct"}, {}, {}, False, "direct", None,
+                   None),
+    "nufft_one": (1, {"engine": "nufft"}, {}, {}, False, "banded", None,
+                  None),
+    "banded_one": (1, {"engine": "nufft", "nufft_spread": "banded"}, {}, {},
+                   False, "banded", None, None),
+    "sorted_one": (1, {"engine": "nufft", "nufft_spread": "sorted"}, {}, {},
+                   False, "sorted", None, None),
+    "scatter_one": (1, {"engine": "nufft", "nufft_spread": "scatter"}, {},
+                    {}, False, "sorted", None, None),
+    "gradient_nufft_one": (1, {"engine": "nufft",
+                               "gradient_mode": "baseline"}, {}, {}, False,
+                           "direct", None, _GRAD_NOTE),
+    "gradient_direct_one": (1, {"engine": "direct",
+                                "gradient_mode": "baseline"}, {}, {}, False,
+                            "direct", None, None),
+    "shaped_nufft_one": (1, {"engine": "nufft"}, {}, {}, True, "direct",
+                         None, _SHAPE_NOTE),
+    "external_nufft_one": (1, {"engine": "nufft"}, {},
+                           {"use_external": True, "file": "b.fits"}, False,
+                           "external", None, _EXT_NOTE),
+    "external_direct_one": (1, {"engine": "direct"}, {},
+                            {"use_external": True, "file": "b.fits"}, False,
+                            "external", None, None),
+    "external_without_file": (1, {"engine": "nufft"}, {},
+                              {"use_external": True}, False, "banded", None,
+                              None),
+    "auto_freq": (8, {"engine": "auto"}, {"key": "freq"}, {}, False,
+                  "direct", {"bl": 1, "chan": 8}, None),
+    "direct_freq": (8, {"engine": "direct"}, {"key": "freq"}, {}, False,
+                    "direct", {"bl": 1, "chan": 8}, None),
+    "direct_bl": (8, {"engine": "direct"}, {"key": "bl"}, {}, False,
+                  "direct", {"bl": 8, "chan": 1}, None),
+    "direct_src": (8, {"engine": "direct"}, {"key": "src"}, {}, False,
+                   "direct", {"bl": 1, "chan": 1, "src": 8}, None),
+    "direct_none": (8, {"engine": "direct"}, {"key": "none"}, {}, False,
+                    "direct", None, None),
+    "direct_freq_2x4": (8, {"engine": "direct"},
+                        {"key": "freq", "mesh_axes": [2, 4]}, {}, False,
+                        "direct", {"bl": 2, "chan": 4}, None),
+    "direct_bl_4x2": (8, {"engine": "direct"},
+                      {"key": "bl", "mesh_axes": [4, 2]}, {}, False,
+                      "direct", {"bl": 4, "chan": 2}, None),
+    "direct_src_2x2x2": (8, {"engine": "direct"},
+                         {"key": "src", "mesh_axes": [2, 2, 2]}, {}, False,
+                         "direct", {"bl": 2, "chan": 2, "src": 2}, None),
+    "nufft_freq": (8, {"engine": "nufft"}, {"key": "freq"}, {}, False,
+                   "banded", {"bl": 8, "chan": 1}, None),
+    "banded_bl": (8, {"engine": "nufft", "nufft_spread": "banded"},
+                  {"key": "bl"}, {}, False, "banded", {"bl": 8, "chan": 1},
+                  None),
+    "banded_src": (8, {"engine": "nufft", "nufft_spread": "banded"},
+                   {"key": "src"}, {}, False, "banded",
+                   {"bl": 8, "chan": 1}, None),
+    "banded_freq_2x4": (8, {"engine": "nufft"},
+                        {"key": "freq", "mesh_axes": [2, 4]}, {}, False,
+                        "banded", {"bl": 8, "chan": 1}, None),
+    "banded_none": (8, {"engine": "nufft"}, {"key": "none"}, {}, False,
+                    "banded", None, None),
+    "sorted_freq": (8, {"engine": "nufft", "nufft_spread": "sorted"},
+                    {"key": "freq"}, {}, False, "sorted",
+                    {"bl": 1, "chan": 8}, None),
+    "scatter_src": (8, {"engine": "nufft", "nufft_spread": "scatter"},
+                    {"key": "src"}, {}, False, "sorted",
+                    {"bl": 1, "chan": 1, "src": 8}, None),
+    "sorted_bl_2x4": (8, {"engine": "nufft", "nufft_spread": "sorted"},
+                      {"key": "bl", "mesh_axes": [2, 4]}, {}, False,
+                      "sorted", {"bl": 2, "chan": 4}, None),
+    "sorted_none": (8, {"engine": "nufft", "nufft_spread": "sorted"},
+                    {"key": "none"}, {}, False, "sorted", None, None),
+    "gradient_direct_freq": (8, {"engine": "direct",
+                                 "gradient_mode": "baseline"},
+                             {"key": "freq"}, {}, False, "direct", None,
+                             None),
+    "gradient_nufft_src": (8, {"engine": "nufft",
+                               "gradient_mode": "baseline"}, {"key": "src"},
+                           {}, False, "direct", None, _GRAD_NOTE),
+    "shaped_direct_bl": (8, {"engine": "direct"}, {"key": "bl"}, {}, True,
+                         "direct", None, None),
+    "shaped_sorted_freq": (8, {"engine": "nufft", "nufft_spread": "sorted"},
+                           {"key": "freq"}, {}, True, "direct", None,
+                           _SHAPE_NOTE),
+    "external_nufft_freq": (8, {"engine": "nufft"}, {"key": "freq"},
+                            {"use_external": True, "file": "b.fits"}, False,
+                            "external", None, _EXT_NOTE),
+    "external_gradient_src": (8, {"engine": "direct",
+                                  "gradient_mode": "baseline"},
+                              {"key": "src"},
+                              {"use_external": True, "file": "b.fits"},
+                              False, "external", None, _EXT_NOTE),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ROUTES))
+def test_route(case, capsys):
+    """driver._route, the one place that picks a simulation's engine and
+    mesh, on device="cpu" (one device) and devices=["cpu"] * 8: the engine,
+    the mesh's axes and shape, and the notice it prints, for every
+    processing.engine, nufft_spread, gradient run, shaped sky, external
+    beam and pp.key with and without pp.mesh_axes."""
+    from types import SimpleNamespace
+    n, proc, pp, beam, shaped, engine, shape, note = ROUTES[case]
+    p = cfg_t.load_parms(dict(_OCTAVE, processing=proc, pp=pp, beam=beam))
+    sim = SimpleNamespace(sky=SimpleNamespace(
+        src_shape_sigma=torch.ones(128, 3) if shaped else None))
+    devs = drv_t.resolve_devices("cpu", CPU8 if n == 8 else None)
+    got, mesh = drv_t._route(p, sim, devs)
+    out = capsys.readouterr().out
+    assert got == engine
+    if shape is None:
+        assert mesh is None
+    else:
+        assert mesh.shape == shape
+        assert mesh.axis_names == tuple(shape)
+        assert [str(d) for d in mesh.devices.flat] == ["cpu"] * n
+    assert out == ("" if note is None else "[prisim_tpu_torch] %s\n" % note)
 
 
 # --------------------------------------------------------------------------
