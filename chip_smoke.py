@@ -4,8 +4,9 @@
 
 Builds the NUDFT kernels K1a, K1b and K1c (csrc/nudft.cu, instances of
 one kernel), K2 (csrc/banded.cu), delay_spread (csrc/spread.cu),
-airy_amps (csrc/beam.cu) and banded_prep (csrc/prep.cu) with nvcc
-(sm_90a), the five builds started together, then:
+airy_amps (csrc/beam.cu), banded_prep (csrc/prep.cu) and phase_cubes
+(csrc/finalize.cu) with nvcc (sm_90a), the six builds started together,
+then:
 
 1. K1a phase: K1a and its plain PyTorch version on the card at the slice's
    snapshot shape (HERA-37 non-redundant: 666 baselines x 1024 channels x
@@ -241,15 +242,28 @@ r. Kernel banded_prep (csrc/prep.cu), run right after the north-star
    included), and the north-star phase those of its gate and one
    snapshot; the kernels line gives their sum, the main path's own
    launches, and leaves out this phase's comparisons and timing loops.
+s. Kernel phase_cubes (csrc/finalize.cu), run right after phase q: the
+   finalize's re-phasing and transpose of the three cubes by the kernel
+   against the host path it replaces (the transpose and
+   vis.phase_centering's complex64 branch) at the north-star cells'
+   630 x 1024 x 25 and hera37.direct's 63 x 256 x 10 (T = 25, 10), on
+   seeded cubes with baselines up to 876 m and an off-zenith centre:
+   within 2 float32 ulps of |V| of the exact product of the cubes and
+   their float32 angle's phasor and 4 of the host path's (whose float32
+   cos and sin are an ulp or two off), one launch each; the kernel's time
+   against its least bytes (three cubes read and written at 3.35 TB/s),
+   the host path's time, and the cubes' one copy to the host (its GB/s).
+   The direct and banded slice runs count its launches: one a finalize.
 
 After the phases it prints the card's name and power limit, the roofline
 share (bound / time, against the H100 data-sheet peaks) of K1a, K1b, K1c,
-K2, delay_spread, airy_amps and banded_prep at the slice and the north
-star (airy_amps at the direct cells' shapes), and the kernels line: each
+K2, delay_spread, airy_amps, banded_prep and phase_cubes at the slice and
+the north star (airy_amps and phase_cubes at the cells' shapes), and the
+kernels line: each
 kernel's launches in its slice run (K1a and K2 also in phases k-m's and
 p's runs, K1a and delay_spread in phases n-o's, airy_amps in the direct
 and banded slice runs, banded_prep in the banded slice run and phase
-5's gate and snapshot),
+5's gate and snapshot, phase_cubes in the direct and banded slice runs),
 error against its plain version, time, plain time, bound (from this run's
 inputs) and library time (null: no single PyTorch call computes any of
 them).
@@ -294,6 +308,14 @@ N_TIMED = 3
 # airy_amps's (sources, channels) in the direct cells' snapshots:
 # hera331.direct (nside 256 x 1024 ch) and hera37.direct (nside 128 x 256)
 AIRY_SHAPES = ((786432, 1024), (196608, 256))
+# phase_cubes's (T, B, C) cubes: the north-star cells (630 x 1024 x 25)
+# and hera37.direct (63 x 256 x 10)
+FINALIZE_SHAPES = ((25, 630, 1024), (10, 63, 256))
+# phase_cubes off zenith: the largest difference of a real or imaginary
+# part, in float32 ulps of |V|, from the exact product of the cubes and
+# their float32 angle's phasor; the host path's float32 cos and sin are an
+# ulp or two off that product, so kernel and host agree within twice it
+FINALIZE_ULPS = 2.0
 # float64 operations per (source, baseline, channel) term, an FMA as 2:
 # K1a A w (2 multiplies) and 4 FMAs into the accumulators; K1b 3 moments
 # of 2 FMAs more each; K1c one multiply by the weight more
@@ -711,6 +733,124 @@ def banded_prep_phase(label, parms, dev):
         torch.cuda.empty_cache()
     return dict(bd, ms=ms_k, plain_ms=ms_p, max_abs_err=worst,
                 launches=cuda_prep.banded_prep_cuda.launches - n0)
+
+
+def ulps(got, want):
+    """The largest difference of a real or imaginary part of two complex
+    arrays, in float32 ulps of |want|."""
+    got, want = np.asarray(got), np.asarray(want)
+    d = np.maximum(np.abs(got.real - want.real), np.abs(got.imag - want.imag))
+    return float((d / np.spacing(np.abs(want).astype(np.float32))).max())
+
+
+def phase_cubes_bound(T, B, C):
+    """phase_cubes's least bytes at HBM_BPS: the three (T, B, C) complex64
+    cubes read once and written once, the (B, T) path and the (C,) channel
+    factors read once."""
+    return bound(0.0, 6 * 8 * T * B * C + 8 * B * T + 8 * C, 1.0)
+
+
+def copy_to_host_ms(out):
+    """Host ms of the finalize's one copy of the kernel's result `out` to
+    the host (out.cpu(), into fresh memory as every simulation's is)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out.cpu()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def finalize_phase(dev, shapes=FINALIZE_SHAPES):
+    """Phase s: kernel phase_cubes against the host path it replaces (the
+    transpose of the three cubes and vis.phase_centering's complex64
+    branch) at each (T, B, C) of `shapes`: seeded cubes, baselines up to
+    876 m, an off-zenith centre (hundreds of cycles); the cubes within
+    FINALIZE_ULPS of the exact product and twice it of the host path's,
+    one launch; the kernel's time (kernel, kernel) against
+    its least bytes, the host path's time, and the one copy of the three
+    cubes to the host (its GB/s). Returns the kernels line's numbers of the first shape and
+    each shape's."""
+    import dataclasses
+    from prisim_tpu_torch.engine import cuda_finalize
+    from prisim_tpu_torch.vis import VisibilitySet, phase_centering, \
+        phase_path
+    center = np.atleast_2d([62.5, 131.0])
+    rows = []
+    for T, B, C in shapes:
+        g = torch.Generator(device=dev).manual_seed(T + B + C)
+        cubes = [torch.complex(
+            torch.randn((T, B, C), generator=g, device=dev),
+            torch.randn((T, B, C), generator=g, device=dev))
+            for _ in range(3)]
+        rng = np.random.RandomState(B)
+        bl = rng.uniform(-1.0, 1.0, (B, 3)) * [1.0, 1.0, 0.02]
+        bl *= 876.0 / np.linalg.norm(bl, axis=1).max()
+        zen = np.tile([90.0, 270.0], (T, 1))
+        vs = VisibilitySet(baselines=bl, labels=np.zeros((B, 2), str),
+                           freqs=100e6 + 97656.25 * np.arange(C) * (1024 // C),
+                           lst=40.0 + 0.25 * np.arange(T),
+                           latitude=-30.7224, phase_center=zen)
+        path = torch.as_tensor(phase_path(vs, center, "altaz"), device=dev)
+        nu = torch.as_tensor(vs.freqs, device=dev)
+
+        def kernel():
+            return cuda_finalize.phase_cubes_cuda(*cubes, path=path,
+                                                  freqs=nu)
+
+        def host():
+            bct = [np.ascontiguousarray(np.transpose(x.cpu().numpy(),
+                                                     (1, 2, 0)))
+                   for x in cubes]
+            return phase_centering(dataclasses.replace(
+                vs, skyvis=bct[0], vis=bct[1], vis_noise=bct[2]),
+                center, "altaz")
+
+        n0 = cuda_finalize.phase_cubes_cuda.launches
+        out = kernel()
+        got = out.cpu().numpy()
+        assert cuda_finalize.phase_cubes_cuda.launches == n0 + 1
+        t0 = time.perf_counter()
+        want = host()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        exact = cuda_finalize.phase_cubes_exact(*cubes, path=path,
+                                                freqs=nu).cpu().numpy()
+        names = ("skyvis", "vis", "vis_noise")
+        errs = [ulps(a, e) for a, e in zip(got, exact)]
+        host_errs = [ulps(getattr(want, n), e) for n, e in zip(names, exact)]
+        apart = [ulps(a, getattr(want, n)) for a, n in zip(got, names)]
+        err = max(float(np.abs(a - getattr(want, n)).max())
+                  for a, n in zip(got, names))
+        print("phase_cubes, %d x %d x %d (T x B x C), off zenith, ulps of "
+              "|V| (skyvis, vis, noise) from the exact product: kernel %s "
+              "(bar %.1f), host path %s; kernel vs host path %s (bar %.1f), "
+              "max|d| = %.4e"
+              % (T, B, C, ", ".join("%.3f" % x for x in errs), FINALIZE_ULPS,
+                 ", ".join("%.3f" % x for x in host_errs),
+                 ", ".join("%.3f" % x for x in apart), 2 * FINALIZE_ULPS,
+                 err))
+        if max(errs) > FINALIZE_ULPS or max(apart) > 2 * FINALIZE_ULPS:
+            raise SystemExit("phase_cubes differs from the host path at "
+                             "%d x %d x %d: %s ulps from the exact product, "
+                             "%s from the host's" % (T, B, C, errs, apart))
+        del got, want, exact
+        t_k = cuda_time_ms(kernel)
+        t_k2 = cuda_time_ms(kernel)
+        copy_ms = copy_to_host_ms(out)
+        nbytes = out.numel() * out.element_size()
+        bd = phase_cubes_bound(T, B, C)
+        ms_k = 0.5 * (t_k + t_k2)
+        print("phase_cubes time %.4f ms (runs %.4f, %.4f), bound %.4f ms "
+              "(%s), share %.1f%%; the host path %.2f ms; the copy to the "
+              "host of %.1f MB %.3f ms (%.2f GB/s)"
+              % (ms_k, t_k, t_k2, bd["bound_ms"], bd["bound_by"],
+                 100.0 * bd["bound_ms"] / ms_k, host_ms, nbytes / 1e6,
+                 copy_ms, nbytes / copy_ms / 1e6))
+        rows.append(dict(bd, shape=(T, B, C), ms=ms_k, plain_ms=host_ms,
+                         max_abs_err=err, ulps=max(errs),
+                         host_ulps=max(host_errs), copy_ms=copy_ms))
+        del cubes, out
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return dict(rows[0], shapes=rows)
 
 
 def phased_snapshot0(vs, parms, v0, t=0):
@@ -3375,7 +3515,8 @@ def main():
         return 1
     from prisim_tpu_torch._build import build_info, load_kernel_library
     from prisim_tpu_torch.driver import prepare_simulation, run_simulation
-    from prisim_tpu_torch.engine import (cuda_banded, cuda_beam, cuda_nudft,
+    from prisim_tpu_torch.engine import (cuda_banded, cuda_beam,
+                                         cuda_finalize, cuda_nudft,
                                          cuda_prep, cuda_spread)
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3392,7 +3533,7 @@ def main():
     print("h5py importable: %s; yaml importable: %s" % (have_h5py, have_yaml))
 
     t0 = time.time()
-    libs = ("nudft", "banded", "spread", "beam", "prep")
+    libs = ("nudft", "banded", "spread", "beam", "prep", "finalize")
     with ThreadPoolExecutor(max_workers=len(libs)) as pool:
         list(pool.map(load_kernel_library, libs))
     print("kernel builds (in parallel): %.2f s" % (time.time() - t0))
@@ -3417,6 +3558,9 @@ def main():
     del sim
     torch.cuda.empty_cache()
     print("[airy_amps phase: %.2f s]" % (time.time() - t0))
+    t0 = time.time()
+    fin = finalize_phase(cuda)
+    print("[phase_cubes phase: %.2f s]" % (time.time() - t0))
 
     print("direct slice phase: run_simulation(device='cuda'), engine: "
           "direct, products: NPZ%s" % (" + HDF5" if have_h5py else
@@ -3424,6 +3568,7 @@ def main():
     t0 = time.time()
     cuda_nudft.nudft_cuda.launches = 0
     cuda_beam.airy_amps_cuda.launches = 0
+    cuda_finalize.phase_cubes_cuda.launches = 0
     vs, outdir = run_simulation(direct, verbose=True, save=True, device=cuda)
     k1a_launches = cuda_nudft.nudft_cuda.launches
     airy_launches = cuda_beam.airy_amps_cuda.launches
@@ -3465,6 +3610,7 @@ def main():
     gate_k1a = cuda_nudft.nudft_cuda.launches
     gate_airy = cuda_beam.airy_amps_cuda.launches
     prep_launches = cuda_prep.banded_prep_cuda.launches
+    fin_launches = cuda_finalize.phase_cubes_cuda.launches
     del os.environ["PRISIM_DEBUG_XCHECK_DUMP"]
     wall = time.time() - t0
     print("banded slice wall-clock: %.3f s, K2 launches: %d (gate 1 + 4 "
@@ -3478,6 +3624,9 @@ def main():
     print("banded slice banded_prep launches: %d (one a source chunk and "
           "snapshot, the gate's included: 5 expected)" % prep_launches)
     assert prep_launches == 5, prep_launches
+    print("direct and banded slice runs' phase_cubes launches: %d (one a "
+          "finalize: 2 expected)" % fin_launches)
+    assert fin_launches == 2, fin_launches
     airy_launches += gate_airy
     assert vs.skyvis.shape == (666, 1024, 4), vs.skyvis.shape
     assert np.isfinite(vs.skyvis).all() and np.isfinite(vs.vis).all()
@@ -3688,7 +3837,9 @@ def main():
             ("delay_spread, north-star snapshot", srt["ns_ms"],
              srt["ns_bound"])) + tuple(
             ("airy_amps, %d x %d table" % a["shape"], a["ms"], a)
-            for a in airy["shapes"]):
+            for a in airy["shapes"]) + tuple(
+            ("phase_cubes, %d x %d x %d cubes" % f["shape"], f["ms"], f)
+            for f in fin["shapes"]):
         print("roofline share of %s: bound %.4f ms (%s) / %.4f ms = %.4f, "
               "against the data-sheet peaks (FP64 %.0f TFLOP/s, FP64 tensor "
               "%.0f TFLOP/s, HBM %.2f TB/s), on %s"
@@ -3718,7 +3869,9 @@ def main():
         row("airy_amps", cuda_beam.KERNEL_SOURCE, None, airy_launches,
             airy),
         row("banded_prep", cuda_prep.KERNEL_SOURCE, None, prep_launches,
-            prep_ns)]}))
+            prep_ns),
+        row("phase_cubes", cuda_finalize.KERNEL_SOURCE, None, fin_launches,
+            fin)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

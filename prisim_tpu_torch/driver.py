@@ -82,6 +82,7 @@ from .beams.dispatch import airy_dish, primary_beam
 from .beams.external import ExternalBeam
 from .beams.jones import mueller_unpol_weights
 from .config import dump_parms, load_parms
+from .engine import cuda_finalize
 from .engine.noise import generate_noise, thermal_noise_rms
 from .engine.nufft_banded import PlanRejected, make_banded_plan, \
     make_banded_snapshot_fns
@@ -91,7 +92,7 @@ from .engine.observe import Instrument, Observation, SkySources, \
     check_kernel_knobs, df_rotate3, direct_visibilities, schedule_tensors, simulate_drift, \
     simulate_snapshot, snapshot_nudft_inputs
 from .vis import VisibilitySet, delay_transform, phase_centering, \
-    project_baselines
+    phase_path, project_baselines, with_phase_center
 
 __all__ = ["run_simulation", "run_simulation_chunked",
            "prepare_simulation", "resolve_device", "resolve_devices",
@@ -575,15 +576,15 @@ def _blgroups_dict(bls):
     label pair -> member all-pairs label strings."""
     if bls.group_of is None:
         return None
-    out = {}
     all_lab = np.asarray(bls.all_labels, dtype=str)
     uniq_lab = np.asarray(bls.labels, dtype=str)
-    for u in range(bls.nbl):
-        members = np.where(bls.group_of == u)[0]
-        key = "%s_%s" % (uniq_lab[u, 0], uniq_lab[u, 1])
-        out[key] = ["%s_%s" % (all_lab[m, 0], all_lab[m, 1])
-                    for m in members]
-    return out
+    names = ["%s_%s" % (a, b) for a, b in all_lab.tolist()]
+    # each group's members in ascending order, from one stable sort
+    order = np.argsort(bls.group_of, kind="stable")
+    edges = np.searchsorted(bls.group_of[order], np.arange(bls.nbl + 1))
+    return {"%s_%s" % (uniq_lab[u, 0], uniq_lab[u, 1]):
+            [names[m] for m in order[edges[u]:edges[u + 1]]]
+            for u in range(bls.nbl)}
 
 
 def _bandpass_weights(parms, nbl, freqs, n_acc):
@@ -1197,10 +1198,10 @@ def _run_simulation_inner(parms, outdir, verbose, save, devs, sky_override):
             vis_tbc = _simulate_banded(parms, sim, verbose, mesh)
         else:
             vis_tbc, gradients = _simulate_direct(parms, sim, verbose, mesh)
-        with tracing.span("transfer"):
-            skyvis = np.ascontiguousarray(
-                np.transpose(vis_tbc.cpu().numpy(), (1, 2, 0)))
-    return _finalize_simulation(parms, sim, skyvis, outdir, verbose, save,
+        if vis_tbc.is_cuda:
+            # the engine's queued launches end inside this span
+            torch.cuda.synchronize(vis_tbc.device)
+    return _finalize_simulation(parms, sim, vis_tbc, outdir, verbose, save,
                                 dev, gradients=gradients)
 
 
@@ -1554,27 +1555,44 @@ def _simulate_external(parms, sim, verbose):
     return torch.stack(snaps)
 
 
-def _noise_generator(parms):
-    """The CPU torch.Generator of a run's thermal noise, seeded from
-    skyparm.seed; a chunk of a chunked run (pp._chunk) seeds it from
+def _noise_generator(parms, device="cpu"):
+    """The torch.Generator on `device` of a run's thermal noise, seeded
+    from skyparm.seed; a chunk of a chunked run (pp._chunk) seeds it from
     (seed, chunk index), so each chunk draws its own noise and a resumed
-    chunk repeats its draw (JAX folds the index into its key,
-    prisim_tpu/driver.py:1735-1738)."""
+    chunk repeats its draw on the same kind of device (JAX folds the index
+    into its key, prisim_tpu/driver.py:1735-1738)."""
     seed = int(parms["skyparm"].get("seed") or 0)
     chunk = (parms.get("pp") or {}).get("_chunk")
     if chunk is not None:
         seed = int(np.random.SeedSequence(
             [seed, int(chunk["index"])]).generate_state(1, np.uint64)[0])
-    return torch.Generator().manual_seed(seed)
+    return torch.Generator(device=device).manual_seed(seed)
 
 
-def _finalize_simulation(parms, sim, skyvis, outdir, verbose, save, device,
+def _finalize_on_card(vis_tbc):
+    """Whether the finalize of the engine's (T, B, C) cube runs on the
+    card: it does for a CUDA cube, whose kernel library is built or loaded
+    here (a failed build raises)."""
+    if not vis_tbc.is_cuda:
+        return False
+    cuda_finalize._library()
+    return True
+
+
+def _finalize_simulation(parms, sim, vis_tbc, outdir, verbose, save, device,
                          gradients=None):
     """Noise, gains, container, phasing, projection, optional delay
-    transform, save. `gradients` ({"baseline": (3, nbl, nchan, n_acc)} or
-    None) goes into the container unphased, as in the reference."""
+    transform, save, of the engine's (T, B, C) cube `vis_tbc`. Where
+    _finalize_on_card holds, the noise is drawn and the gains applied on
+    the card in the cube's order, and kernel phase_cubes re-phases and
+    transposes the three cubes (complex128 where a gains file's complex128
+    gains made vis so) before their one copy to the host; otherwise all of
+    it runs on the host. `gradients` ({"baseline": (3, nbl, nchan, n_acc)}
+    or None) goes into the container unphased, as in the reference."""
     tp = parms["telescope"]
     bls, freqs, obs = sim.bls, sim.freqs, sim.obs
+    card = _finalize_on_card(vis_tbc)
+    dev = vis_tbc.device if card else torch.device("cpu")
     with tracing.span("finalize.noise",
                       line=verbose and "Tsys, rms and noise"):
         tsys = build_tsys(parms, freqs, bls.nbl, obs.n_acc)
@@ -1583,9 +1601,16 @@ def _finalize_simulation(parms, sim, skyvis, outdir, verbose, save, device,
             float(tp.get("A_eff") or 154.0), df, float(obs.t_acc[0]),
             tsys, nbl=bls.nbl, nchan=freqs.size, ntimes=obs.n_acc,
             eff_Q=float(tp.get("eff_Q") or 1.0))
-        noise = generate_noise(_noise_generator(parms), rms).numpy()
+        gen = _noise_generator(parms, dev)
+        if card:
+            noise = generate_noise(gen, torch.as_tensor(
+                np.asarray(rms, np.float32), device=dev).permute(
+                    2, 0, 1).contiguous())
+        else:
+            noise = generate_noise(gen, rms).numpy()
     with tracing.span("finalize.post", line=verbose and
                       "gains, container, phasing, projection"):
+        tracing.count("finalize.vis", bls.nbl * freqs.size * obs.n_acc)
         gains = 1.0
         if parms["gains"].get("file"):
             gi = GainInfo.read_hdf5(parms["gains"]["file"])
@@ -1594,13 +1619,20 @@ def _finalize_simulation(parms, sim, skyvis, outdir, verbose, save, device,
                 times=np.asarray(obs.jd) - obs.jd[0],
                 kind=parms["gains"].get("interp") or "cubic",
                 smoothness=parms["gains"].get("smoothness"))
+        if card:
+            skyvis = vis_tbc
+            if isinstance(gains, np.ndarray):
+                gains = torch.as_tensor(gains, device=dev).permute(2, 0, 1)
+        else:
+            with tracing.span("transfer"):
+                skyvis = np.ascontiguousarray(
+                    np.transpose(vis_tbc.cpu().numpy(), (1, 2, 0)))
         vis = apply_gains(skyvis, gains, noise)
 
         bp, bp_wts = _bandpass_weights(parms, bls.nbl, freqs, obs.n_acc)
         vs = VisibilitySet(
             baselines=bls.vectors, labels=bls.labels, freqs=freqs,
-            lst=obs.lst_deg, skyvis=skyvis, vis=vis, vis_noise=noise,
-            vis_rms=rms, timestamps=obs.jd, t_acc=obs.t_acc,
+            lst=obs.lst_deg, vis_rms=rms, timestamps=obs.jd, t_acc=obs.t_acc,
             bp=bp, bp_wts=bp_wts, Tsys=tsys,
             A_eff=float(tp.get("A_eff") or 154.0),
             eff_Q=float(tp.get("eff_Q") or 1.0),
@@ -1618,10 +1650,32 @@ def _finalize_simulation(parms, sim, skyvis, outdir, verbose, save, device,
             flux_unit="Jy", gradients=gradients,
             blgroups=_blgroups_dict(bls))
         ph = parms.get("phasing") or {}
-        if ph.get("center") is not None:
-            vs = phase_centering(vs, np.atleast_2d(
-                np.asarray(ph["center"], dtype=np.float64)),
-                ph.get("coords", "altaz"))
+        center = ph.get("center")
+        if center is not None:
+            center = np.atleast_2d(np.asarray(center, dtype=np.float64))
+        coords = ph.get("coords", "altaz")
+        cubes = (skyvis, vis, noise)
+        if card:
+            path = nu = None
+            if center is not None:
+                path = torch.as_tensor(np.ascontiguousarray(
+                    phase_path(vs, center, coords)), device=dev)
+                nu = torch.as_tensor(np.asarray(freqs, np.float64),
+                                     device=dev)
+            out = cuda_finalize.phase_cubes_cuda(
+                *(x.contiguous() for x in cubes), path=path, freqs=nu)
+            with tracing.span("transfer"):
+                host = out.cpu().numpy()
+            del out
+            # unphased cubes keep their own dtypes, as on the host
+            cubes = [h if center is not None else h.astype(
+                np.complex64 if x.dtype == torch.complex64 else np.complex128,
+                copy=False) for h, x in zip(host, cubes)]
+        vs = dataclasses.replace(vs, **dict(zip(("skyvis", "vis",
+                                                 "vis_noise"), cubes)))
+        if center is not None:
+            vs = (with_phase_center(vs, center, coords) if card
+                  else phase_centering(vs, center, coords))
         vs = project_baselines(vs)
         if parms["processing"].get("delay_transform"):
             vs = delay_transform(vs, pad=float(

@@ -23,7 +23,8 @@ from . import constants as CNST
 from . import geometry as geom
 from . import windows as win
 
-__all__ = ["VisibilitySet", "phase_centering", "project_baselines",
+__all__ = ["VisibilitySet", "phase_centering", "phase_path",
+           "with_phase_center", "project_baselines",
            "conjugate", "concatenate", "delay_transform",
            "apply_baseline_gradients", "to_dircos"]
 
@@ -134,14 +135,11 @@ def to_dircos(location, coords, lst_deg, latitude):
     raise ValueError("invalid coordinate system '%s'" % coords)
 
 
-def phase_centering(vs, phase_center_new, phase_center_coords_new,
-                    do_delay_transform=False, device="cuda"):
-    """Re-phase all visibility cubes to a new phase center.
-
-    V' = V * exp(-2 pi i (b . (l_old - l_new)) nu / c)
-    (PRISim prisim/interferometry.py:7841-7852). Returns a new
-    VisibilitySet with updated phase_center; with do_delay_transform, also
-    delay-transformed (delay_transform on `device`)."""
+def phase_path(vs, phase_center_new, phase_center_coords_new):
+    """b . (l_old - l_new): the (nbl, n_acc) float64 path difference (m)
+    of each baseline and accumulation between the set's phase center
+    (zenith where it has none) and a new one, which phase_centering turns
+    into the phase 2 pi (path nu / c)."""
     lnew = to_dircos(phase_center_new, phase_center_coords_new,
                      vs.lst, vs.latitude)
     if vs.phase_center is None:
@@ -151,7 +149,28 @@ def phase_centering(vs, phase_center_new, phase_center_coords_new,
         lold = to_dircos(vs.phase_center, vs.phase_center_coords,
                          vs.lst, vs.latitude)
     dl = lold - lnew                                       # (n_acc, 3)
-    b_dot_l = np.asarray(vs.baselines) @ dl.T              # (nbl, n_acc)
+    return np.asarray(vs.baselines) @ dl.T                 # (nbl, n_acc)
+
+
+def with_phase_center(vs, phase_center_new, phase_center_coords_new,
+                      **cubes):
+    """`vs` with the new phase center (one row an accumulation) and the
+    re-phased `cubes` (skyvis, vis, vis_noise) put in."""
+    center = np.atleast_2d(np.asarray(phase_center_new))
+    return replace(vs, phase_center=np.broadcast_to(
+        center, (vs.n_acc, center.shape[1])).copy(),
+        phase_center_coords=phase_center_coords_new, **cubes)
+
+
+def phase_centering(vs, phase_center_new, phase_center_coords_new,
+                    do_delay_transform=False, device="cuda"):
+    """Re-phase all visibility cubes to a new phase center.
+
+    V' = V * exp(-2 pi i (b . (l_old - l_new)) nu / c)
+    (PRISim prisim/interferometry.py:7841-7852). Returns a new
+    VisibilitySet with updated phase_center; with do_delay_transform, also
+    delay-transformed (delay_transform on `device`)."""
+    b_dot_l = phase_path(vs, phase_center_new, phase_center_coords_new)
     cubes = list(vs._vis_cubes())
     if all(np.asarray(a).dtype == np.complex64 for _, a in cubes):
         # single-precision cubes: frac-reduce the cycle count in f64
@@ -167,13 +186,9 @@ def phase_centering(vs, phase_center_new, phase_center_coords_new,
     else:
         phase = np.exp(-2j * np.pi * b_dot_l[:, None, :] *
                        np.asarray(vs.freqs).reshape(1, -1, 1) / CNST.c)
-    updates = {name: np.asarray(arr) * phase
-               for name, arr in cubes}
-    out = replace(vs, phase_center=np.atleast_2d(
-        np.broadcast_to(np.atleast_2d(phase_center_new),
-                        (vs.n_acc, np.atleast_2d(
-                            np.asarray(phase_center_new)).shape[1]))).copy(),
-        phase_center_coords=phase_center_coords_new, **updates)
+    out = with_phase_center(vs, phase_center_new, phase_center_coords_new,
+                            **{name: np.asarray(arr) * phase
+                               for name, arr in cubes})
     if do_delay_transform:
         out = delay_transform(out, device=device)
     return out

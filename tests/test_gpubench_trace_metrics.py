@@ -2,7 +2,7 @@
 (gpubench/spans.py, gpubench/metrics/{plan_s, prep_ms, k2_tiles,
 snap_idle_share, live_src_share, noise_s, phasing_s, amps_kernel_share,
 amps_roofline, spread_roofline, nufft_snap_ms, sort_ms, prep_kernel_share,
-prep_roofline}.py) on hand-built
+prep_roofline, finalize_kernel_share}.py) on hand-built
 records and a synthetic device trace, on a checkout without the recorder,
 and in a traced tiny cell on the CPU, where the recorder keeps the
 profiled simulation alone."""
@@ -168,7 +168,7 @@ def test_nothing_where_nothing_was_recorded(monkeypatch, records):
     else:
         monkeypatch.setattr(tracing, "take", lambda: records)
     info = SimpleNamespace(trace=_device([(0, 1)]))
-    for name in NEW + AMPS[:1] + PREP[:1]:
+    for name in NEW + AMPS[:1] + PREP[:1] + ("finalize_kernel_share",):
         assert _read(name, info) is None, name
 
 
@@ -442,8 +442,8 @@ def test_prep_roofline():
 
 
 def test_benchmark_lists_the_prep_metrics():
-    """The two readers of the banded_prep kernel, last in per_layer, in the
-    snapshots' layer, in the banded cell alone."""
+    """The two readers of the banded_prep kernel, together in per_layer, in
+    the snapshots' layer, in the banded cell alone."""
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
     entries = {m["name"]: m for m in bench["per_layer"]}
     for name in PREP:
@@ -453,7 +453,9 @@ def test_benchmark_lists_the_prep_metrics():
             e["unit"], e["source"], e["moves"], e["layer"])
         assert e["layer"] == entries["prep_ms"]["layer"]
         assert e["moves"] == "vis_rate" and e["workloads"] == ["hera331.banded"]
-    assert [m["name"] for m in bench["per_layer"][-len(PREP):]] == list(PREP)
+    names = [m["name"] for m in bench["per_layer"]]
+    start = names.index(PREP[0])
+    assert names[start:start + len(PREP)] == list(PREP)
 
 
 CELLS = r'''
@@ -515,3 +517,52 @@ def test_traced_and_untraced_tiny_cells_on_the_cpu(tmp_path):
     assert m["noise_s"]["value"] + m["phasing_s"]["value"] == \
         pytest.approx(got["finalize"], abs=0.01)
     assert got["left"] == 0 and got["untraced_left"] == 0
+
+
+def _finalized(records, launched):
+    """`records` with finalize.vis counted in each finalize.post span
+    (B x C x T of a north-star simulation) and a phase_cubes launch in
+    those numbered `launched`."""
+    posts = [r for r in records if r["name"] == "finalize.post"]
+    for i, r in enumerate(posts):
+        r["counts"]["finalize.vis"] = 630 * 1024 * 25
+        if i in launched:
+            r["launches"]["phase_cubes"] = 1
+    return records
+
+
+@pytest.mark.parametrize("engine", ["banded", "direct"])
+@pytest.mark.parametrize("launched,want", [((0,), 100.0), ((), None)])
+def test_finalize_kernel_share(monkeypatch, engine, launched, want):
+    """finalize.vis of the finalize.post spans that launched phase_cubes,
+    over all of theirs: 100 where the card finalized the cubes, nothing
+    without the launch (the parent, or the host finalize), in every
+    engine's simulation."""
+    recs = _banded() if engine == "banded" else _direct()
+    info = _info(monkeypatch, _finalized(recs, launched))
+    got = _read("finalize_kernel_share", info)
+    assert got == (None if want is None else pytest.approx(want))
+
+
+def test_finalize_kernel_share_over_sub_simulations(monkeypatch):
+    """Two finalizes under one root (the components of a pol run), one of
+    them on the card: half the visibilities; none counted: nothing."""
+    recs = _direct() + [_rec(11, 1, "finalize.post", 95, 100)]
+    info = _info(monkeypatch, _finalized(recs, (1,)))
+    assert _read("finalize_kernel_share", info) == pytest.approx(50.0)
+    info = _info(monkeypatch, _direct())
+    assert _read("finalize_kernel_share", info) is None
+
+
+def test_benchmark_lists_finalize_kernel_share():
+    """The reader in per_layer, last, in the finalize's layer, moving
+    vis_rate, with no workloads list: every cell reports it."""
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    e = bench["per_layer"][-1]
+    mod = H.load_metric("finalize_kernel_share")
+    assert e["name"] == "finalize_kernel_share"
+    assert (mod.UNIT, mod.SOURCE, mod.MOVES, mod.LAYER) == (
+        e["unit"], e["source"], e["moves"], e["layer"])
+    finalize = {m["name"]: m for m in bench["per_layer"]}["finalize_s"]
+    assert e["layer"] == finalize["layer"] and e["moves"] == "vis_rate"
+    assert "workloads" not in e

@@ -220,7 +220,15 @@ def test_run_simulation_cuda_matches_cpu(cuda, tmp_path):
                                device="cpu")
     scale = np.abs(vs_cpu.skyvis).max()
     assert np.abs(vs_gpu.skyvis - vs_cpu.skyvis).max() / scale < BAR
-    np.testing.assert_array_equal(vs_gpu.vis_noise, vs_cpu.vis_noise)
+    # the card draws its noise with a CUDA generator of the same seed, in
+    # the engine's (T, B, C) order, and phases it about zenith
+    from prisim_tpu_torch.engine.noise import generate_noise
+    rms = torch.as_tensor(vs_cpu.vis_rms.astype(np.float32), device=cuda)
+    want = generate_noise(
+        torch.Generator(device=cuda).manual_seed(100),
+        rms.permute(2, 0, 1).contiguous()).permute(1, 2, 0).cpu().numpy()
+    assert _ulps(vs_gpu.vis_noise, want) <= FINALIZE_ULPS
+    np.testing.assert_array_equal(vs_gpu.vis_rms, vs_cpu.vis_rms)
 
 
 @pytest.mark.gpu
@@ -1104,3 +1112,327 @@ def test_banded_prep_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError):
         banded_prep_cuda(plan, *args, airy=airy._replace(diameter=1000.0))
     assert banded_prep_cuda.launches == n0
+
+
+# --------------------------------------------------------------------------
+# the finalize on the card: kernel phase_cubes and the card route of
+# driver._finalize_simulation
+# --------------------------------------------------------------------------
+
+# off zenith, the largest difference of a real or imaginary part in float32
+# ulps of |V|: the kernel against its twin and against the exact product
+# of the cubes and their float32 angle's phasor (phase_cubes_exact); the
+# host's float32 cos and sin are an ulp or two off that product, so the
+# card and host routes agree within twice the bar
+FINALIZE_ULPS = 2.0
+_CENTRES = {"zenith": ([90.0, 270.0], "altaz"),
+            "altaz_off": ([62.5, 131.0], "altaz"),
+            "radec_off": ([17.0, -30.7224], "radec")}
+
+
+def _ulps(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    d = np.maximum(np.abs(got.real - want.real), np.abs(got.imag - want.imag))
+    return float((d / np.spacing(np.abs(want).astype(np.float32))).max())
+
+
+def _phase_args(T, B, C, centre, cuda, seed=0, with_vs=False):
+    """Random (T, B, C) complex64 cubes on the card and a path of
+    baselines up to 876 m over a drift's LSTs for `centre`; with_vs, also
+    the container (without cubes) the path is of."""
+    from prisim_tpu_torch.vis import VisibilitySet, phase_path
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    cubes = [torch.complex(torch.randn(T, B, C, generator=g, device=cuda),
+                           torch.randn(T, B, C, generator=g, device=cuda))
+             for _ in range(3)]
+    rng = np.random.RandomState(seed)
+    bl = rng.uniform(-1.0, 1.0, (B, 3)) * [1.0, 1.0, 0.02]
+    bl *= 876.0 / np.linalg.norm(bl, axis=1).max()
+    zen = np.tile([90.0, 270.0], (T, 1))
+    freqs = 100e6 + 97656.25 * np.arange(C)
+    vs = VisibilitySet(baselines=bl, labels=np.zeros((B, 2), str),
+                       freqs=freqs, lst=40.0 + 0.25 * np.arange(T),
+                       latitude=-30.7224, phase_center=zen)
+    center, coords = _CENTRES[centre]
+    path = torch.as_tensor(phase_path(vs, np.atleast_2d(center), coords),
+                           device=cuda)
+    out = cubes, path, torch.as_tensor(freqs, device=cuda)
+    return out + (vs,) if with_vs else out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("centre", sorted(_CENTRES))
+@pytest.mark.parametrize("T,B,C", [(25, 630, 1024), (10, 63, 256),
+                                   (3, 7, 45), (70, 5, 40)])
+def test_phase_cubes_matches_the_twin(cuda, centre, T, B, C):
+    """phase_cubes against phase_cubes_plain on the card: bit for bit at
+    the zenith centre; off zenith within 2 ulps of |V| of the twin and of
+    the exact product; at the north star's and config #3's shapes, a
+    ragged one and one of three accumulation tiles; without a path, the
+    transpose bit for bit. One launch each."""
+    from prisim_tpu_torch.engine.cuda_finalize import (phase_cubes_cuda,
+                                                      phase_cubes_exact,
+                                                      phase_cubes_plain)
+    cubes, path, nu = _phase_args(T, B, C, centre, cuda, seed=T + B + C)
+    n0 = phase_cubes_cuda.launches
+    got = phase_cubes_cuda(*cubes, path=path, freqs=nu)
+    bare = phase_cubes_cuda(*cubes)
+    torch.cuda.synchronize()
+    assert phase_cubes_cuda.launches == n0 + 2
+    assert got.shape == (3, B, C, T) and got.dtype == torch.complex64
+    want = phase_cubes_plain(*cubes, path=path, freqs=nu)
+    assert torch.equal(bare, phase_cubes_plain(*cubes))
+    if centre == "zenith":
+        assert torch.equal(got, want)
+    else:
+        got = got.cpu().numpy()
+        assert _ulps(got, want.cpu().numpy()) <= FINALIZE_ULPS
+        exact = phase_cubes_exact(*cubes, path=path, freqs=nu).cpu().numpy()
+        assert _ulps(got, exact) <= FINALIZE_ULPS
+
+
+# complex128 cubes (vis after a gains file's complex128 gains): float64
+# ulps of |V|; the argument of the phasor is the host's bit for bit, and
+# CUDA's, torch's and numpy's float64 cos and sin are within an ulp or two
+WIDE_ULPS = 4.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("centre", sorted(_CENTRES))
+@pytest.mark.parametrize("T,B,C", [(25, 630, 1024), (3, 7, 45),
+                                   (70, 5, 40)])
+def test_wide_phase_cubes_matches_the_twin_and_the_host(cuda, centre, T, B,
+                                                       C):
+    """phase_cubes's complex128 instance, vis complex128 and the other two
+    cubes widened: against the twin and against the host's transpose and
+    phase_centering (its np.exp branch), bit for bit at zenith and within
+    WIDE_ULPS float64 ulps of |V| off zenith; without a path the widened
+    transpose, bit for bit. One launch each."""
+    import dataclasses
+    from prisim_tpu_torch.engine.cuda_finalize import (phase_cubes_cuda,
+                                                      phase_cubes_plain)
+    from prisim_tpu_torch.vis import phase_centering
+    cubes, path, nu, vs = _phase_args(T, B, C, centre, cuda, seed=T * B * C,
+                                      with_vs=True)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    cubes[1] = cubes[1] * torch.complex(
+        torch.rand(T, B, C, generator=g, device=cuda, dtype=torch.float64),
+        torch.rand(T, B, C, generator=g, device=cuda, dtype=torch.float64))
+    n0 = phase_cubes_cuda.launches
+    got = phase_cubes_cuda(*cubes, path=path, freqs=nu)
+    bare = phase_cubes_cuda(*cubes)
+    torch.cuda.synchronize()
+    assert phase_cubes_cuda.launches == n0 + 2
+    assert got.shape == (3, B, C, T) and got.dtype == torch.complex128
+    assert torch.equal(bare, phase_cubes_plain(*cubes))
+    want = phase_cubes_plain(*cubes, path=path, freqs=nu).cpu().numpy()
+    bct = [np.ascontiguousarray(x.cpu().numpy().transpose(1, 2, 0))
+           for x in cubes]
+    center, coords = _CENTRES[centre]
+    host = phase_centering(dataclasses.replace(
+        vs, skyvis=bct[0], vis=bct[1], vis_noise=bct[2]),
+        np.atleast_2d(center), coords)
+    got = got.cpu().numpy()
+    for k, name in enumerate(("skyvis", "vis", "vis_noise")):
+        h = getattr(host, name)
+        assert h.dtype == np.complex128, name
+        if centre == "zenith":
+            np.testing.assert_array_equal(got[k], want[k])
+            np.testing.assert_array_equal(got[k], h)
+        else:
+            assert _ulps64(got[k], want[k]) <= WIDE_ULPS, name
+            assert _ulps64(got[k], h) <= WIDE_ULPS, name
+
+
+def _ulps64(got, want):
+    d = np.maximum(np.abs(got.real - want.real), np.abs(got.imag - want.imag))
+    return float((d / np.spacing(np.abs(want))).max())
+
+
+def _finalize_sim(cuda, nbl_layout="HERA-19", nchan=64, n_acc=3,
+                  centre="zenith", **pp):
+    from prisim_tpu_torch import driver as drv
+    from prisim_tpu_torch.config import load_parms
+    center, coords = _CENTRES[centre]
+    parms = load_parms({
+        "telescope": {"id": "hera"},
+        "array": {"layout": nbl_layout, "redundant": True},
+        "bandpass": {"nchan": nchan, "freq_resolution": 97656.25},
+        "obsparm": {"n_acc": n_acc, "t_acc": 60.0},
+        "skyparm": {"model": "usm", "nside": 4, "seed": 11},
+        "phasing": {"center": center, "coords": coords},
+        "processing": {"engine": "direct"}, "pp": pp,
+        "save_formats": {"fmt": "none", "npz": False}})
+    sim = drv.prepare_simulation(parms, cuda)
+    shape = (n_acc, sim.bls.nbl, nchan)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    vis = torch.complex(torch.randn(shape, generator=g, device=cuda),
+                        torch.randn(shape, generator=g, device=cuda))
+    return drv, parms, sim, vis
+
+
+def _finalize(drv, parms, sim, vis):
+    return drv._finalize_simulation(parms, sim, vis, None, False, False,
+                                    vis.device)[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("centre", sorted(_CENTRES))
+def test_card_finalize_matches_the_host_finalize(cuda, monkeypatch, centre):
+    """_finalize_simulation of a CUDA cube (noise and gains on the card,
+    one phase_cubes launch, one copy) against the same cube on the
+    host with the same noise injected: the three cubes bit for bit at
+    zenith, off zenith within 2 ulps of |V| of the exact product and 4 of
+    the host's; vis_rms, Tsys, bp, bp_wts, lst and
+    projected_baselines byte-identical; at HERA-331 x 1024 x 25 the card's
+    allocations stay under 1 GB above the finalize's entry."""
+    from prisim_tpu_torch.engine.cuda_finalize import phase_cubes_cuda
+    drv, parms, sim, vis = _finalize_sim(cuda, "HERA-331", 1024, 25, centre)
+    shape = (sim.bls.nbl, 1024, 25)
+    g = torch.Generator().manual_seed(5)
+    noise = torch.complex(torch.randn(shape, generator=g),
+                          torch.randn(shape, generator=g))
+
+    def draw(gen, rms):
+        if isinstance(rms, torch.Tensor):
+            assert rms.is_cuda and gen.device == rms.device
+            return noise.permute(2, 0, 1).contiguous().to(rms.device)
+        return noise.clone()
+
+    monkeypatch.setattr(drv, "generate_noise", draw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    entry = torch.cuda.memory_allocated(cuda)
+    n0 = phase_cubes_cuda.launches
+    got = _finalize(drv, parms, sim, vis)
+    above = torch.cuda.max_memory_allocated(cuda) - entry
+    assert phase_cubes_cuda.launches == n0 + 1
+    assert above < 1e9, above
+    want = _finalize(drv, parms, sim, vis.cpu())
+    assert phase_cubes_cuda.launches == n0 + 1
+    import dataclasses
+    from prisim_tpu_torch.engine.cuda_finalize import phase_cubes_exact
+    from prisim_tpu_torch.vis import phase_path
+    center, coords = _CENTRES[centre]
+    path = phase_path(dataclasses.replace(
+        got, phase_center=got.pointing_center, phase_center_coords="altaz"),
+        np.atleast_2d(center), coords)
+    sky, nz = vis.cpu(), noise.permute(2, 0, 1)
+    exact = phase_cubes_exact(sky, sky + nz, nz, torch.as_tensor(path),
+                              torch.as_tensor(got.freqs))
+    for k, name in enumerate(("skyvis", "vis", "vis_noise")):
+        a, b = getattr(got, name), getattr(want, name)
+        assert a.dtype == b.dtype == np.complex64 and a.shape == b.shape
+        if centre == "zenith":
+            assert a.tobytes() == b.tobytes(), name
+        else:
+            assert _ulps(a, exact[k].numpy()) <= FINALIZE_ULPS, name
+            assert _ulps(a, b) <= 2 * FINALIZE_ULPS, name
+    for name in ("vis_rms", "Tsys", "bp", "bp_wts", "lst",
+                 "projected_baselines", "phase_center"):
+        a, b = np.asarray(getattr(got, name)), np.asarray(getattr(want, name))
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), name
+
+
+class _Gains:
+    """A gains file's reader: complex128 per-baseline gains (B, C, T)."""
+
+    def __init__(self, shape):
+        rng = np.random.RandomState(4)
+        self.g = 1.0 + 0.1 * (rng.randn(*shape) + 1j * rng.randn(*shape))
+
+    def read_hdf5(self, path):
+        return self
+
+    def eval_gains(self, labels, **kw):
+        return self.g.copy()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("centre", [None, "zenith", "altaz_off"])
+def test_card_finalize_with_gains_matches_the_host_finalize(
+        cuda, monkeypatch, centre):
+    """A gains file's complex128 gains on the card: one phase_cubes launch
+    of its complex128 instance, and the three cubes as the host finalize
+    makes them from the same cube and noise: complex128 where phased, bit
+    for bit about zenith and within WIDE_ULPS float64 ulps of |V|
+    elsewhere; unphased, each of its own dtype and bit for bit."""
+    from prisim_tpu_torch.engine.cuda_finalize import phase_cubes_cuda
+    drv, parms, sim, vis = _finalize_sim(cuda, centre=centre or "zenith")
+    if centre is None:
+        parms["phasing"] = {"center": None}
+    parms["gains"] = dict(parms.get("gains") or {}, file="gains.hdf5")
+    shape = (sim.bls.nbl, 64, 3)
+    monkeypatch.setattr(drv, "GainInfo", _Gains(shape))
+    g = torch.Generator().manual_seed(5)
+    noise = torch.complex(torch.randn(shape, generator=g),
+                          torch.randn(shape, generator=g))
+
+    def draw(gen, rms):
+        if isinstance(rms, torch.Tensor):
+            return noise.permute(2, 0, 1).contiguous().to(rms.device)
+        return noise.clone()
+
+    monkeypatch.setattr(drv, "generate_noise", draw)
+    n0 = phase_cubes_cuda.launches
+    got = _finalize(drv, parms, sim, vis)
+    assert phase_cubes_cuda.launches == n0 + 1
+    want = _finalize(drv, parms, sim, vis.cpu())
+    assert got.vis.dtype == want.vis.dtype == np.complex128
+    for name in ("skyvis", "vis", "vis_noise"):
+        a, b = getattr(got, name), getattr(want, name)
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        if centre is not None:
+            assert a.dtype == np.complex128, name
+        if centre in (None, "zenith"):
+            np.testing.assert_array_equal(a, b)
+        else:
+            assert _ulps64(a, b) <= WIDE_ULPS, name
+
+
+@pytest.mark.gpu
+def test_card_noise_repeats_by_seed_and_chunk(cuda):
+    """The card's draw: the same seed draws the same noise, two chunk
+    indices of a chunked run draw different noise, and the noise's power
+    is the rms's."""
+    drv, parms, sim, vis = _finalize_sim(cuda)
+    a = _finalize(drv, parms, sim, vis).vis_noise
+    b = _finalize(drv, parms, sim, vis).vis_noise
+    assert a.tobytes() == b.tobytes()
+    chunks = []
+    for i in (0, 1):
+        p = dict(parms, pp=dict(parms.get("pp") or {}, _chunk={"index": i}))
+        chunks.append(_finalize(drv, p, sim, vis).vis_noise)
+    assert not np.array_equal(chunks[0], chunks[1])
+    assert not np.array_equal(chunks[0], a)
+    vs = _finalize(drv, parms, sim, vis)
+    m = float(np.mean(np.abs(vs.vis_noise) ** 2 / vs.vis_rms ** 2))
+    assert abs(m - 1.0) < 5.0 / np.sqrt(vs.vis_noise.size)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fault", ["noise_dropped", "noise_doubled",
+                                   "noise_not_added"])
+def test_noise_faults_reach_the_card_finalize(cuda, fault):
+    """Each noise fault of gpubench/faults.py, planted through the driver's
+    generate_noise and apply_gains, changes the card route's output."""
+    import sys
+    from pathlib import Path
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from gpubench import faults
+    from prisim_tpu_torch.engine.cuda_finalize import phase_cubes_cuda
+    drv, parms, sim, vis = _finalize_sim(cuda)
+    clean = _finalize(drv, parms, sim, vis)
+    n0 = phase_cubes_cuda.launches
+    undo = faults.plant(fault)
+    try:
+        bad = _finalize(drv, parms, sim, vis)
+    finally:
+        undo()
+    assert phase_cubes_cuda.launches == n0 + 1
+    assert not np.array_equal(bad.vis, clean.vis)
+    assert np.array_equal(bad.skyvis, clean.skyvis)
+    assert np.array_equal(bad.vis_noise, clean.vis_noise) == (
+        fault == "noise_not_added")

@@ -270,3 +270,38 @@ def test_snapshot_span_ms_on_cpu():
     assert total == 0.0 and not any(by.values())
     with pytest.raises(SystemExit, match="sorted snapshot spans"):
         cs.snapshot_span_ms(lambda: None, cpu)
+
+
+def test_finalize_phase_on_cpu(monkeypatch):
+    """Phase s on the CPU at small shapes: phase_cubes_cuda replaced by a
+    counting copy of its twin, the CUDA timers stubbed. The cubes agree with the host path within the bar, one
+    launch is checked per shape, the bound counts three cubes read and
+    written with the path and channel factors; a cube 5 ulps off fails
+    the phase."""
+    cs = _chip_smoke()
+    from prisim_tpu_torch.engine import cuda_finalize
+
+    def fake(*a, **k):
+        fake.launches += 1
+        out = cuda_finalize.phase_cubes_plain(*a, **k)
+        if fake.off:
+            out[1, 2, 3, 0] += 5 * np.spacing(np.float32(abs(
+                complex(out[1, 2, 3, 0]))))
+        return out
+
+    fake.launches, fake.off = 0, False
+    monkeypatch.setattr(cuda_finalize, "phase_cubes_cuda", fake)
+    monkeypatch.setattr(cs, "cuda_time_ms", lambda fn: (fn(), 1.0)[1])
+    monkeypatch.setattr(cs, "copy_to_host_ms", lambda out: 2.0)
+    shapes = ((5, 21, 64), (3, 4, 33))
+    got = cs.finalize_phase(torch.device("cpu"), shapes=shapes)
+    assert fake.launches == 3 * len(shapes)      # checked once, timed twice
+    assert [r["shape"] for r in got["shapes"]] == list(shapes)
+    for (T, B, C), r in zip(shapes, got["shapes"]):
+        assert r["ulps"] <= cs.FINALIZE_ULPS and r["ms"] == 1.0
+        assert r["copy_ms"] == 2.0
+        assert r["bound_ms"] == pytest.approx(
+            (48 * T * B * C + 8 * B * T + 8 * C) / 3.35e12 * 1e3, rel=1e-12)
+    fake.off = True
+    with pytest.raises(SystemExit, match="differs"):
+        cs.finalize_phase(torch.device("cpu"), shapes=shapes[:1])

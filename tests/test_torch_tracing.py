@@ -111,8 +111,13 @@ def test_spans_nest_under_one_trace(run):
         "inputs.sky", "inputs.upload"]
     vis = next(r for r in records if r["name"] == "visibilities")
     want = (["plan", "gate"] if engine == "nufft" else []) + \
-        ["snapshot"] * N_ACC + ["transfer"]
+        ["snapshot"] * N_ACC
     assert [r["name"] for r in _kids(records, vis)] == want
+    # the cube comes to the host in the finalize, which counts its
+    # visibilities
+    post = next(r for r in records if r["name"] == "finalize.post")
+    assert [r["name"] for r in _kids(records, post)] == ["transfer"]
+    assert post["counts"]["finalize.vis"] == 9 * 32 * N_ACC
 
 
 def test_snapshot_spans_and_their_children(run):
