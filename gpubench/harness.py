@@ -2,14 +2,20 @@
 
 A cell is `workloads/<name>.json`; it names its configuration,
 `configs/<name>.json`, whose `sections` are the parameter sections the
-program is given. A per-layer metric is `metrics/<name>.py`, found by the
-name BENCHMARK.json gives it. `run_cell` runs one cell: set-up (CUDA, the
-kernel libraries, a warm simulation of one accumulation at the cell's
-shapes), then the window, a closed loop of whole simulations through
-prisim_tpu_torch.driver.run_simulation, each drawing its LST from the
-seed; then, with the program's state freed, the plain reference judges a
-sample, drawn from the seed, of what the simulations returned. It never
-writes a product.
+program is given, and may name the plain reference that judges it
+(`reference_class`; reference/__init__.py). A per-layer metric is
+`metrics/<name>.py`, found by the name BENCHMARK.json gives it. `run_cell`
+runs one cell: set-up (CUDA, the kernel libraries, a warm simulation of
+one accumulation at the cell's shapes), then the window, a closed loop of
+whole simulations through prisim_tpu_torch.driver.run_simulation, each
+drawing its LST from the seed; then, with the program's state freed, the
+plain reference judges a sample, drawn from the seed, of what the
+simulations produced. A cell without a `product` writes none and is
+judged by the arrays run_simulation returned; a cell with
+`"product": {"fmt": "fits"}` writes each simulation's native FITS
+product, the warm one's too, under build/products/<pid>/ inside the
+window, is judged by the files read back (reference/products.py), and
+removes them once judged.
 """
 
 from __future__ import annotations
@@ -20,7 +26,9 @@ import gc
 import importlib.util
 import io
 import json
+import os
 import re
+import shutil
 import sys
 import time
 from pathlib import Path
@@ -37,10 +45,20 @@ PHASES = {"inputs": "inputs built and on", "gate": "banded shared-amps gate",
           "vis": "visibilities computed + transferred",
           "noise": "Tsys, rms and noise",
           "post": "gains, container, phasing, projection"}
+# and the product's write, which only a cell with a product prints
+PRODUCT_PHASES = dict(PHASES, write="products saved")
 SHORT = {"inputs": "inputs (driver.prepare_simulation)",
          "gate": "banded gate", "vis": "snapshots and transfer",
          "noise": "finalize: Tsys, rms and noise",
-         "post": "finalize: gains, container, phasing, projection"}
+         "post": "finalize: gains, container, phasing, projection",
+         "write": "product write (driver._save_products)"}
+DEFAULT_REFERENCE = "model.DriftReference"
+# what a simulation's run_simulation writes: nothing, or the check's file
+NO_PRODUCT = {"fmt": "none", "npz": False}
+FITS_PRODUCT = {"fmt": "fits", "npz": False}
+NOT_A_PRODUCT = {
+    "npz": "the NPZ export holds no noise rms and no projected baselines",
+    "hdf5": "HDF5 needs h5py, which the card's machine does not have"}
 
 
 # -- by name --------------------------------------------------------------
@@ -82,6 +100,46 @@ def benchmark_entries(cell_name):
             [m["name"] for m in bench["per_layer"] if mine(m)])
 
 
+def reference_class(config):
+    """The class of the configuration's plain reference: its
+    "reference_class", "<module>.<Class>" of reference/<module>.py, or
+    model.DriftReference where the key is absent. SystemExit, naming the
+    configuration and the key, where there is no such class."""
+    name = config.get("reference_class", DEFAULT_REFERENCE)
+    mod, _, cls = str(name).partition(".")
+    full = "%s.reference.%s" % (__package__, mod)
+    found = None
+    if mod.isidentifier() and cls.isidentifier():
+        try:
+            found = getattr(importlib.import_module(full), cls, None)
+        except ModuleNotFoundError as exc:
+            if exc.name != full:
+                raise
+    if not isinstance(found, type):
+        raise SystemExit("gpubench: configuration %r: reference_class %r "
+                         "names no class of gpubench/reference/<module>.py"
+                         % (config.get("name"), name))
+    return found
+
+
+def product_format(cell):
+    """The format of the product a simulation of `cell` writes: None
+    without a "product", else "fits" (the native-schema FITS product,
+    which holds every array the check reads). SystemExit, with the
+    reason, for any other."""
+    product = cell.get("product")
+    if product is None:
+        return None
+    if product == {"fmt": "fits"}:
+        return "fits"
+    fmt = str(product.get("fmt")).lower() if isinstance(product, dict) \
+        else None
+    raise SystemExit("gpubench: cell %r: product %r: only "
+                     '{"fmt": "fits"} is written (%s)'
+                     % (cell.get("name"), product, NOT_A_PRODUCT.get(
+                         fmt, "no product format of the port")))
+
+
 def cell_sections(cell, config, lst_hours, seed, n_acc=None):
     """The parameter sections of one simulation of `cell`."""
     s = copy.deepcopy(config["sections"])
@@ -89,8 +147,32 @@ def cell_sections(cell, config, lst_hours, seed, n_acc=None):
     s["pointing"]["lst_init"] = float(lst_hours)
     s.setdefault("processing", {})["engine"] = cell["engine"]
     s["skyparm"]["seed"] = int(seed)
-    s["save_formats"] = {"fmt": "none", "npz": False}
+    s["save_formats"] = dict(FITS_PRODUCT if product_format(cell)
+                             else NO_PRODUCT)
     return s
+
+
+def products_dir():
+    """Where this process's simulations write their products: inside the
+    checkout, beside build/kernels/, one directory a process."""
+    return ROOT / "build" / "products" / str(os.getpid())
+
+
+def sim_dir(cell, i):
+    """Where simulation `i` of a run of `cell` writes its product (0 the
+    warm one): products_dir()/sim<i>, or None for a cell without one."""
+    return products_dir() / ("sim%d" % i) if product_format(cell) else None
+
+
+def product_file(outdir):
+    """The native FITS product run_simulation writes under `outdir`."""
+    return Path(outdir) / "simdata" / "simvis.fits"
+
+
+def product_bytes(outdir):
+    """Bytes of every file run_simulation wrote under `outdir`."""
+    return sum(f.stat().st_size for f in Path(outdir).rglob("*")
+               if f.is_file())
 
 
 def lst_draws(cell, seed):
@@ -131,17 +213,18 @@ def engine_of(text):
     return "banded" if "banded NUFFT:" in text else "direct"
 
 
-def phase_spans(lines, t_start):
-    """{key: [(start, end, seconds)]} of the driver's phases, on the host
-    clock of the lines: each phase ends when its line is printed and starts
-    where the one before it ended (the simulation's start for the inputs),
-    the gate where the banded engine printed its plan."""
+def phase_spans(lines, t_start, phases=PHASES):
+    """{key: [(start, end, seconds)]} of the driver's phases (`phases`,
+    label by key), on the host clock of the lines: each phase ends when its
+    line is printed and starts where the one before it ended (the
+    simulation's start for the inputs), the gate where the banded engine
+    printed its plan."""
     spans, prev, plan_t = {}, t_start, None
     for t, line in lines:
         if line.startswith("[prisim_tpu_torch] banded NUFFT:"):
             plan_t = t
         m = PHASE_LINE.match(line)
-        key = m and next((k for k, p in PHASES.items()
+        key = m and next((k for k, p in phases.items()
                           if m.group(1).startswith(p)), None)
         if not key:
             continue
@@ -153,24 +236,31 @@ def phase_spans(lines, t_start):
     return spans
 
 
-def simulate(parms, device):
-    """run_simulation(parms, save=False, verbose=True) with its output
-    kept line by line: (VisibilitySet or None, record)."""
+def simulate(parms, device, outdir=None):
+    """run_simulation(parms, save=False, verbose=True), or with an
+    `outdir` run_simulation(parms, outdir=outdir, save=True, verbose=True),
+    which writes the product the sections' save_formats name there, with
+    its output kept line by line: (VisibilitySet or None, record)."""
     from prisim_tpu_torch.driver import run_simulation
     out = TimedLines()
-    rec = dict(t_start=time.time(), error=None)
+    rec = dict(t_start=time.time(), error=None, outdir=outdir)
     vs = None
     try:
         with contextlib.redirect_stdout(out):
-            vs, _ = run_simulation(parms, save=False, verbose=True,
-                                   device=device)
+            if outdir is None:
+                vs, _ = run_simulation(parms, save=False, verbose=True,
+                                       device=device)
+            else:
+                vs, _ = run_simulation(parms, outdir=str(outdir), save=True,
+                                       verbose=True, device=device)
     except Exception as exc:         # a failed operation: counted, not fatal
         rec["error"] = "%s: %s" % (type(exc).__name__, exc)
     rec["t_end"] = time.time()
     rec["lines"] = out.lines
     text = "\n".join(line for _, line in out.lines)
     rec["engine"] = engine_of(text)
-    rec["spans"] = phase_spans(out.lines, rec["t_start"])
+    rec["spans"] = phase_spans(out.lines, rec["t_start"],
+                               PHASES if outdir is None else PRODUCT_PHASES)
     return vs, rec
 
 
@@ -296,7 +386,7 @@ def set_up(cell, config, seed, dev, log, t_process=None):
         marks.append(("libraries", time.time()))
     draws, _ = lst_draws(cell, seed)
     warm = load_parms(cell_sections(cell, config, draws[0], seed, n_acc=1))
-    _, rec = simulate(warm, dev)
+    _, rec = simulate(warm, dev, sim_dir(cell, 0))
     marks.append(("warm simulation", time.time()))
     print("gpubench set-up: " + ", ".join(
         "%s %.3f s" % (k, t - marks[i][1])
@@ -315,7 +405,18 @@ def run_cell(cell, config, seed, seconds, trace, device="cuda",
                                                        "setup_s"),
              log=sys.stderr):
     """Run one cell; returns the result dict that run.py prints (None
-    where a guarantee of the run broke: then it says why on `log`)."""
+    where a guarantee of the run broke: then it says why on `log`). The
+    products of a cell that writes them are removed, with products_dir(),
+    once the run is judged or has failed."""
+    try:
+        return _run_cell(cell, config, seed, seconds, trace, device,
+                         t_process, per_layer, end_to_end, log)
+    finally:
+        shutil.rmtree(products_dir(), ignore_errors=True)
+
+
+def _run_cell(cell, config, seed, seconds, trace, device, t_process,
+              per_layer, end_to_end, log):
     t_process = time.time() if t_process is None else t_process
     import torch
     dev = torch.device(device)
@@ -357,17 +458,20 @@ def run_cell(cell, config, seed, seconds, trace, device="cuda",
             try:
                 with profile(activities=acts) as prof:
                     with record_function("gpubench.simulation"):
-                        vs, rec = simulate(parms, dev)
+                        vs, rec = simulate(parms, dev, sim_dir(cell, i))
             finally:
                 drv.banded_engine = engine_fn
             profiled = rec
         else:
-            vs, rec = simulate(parms, dev)
+            vs, rec = simulate(parms, dev, sim_dir(cell, i))
         rec["lst_init"] = lst
         rec["ok"] = rec["error"] is None and \
             rec["engine"] == cell["expect_engine"]
         sims.append(rec)
-        if rec["ok"]:
+        if rec["ok"] and rec["outdir"] is not None:
+            # the product, read back once the window has closed
+            kept.append((lst, product_file(rec["outdir"])))
+        elif rec["ok"]:
             # the returned arrays, sampled once the window has closed
             kept.append((lst, SimpleNamespace(
                 skyvis=vs.skyvis, vis=vs.vis, vis_noise=vs.vis_noise,
@@ -387,6 +491,7 @@ def run_cell(cell, config, seed, seconds, trace, device="cuda",
         return None
     for rec in sims:
         _echo(rec, log)
+    _log_products(sims, log)
     if prof is not None and cuda:
         dev_trace = DeviceTrace(prof, profiled, "gpubench.simulation")
     del prof
@@ -395,15 +500,16 @@ def run_cell(cell, config, seed, seconds, trace, device="cuda",
     # the cell's sample holds as many), and of each a sample, drawn from
     # the seed, against the reference
     from .reference.check import (judge, keep_sample, pick_simulations,
-                                  readings, sample_indices, worst)
-    from .reference.model import DriftReference
+                                  sample_indices, worst)
     t_check = time.time()
-    ref = DriftReference(cell_sections(cell, config, 0.0, seed), device=dev)
+    ref = reference_class(config)(cell_sections(cell, config, 0.0, seed),
+                                  device=dev)
     idx = sample_indices(ref, rng, cell["sample"])
-    kept = [(kept[i][0], keep_sample(kept[i][1], idx)) for i in
+    kept = [(kept[i][0], kept[i][1] if isinstance(kept[i][1], Path)
+             else keep_sample(kept[i][1], idx)) for i in
             pick_simulations(len(kept), rng, cell["sample"]["simulations"])]
     _release(dev)
-    per_sim = [readings(got, ref, lst, idx) for lst, got in kept]
+    per_sim = [judged(got, ref, lst, idx, log) for lst, got in kept]
     numbers = worst(per_sim)
     limits = cell["limits"]
     correct = bool(kept) and judge(numbers, limits)
@@ -453,6 +559,32 @@ def run_cell(cell, config, seed, seconds, trace, device="cuda",
         print("check %s %r limit %r" % (k, numbers[k], limits.get(k)),
               file=log)
     return result
+
+
+def judged(got, ref, lst_init, idx, log):
+    """The readings of one simulation: of the sample kept in memory, or of
+    the sample read back from its product's file (inf, as for a sample of
+    the wrong shape, where that file cannot be read)."""
+    from .reference.check import NUMBERS, readings
+    from .reference.products import read_sample
+    if isinstance(got, Path):
+        try:
+            got = read_sample(got, idx)
+        except (OSError, ValueError) as exc:
+            print("gpubench: the product %s reads as no product: %s"
+                  % (got, exc), file=log)
+            return dict.fromkeys(NUMBERS, float("inf"))
+    return readings(got, ref, lst_init, idx)
+
+
+def _log_products(sims, log):
+    """The bytes each simulation wrote, and the wall time of its write."""
+    for rec in sims:
+        if rec["outdir"] is not None:
+            print("gpubench product: %s wrote %d bytes in %.3f s"
+                  % (rec["outdir"], product_bytes(rec["outdir"]),
+                     sum(x[2] for x in rec["spans"].get("write", ()))),
+                  file=log)
 
 
 def _echo(rec, log):

@@ -2,7 +2,8 @@
 
 For each completed simulation it judges (all of them, or as many as the
 cell's sample names, drawn from the seed: `pick_simulations`), the
-benchmark keeps a sample of what run_simulation returned: the sky
+benchmark keeps a sample of what run_simulation returned (or, for a cell
+that writes its product, of the file read back: products.py): the sky
 visibilities (VisibilitySet.skyvis), the visibilities a user receives
 (VisibilitySet.vis) and the thermal noise (VisibilitySet.vis_noise) on
 baselines that span the lengths and on channels that span the band, at

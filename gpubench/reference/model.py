@@ -47,6 +47,8 @@ def _airy_power(sin_t, freqs, diameter):
 class DriftReference:
     """The reference of one configuration's parameter sections."""
 
+    precisions = PRECISIONS
+
     def __init__(self, sections, device="cpu", src_chunk=8192):
         s = sections
         self.device = torch.device(device)

@@ -9,9 +9,12 @@ Prints, as the last line of standard output, one JSON object with
 with its limit; those numbers are also the last lines of standard error.
 With --trace 0 the metrics are the cell's end-to-end metrics, with
 --trace 1 its per-layer metrics, read from a torch.profiler trace of the
-window's first simulation and from the driver's phase lines. Exits
-non-zero, printing no result, without a CUDA card, or when the process
-holds JAX or the JAX package once the window has closed.
+window's first simulation and from the driver's phase lines. A cell
+whose workload file has a "product" writes each simulation's product
+under build/products/<pid>/ inside the window, is judged by the files
+read back, and removes them before it prints. Exits non-zero, printing
+no result, without a CUDA card, or when the process holds JAX or the JAX
+package once the window has closed.
 """
 
 import time

@@ -3,9 +3,10 @@
 Each test skips the harness's look for a card and drives the rest of a
 run (set-up, the window, the check) on the CPU at a tiny size, with one
 fault of gpubench/faults.py planted in the program: the engine's faults
-through both engines, the noise's through the direct engine (the noise
-is drawn and added after either). The same run without a fault is
-correct."""
+through the direct, banded and sorted engines, the noise's through the
+direct engine (the noise is drawn and added after either). The same run
+without a fault is correct. The product faults, which need a cell that
+writes its product, are in test_gpubench_products.py."""
 
 import pytest
 
@@ -57,3 +58,22 @@ def test_noise_fault_makes_the_run_not_correct(fault):
         assert not res["correct"], checks
         bad = {"noise_not_added": "sum_err"}.get(fault, "noise_z")
         assert checks[bad]["value"] > checks[bad]["limit"], checks
+
+
+@pytest.mark.parametrize("fault", ENGINE_FAULTS)
+def test_fault_on_the_sorted_route(fault):
+    """hera331.sorted cut to the CPU as tests/test_sorted_route.py cuts it
+    (HERA-19, 64 channels over the same band, nside 16, 2 accumulations):
+    the snapshot faults plant in the sorted route's engine too."""
+    cell, config = tiny("hera331.sorted", layout="HERA-19", nchan=64,
+                        nside=16, n_acc=2)
+    config["sections"]["bandpass"]["freq_resolution"] = 100e6 / 64
+    res = _run(fault, cell, config)
+    assert res is not None and res["attempted"] >= 1
+    assert res["failed"] == 0
+    if fault == "none":
+        assert res["correct"], res["checks"]
+    else:
+        assert not res["correct"], res["checks"]
+        assert res["checks"]["vis_err"]["value"] > \
+            res["checks"]["vis_err"]["limit"]

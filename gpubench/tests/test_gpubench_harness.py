@@ -9,6 +9,7 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 from gpubench import harness as H
 from gpubench import peaks
@@ -154,3 +155,160 @@ def test_nothing_run_loads_is_jax_or_the_jax_package(tmp_path):
     top = set(got["top"])
     assert "prisim_tpu_torch" in top and "gpubench" in top
     assert not top & set(H.FORBIDDEN), top & set(H.FORBIDDEN)
+
+
+ACCEPTED = ("hera331.banded", "hera37.direct", "hera331.direct",
+            "hera331.sorted")
+
+
+def _sections_as_built_before(cell, config, lst_hours, seed, n_acc=None):
+    """cell_sections as the harness built them before a cell could write
+    its product: every accepted cell must still get exactly these."""
+    import copy
+    s = copy.deepcopy(config["sections"])
+    s["obsparm"]["n_acc"] = int(n_acc or cell["n_acc"])
+    s["pointing"]["lst_init"] = float(lst_hours)
+    s.setdefault("processing", {})["engine"] = cell["engine"]
+    s["skyparm"]["seed"] = int(seed)
+    s["save_formats"] = {"fmt": "none", "npz": False}
+    return s
+
+
+@pytest.mark.parametrize("name", ACCEPTED)
+def test_accepted_cells_run_what_they_ran(name):
+    """Each accepted cell: the same sections, the same reference, no
+    product, and run_simulation called without an outdir and with
+    save=False."""
+    cell = H.load_workload(name)
+    config = H.load_config(cell["config"])
+    assert "product" not in cell and "reference_class" not in config
+    assert {w["name"] for w in BENCH["workloads"]} == set(ACCEPTED)
+    for lst, seed, n_acc in ((0.0, 1, None), (17.25, 2 ** 33 + 5, 1),
+                             (23.9, 7, None)):
+        assert H.cell_sections(cell, config, lst, seed, n_acc) == \
+            _sections_as_built_before(cell, config, lst, seed, n_acc)
+    from gpubench.reference.model import DriftReference
+    assert H.reference_class(config) is DriftReference
+    assert H.sim_dir(cell, 0) is None and H.product_format(cell) is None
+
+
+def test_simulate_without_a_product_calls_run_simulation_as_before(
+        monkeypatch):
+    from prisim_tpu_torch import driver
+    calls = []
+
+    def spy(*a, **k):
+        calls.append((a, k))
+        return None, None
+    monkeypatch.setattr(driver, "run_simulation", spy)
+    vs, rec = H.simulate({"x": 1}, "cpu")
+    assert calls == [(({"x": 1},), dict(save=False, verbose=True,
+                                        device="cpu"))]
+    assert rec["error"] is None and rec["outdir"] is None
+    H.simulate({"x": 1}, "cpu", Path("/nowhere"))
+    assert calls[-1] == (({"x": 1},), dict(outdir="/nowhere", save=True,
+                                           verbose=True, device="cpu"))
+
+
+def test_a_cell_without_a_product_writes_none(monkeypatch):
+    """A whole run of an accepted cell, cut to the CPU: every call of
+    run_simulation (the warm one too) with save=False and no outdir."""
+    from prisim_tpu_torch import driver
+    from conftest import tiny
+    inner = driver.run_simulation
+    calls = []
+
+    def spy(parms, *a, **k):
+        calls.append((a, k))
+        return inner(parms, *a, **k)
+    monkeypatch.setattr(driver, "run_simulation", spy)
+    cell, config = tiny("hera37.direct", n_acc=2)
+    res = H.run_cell(cell, config, 3, 0.3, False, device="cpu",
+                     log=open(os.devnull, "w"))
+    assert res["correct"] and len(calls) == res["attempted"] + 1
+    assert all(a == () and k == dict(save=False, verbose=True,
+                                      device=torch.device("cpu"))
+               for a, k in calls)
+
+
+@pytest.mark.parametrize("product,reason", [
+    ({"fmt": "npz"}, "no noise rms"), ({"fmt": "hdf5"}, "h5py"),
+    ({"fmt": "HDF5"}, "h5py"), ({"fmt": "fits", "npz": True}, "only"),
+    ({"fmt": "uvfits"}, "only"), ("fits", "only")])
+def test_only_a_fits_product_is_written(product, reason):
+    cell = dict(H.load_workload("hera37.direct"), product=product)
+    config = H.load_config(cell["config"])
+    with pytest.raises(SystemExit, match=reason):
+        H.cell_sections(cell, config, 1.0, 1)
+    cell["product"] = {"fmt": "fits"}
+    assert H.cell_sections(cell, config, 1.0, 1)["save_formats"] == \
+        {"fmt": "fits", "npz": False}
+    assert H.sim_dir(cell, 4) == H.products_dir() / "sim4"
+    assert H.products_dir().parent == ROOT / "build" / "products"
+
+
+class StubReference:
+    """A reference with the interface the harness reads, which counts the
+    instances built: DriftReference's arithmetic under another class."""
+
+    built = []
+
+    def __init__(self, sections, device="cpu"):
+        from gpubench.reference.model import DriftReference
+        self._ref = DriftReference(sections, device=device)
+        StubReference.built.append(sections)
+
+    def __getattr__(self, name):
+        return getattr(self._ref, name)
+
+
+def test_a_configuration_names_its_reference(monkeypatch):
+    """reference_class resolves "<module>.<Class>" of gpubench/reference/,
+    and run_cell judges by the class it names."""
+    import types
+    from conftest import tiny
+    mod = types.ModuleType("gpubench.reference.stub_for_test")
+    mod.StubReference = StubReference
+    monkeypatch.setitem(sys.modules, "gpubench.reference.stub_for_test", mod)
+    cell, config = tiny("hera37.direct", n_acc=2)
+    config = dict(config, reference_class="stub_for_test.StubReference")
+    assert H.reference_class(config) is StubReference
+    StubReference.built.clear()
+    res = H.run_cell(cell, config, 5, 0.3, False, device="cpu",
+                     log=open(os.devnull, "w"))
+    assert res["correct"] and len(StubReference.built) == 1
+
+
+@pytest.mark.parametrize("name", ["model.NoSuchReference", "nomodule.Ref",
+                                  "DriftReference", "model.PRECISIONS",
+                                  "../model.DriftReference",
+                                  "model.DriftReference.x", ""])
+def test_an_unknown_reference_stops_the_run(name):
+    config = dict(H.load_config("hera37-nside128"), reference_class=name)
+    with pytest.raises(SystemExit, match="hera37-nside128.*reference_class"):
+        H.reference_class(config)
+
+
+def test_write_phase_of_a_product_run():
+    p = "[prisim_tpu_torch] ... "
+    lines = [(1.5, p + "inputs built and on cpu (0.50 s)"),
+             (4.0, p + "visibilities computed + transferred (2.50 s)"),
+             (4.5, p + "Tsys, rms and noise (0.50 s)"),
+             (5.5, p + "gains, container, phasing, projection (1.00 s)"),
+             (7.0, p + "products saved (1.50 s)")]
+    assert "write" not in H.phase_spans(lines, 1.0)
+    spans = H.phase_spans(lines, 1.0, H.PRODUCT_PHASES)
+    assert spans["write"] == [(5.5, 7.0, 1.5)]
+    assert set(H.SHORT) >= set(H.PRODUCT_PHASES)
+
+
+def test_span_metrics_list_the_accepted_cells():
+    entries = {m["name"]: m for m in BENCH["per_layer"]}
+    for name in ("inputs_s", "snap_ms", "finalize_s", "idle_share"):
+        assert entries[name]["workloads"] == list(ACCEPTED), name
+    for cell in ACCEPTED:
+        _, per_layer = H.benchmark_entries(cell)
+        assert {"inputs_s", "snap_ms", "finalize_s", "idle_share",
+                "finalize_kernel_share"} <= set(per_layer)
+    # a cell BENCHMARK.json does not list reports the metrics of no list
+    assert H.benchmark_entries("no.such.cell")[1] == ["finalize_kernel_share"]

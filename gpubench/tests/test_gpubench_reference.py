@@ -120,3 +120,28 @@ def test_sample_spans_lengths_channels_and_snapshots():
     assert idx["t"][0] == 0 and idx["t"][-1] == 4 and len(idx["t"]) == 3
     again = C.sample_indices(ref, np.random.default_rng(0), cell["sample"])
     assert all(np.array_equal(idx[k], again[k]) for k in idx)
+
+
+class Float64Only(DriftReference):
+    """A reference that offers no precision below float64."""
+
+    precisions = ("float64",)
+
+
+def test_calibrate_without_a_control(monkeypatch):
+    """A configuration whose reference has no control or phase32:
+    calibrate.py judges by that class and reports them as not computed."""
+    import sys
+    import types
+    from gpubench import calibrate
+    mod = types.ModuleType("gpubench.reference.float64_only")
+    mod.Float64Only = Float64Only
+    monkeypatch.setitem(sys.modules, "gpubench.reference.float64_only", mod)
+    cell, config = tiny("hera37.direct", n_acc=2)
+    config = dict(config, reference_class="float64_only.Float64Only")
+    rows = list(calibrate.calibrate(cell, config, [5, 6], 1, "cpu",
+                                    n_phase32=2, log=open("/dev/null", "w")))
+    assert C.judge(rows[0]["readings"], cell["limits"])
+    assert rows[0]["control"] == "not computed"
+    assert [r["phase32"] for r in rows] == ["not computed"] * 2
+    assert "control" not in rows[1]
