@@ -943,6 +943,106 @@ def k2_phase(parms, cuda):
     return dict(max_abs_err=max_abs, ms=ms_k, plain_ms=ms_p, **bd)
 
 
+def host_spatial_order(s_eq_hi, s_eq_lo, nside=512):
+    """spatial_order as the plan made it on the host: the directions
+    copied to the host, numpy's permutation, uploaded; every row counted
+    as the host's."""
+    from prisim_tpu_torch import twofloat as tf
+    from prisim_tpu_torch.engine import nufft_banded as nb
+    perm = nb.spatial_permutation(tf.join_f64(s_eq_hi, s_eq_lo), nside)
+    return torch.as_tensor(perm, device=s_eq_hi.device), int(perm.size)
+
+
+def plan_phase(dev, parms=None, repeats=3):
+    """Phase t: the banded plan's per-source work on the card against the
+    host, at the north star (786,432 sources of the precessed nside-256
+    sky): the card's spatial order against numpy's permutation (positions
+    that differ, rows whose pixel the host gave), the truth path's node
+    fluxes against generate_spectrum at the nodes in the host's order
+    (largest difference in float64 ulps), and banded_engine's wall on the
+    card path and on the host path (numpy's order, host node fluxes, host
+    gather, upload), `repeats` of each in turn, with one snapshot of
+    each compared. Returns the numbers; a permutation that differs, or
+    snapshots that differ by more than 1e-6 of max|V|, fails the phase."""
+    from prisim_tpu_torch import driver as drv
+    from prisim_tpu_torch import twofloat as tf
+    from prisim_tpu_torch.engine import nufft_banded as nb
+    from prisim_tpu_torch.engine.nufft_delay import chebyshev_node_model
+    from prisim_tpu_torch.engine.observe import schedule_tensors
+    parms = parms or northstar_parms()
+    sim = drv.prepare_simulation(parms, dev)
+    sky, S = sim.sky, int(sim.sky.s_eq_hi.shape[0])
+    sync(dev)
+    t0 = time.perf_counter()
+    perm, n_host = nb.spatial_order(sky.s_eq_hi, sky.s_eq_lo)
+    sync(dev)
+    card_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    host = nb.spatial_permutation(tf.join_f64(sky.s_eq_hi, sky.s_eq_lo))
+    host_ms = (time.perf_counter() - t0) * 1e3
+    differ = int((perm.cpu().numpy() != host).sum())
+    print("plan phase: %d sources, spatial order on %s %.2f ms (%d rows' "
+          "pixels from the host), numpy %.2f ms; positions that differ: %d"
+          % (S, dev.type, card_ms, n_host, host_ms, differ))
+    if differ:
+        raise SystemExit("plan phase: the card's spatial order differs from "
+                         "the host's at %d positions" % differ)
+    rank, node_model, truth, plan_kw = drv._banded_settings(parms, sim)
+    nodes = chebyshev_node_model(sim.freqs, rank).nu_nodes
+    want = sim.skymodel.generate_spectrum(nodes)
+    got = truth["flux_nodes"](perm).cpu().numpy()
+    d = np.abs(got - want[host])
+    ulps = float((d / np.spacing(np.abs(want[host]))).max())
+    print("plan phase: node fluxes (%d x %d float64) on %s against "
+          "generate_spectrum: max %.1f ulps, %.4f%% of them not bit-equal"
+          % (S, rank, dev.type, ulps, 100.0 * float((d > 0).mean())))
+    del got, d, perm
+
+    def card():
+        return drv.banded_engine(parms, sim)
+
+    def host_path():
+        saved = nb.spatial_order
+        nb.spatial_order = host_spatial_order
+        try:
+            fl = sim.skymodel.generate_spectrum(nodes)
+            return drv.banded_engine(parms, sim, settings=(
+                rank, node_model, dict(truth, flux_nodes=fl), plan_kw))
+        finally:
+            nb.spatial_order = saved
+
+    walls = {"card": [], "host": []}
+    snaps = {}
+    sched = schedule_tensors(sim.obs, sim.inst.latitude, dev)
+    for i in range(repeats):
+        for key, fn in (("card", card), ("host", host_path)):
+            snaps.pop(key, None)
+            sync(dev)
+            t0 = time.perf_counter()
+            _, run = fn()
+            sync(dev)
+            walls[key].append(time.perf_counter() - t0)
+            if i == repeats - 1:
+                snaps[key] = run(*(a[0] for a in sched))[0].cpu().numpy()
+            del run
+    vc, vh = snaps["card"], snaps["host"]
+    dv = float(np.abs(vc - vh).max() / np.abs(vh).max())
+    wall = {k: float(np.median(v)) for k, v in walls.items()}
+    print("plan phase: banded_engine wall, median of %d: card path %.3f s "
+          "(%s), host path %.3f s (%s); snapshot 0 card vs host plan: "
+          "max|dV|/max|V| = %.3e (%s)"
+          % (repeats, wall["card"], ", ".join("%.3f" % w for w in
+                                              walls["card"]),
+             wall["host"], ", ".join("%.3f" % w for w in walls["host"]),
+             dv, "bit-exact" if dv == 0 else "not bit-exact"))
+    if dv > 1e-6:
+        raise SystemExit("plan phase: the card plan's snapshot differs from "
+                         "the host plan's by %.3e of max|V|" % dv)
+    return dict(S=S, differ=differ, n_host=n_host, ulps=ulps,
+                order_ms=card_ms, numpy_order_ms=host_ms, wall=wall,
+                walls=walls, snap_err=dv)
+
+
 def northstar_phase(cuda):
     """One north-star snapshot through the banded engine and its gate; K2
     against its plain version on the first source chunk, and K1a against
@@ -3651,6 +3751,11 @@ def main():
     ns = northstar_phase(cuda)
     prep_launches += ns["prep_launches"]
     print("[north-star phase: %.2f s]" % (time.time() - t0))
+
+    t0 = time.time()
+    plan_phase(cuda)
+    torch.cuda.empty_cache()
+    print("[plan phase: %.2f s]" % (time.time() - t0))
 
     t0 = time.time()
     prep_sl = banded_prep_phase("slice", banded, cuda)

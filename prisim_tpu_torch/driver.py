@@ -85,7 +85,7 @@ from .config import dump_parms, load_parms
 from .engine import cuda_finalize
 from .engine.noise import generate_noise, thermal_noise_rms
 from .engine.nufft_banded import PlanRejected, make_banded_plan, \
-    make_banded_snapshot_fns
+    make_banded_snapshot_fns, powerlaw_node_fluxes
 from .engine.nufft_delay import chebyshev_node_model, \
     chebyshev_projection, simulate_snapshot_nufft_jit
 from .engine.observe import Instrument, Observation, SkySources, \
@@ -1286,8 +1286,13 @@ def _banded_settings(parms, sim):
     if truth_on:
         plan_kw.setdefault("dot_split", 4)
         nm = chebyshev_node_model(freqs, rank)
-        truth = {"beam_df": sim.beam_fn.df_eval,
-                 "flux_nodes": sim.skymodel.generate_spectrum(nm.nu_nodes),
+        sky = sim.skymodel
+        if sky.spec_kind == "power-law":
+            nodes = powerlaw_node_fluxes(sky.spec_parms, nm.nu_nodes)
+        else:
+            with tracing.span("plan.nodes"):
+                nodes = sky.generate_spectrum(nm.nu_nodes)
+        truth = {"beam_df": sim.beam_fn.df_eval, "flux_nodes": nodes,
                  "airy_diameter": getattr(sim.beam_fn, "df_airy", None)}
     return rank, node_model, truth, plan_kw
 
@@ -1301,14 +1306,17 @@ def banded_engine(parms, sim, collapse=True, settings=None):
         rank, node_model, truth, plan_kw = (
             settings if settings is not None
             else _banded_settings(parms, sim))
-        plan = make_banded_plan(np.asarray(sim.bls.vectors), sim.inst.nu0,
-                                sim.inst.dnu, sim.freqs.size, rank=rank,
-                                collapse=collapse, **plan_kw)
-        pinvQ, Q = chebyshev_projection(sim.freqs, rank)
-        return plan, make_banded_snapshot_fns(
-            sim.inst, sim.sky, sim.beam_fn, plan, pinvQ, Q,
-            gate_src_block=sim.src_block, node_model=node_model,
-            truth=truth)
+        with tracing.span("plan.grid"):
+            plan = make_banded_plan(np.asarray(sim.bls.vectors),
+                                    sim.inst.nu0, sim.inst.dnu,
+                                    sim.freqs.size, rank=rank,
+                                    collapse=collapse, **plan_kw)
+            pinvQ, Q = chebyshev_projection(sim.freqs, rank)
+        with tracing.span("plan.fns"):
+            return plan, make_banded_snapshot_fns(
+                sim.inst, sim.sky, sim.beam_fn, plan, pinvQ, Q,
+                gate_src_block=sim.src_block, node_model=node_model,
+                truth=truth)
 
 
 def _dump_gate(sim, sched, fast0, direct0, rank, csA0, **extra):

@@ -57,7 +57,8 @@ from .observe import (_beam_and_flux, check_kernel_knobs, df_rotate3,
 __all__ = ["banded_spread_available", "make_banded_plan", "BandedPlan",
            "PlanRejected", "group_directions", "nufft_banded_visibilities",
            "simulate_snapshot_nufft_banded",
-           "spatial_permutation", "reorder_sources", "banded_prep_plain",
+           "spatial_permutation", "spatial_order", "reorder_sources",
+           "powerlaw_node_fluxes", "banded_prep_plain",
            "banded_spread_plain",
            "banded_worklist_plain", "banded_pair_count", "K2_ROWS",
            "K2_TILE",
@@ -88,17 +89,179 @@ def spatial_permutation(s_eq, nside=512):
     """Host permutation ordering sources by HEALPix NEST index, so that a
     tile of consecutive sources is a compact sky patch whose delay bins
     span few rows for every baseline. Any order is exact."""
+    return np.argsort(_nest_pixels(s_eq, nside), kind="stable")
+
+
+def _nest_pixels(s_eq, nside):
+    """Host NEST pixel (S,) int64 of each direction (S, 3) float64."""
     s = np.asarray(s_eq, dtype=np.float64)
     r = np.linalg.norm(s, axis=1)
     theta = np.arccos(np.clip(s[:, 2] / r, -1.0, 1.0))
     phi = np.mod(np.arctan2(s[:, 1], s[:, 0]), 2.0 * np.pi)
-    pix = hp.ang2pix(nside, theta, phi, nest=True)
-    return np.argsort(pix, kind="stable")
+    return hp.ang2pix(nside, theta, phi, nest=True)
+
+
+# A bound on how far the device's z = cos(theta) and tt = phi / (pi / 2)
+# of a direction may lie from numpy's: their acos, cos and atan2 round
+# differently in the last few ulps (a few 1e-15).
+_ANG_EPS = 1e-13
+_ROUND_EPS = 1e-9       # of the floors' float64 arguments (|x| < 4 nside)
+
+
+def spatial_order(s_eq_hi, s_eq_lo, nside=512):
+    """spatial_permutation of the two-float directions, made on their own
+    device: (perm (S,) int64 tensor there, n_host).
+
+    The float64 steps are the host's (the join, the norm, acos of the
+    clipped z, atan2 mod 2 pi, then ang2pix's floors and integer steps to
+    the RING index and ring2nest), and the sort is stable, so the
+    permutation is the host's wherever the pixels are. The device's acos,
+    cos and atan2 may round otherwise than numpy's in the last ulps, which
+    moves a direction across a pixel boundary only if it lies within that
+    much of one: such a direction (n_host of them; as a rule none on a
+    sky that is not a HEALPix grid at nside or coarser) takes its pixel
+    from the host function, and only its row is copied there."""
+    s = s_eq_hi.double() + s_eq_lo.double()
+    x, y, zc = s.unbind(1)
+    r = torch.sqrt(x * x + y * y + zc * zc)
+    theta = torch.acos(torch.clamp(zc / r, -1.0, 1.0))
+    phi = torch.remainder(torch.atan2(y, x), 2.0 * np.pi)
+    pix, near = _ang2pix_nest(nside, torch.cos(theta), phi)
+    idx = torch.nonzero(near).squeeze(1)
+    n_host = int(idx.numel())
+    if n_host:
+        pix[idx] = torch.as_tensor(_nest_pixels(s[idx].cpu().numpy(), nside),
+                                   device=pix.device)
+    return torch.argsort(pix, stable=True), n_host
+
+
+def _near_int(v, margin):
+    """Whether v lies within `margin` of an integer."""
+    return (v - torch.round(v)).abs() < margin
+
+
+def _near_pos_int(v, margin):
+    """Whether v >= 0 lies within `margin` of a positive integer (its
+    floor cannot move at 0)."""
+    return torch.where(v < 0.5, 1.0 - v < margin, _near_int(v, margin))
+
+
+def _ang2pix_nest(nside, z, phi):
+    """healpix.ang2pix(nside, acos(z), phi, nest=True) in torch, the same
+    float64 operations in the same order: (pix (S,) int64, near (S,)
+    bool), near where a change of z or of phi / (pi / 2) by _ANG_EPS could
+    move the pixel (or a value is not finite), and pix is then not to be
+    trusted."""
+    za = z.abs()
+    tt = torch.remainder(phi, 2.0 * np.pi) / (0.5 * np.pi)
+    npix = 12 * nside * nside
+    ncap = 2 * nside * (nside - 1)
+    eq = za <= 2.0 / 3.0
+    near = ~(torch.isfinite(z) & torch.isfinite(tt))
+    near |= (za - 2.0 / 3.0).abs() < _ANG_EPS
+
+    # equatorial belt
+    t1 = nside * (0.5 + tt)
+    t2 = nside * (z * 0.75)
+    lo, hi = t1 - t2, t1 + t2
+    m = 2 * nside * _ANG_EPS + _ROUND_EPS
+    near |= eq & (_near_int(lo, m) | _near_int(hi, m))
+    jp, jm = torch.floor(lo).long(), torch.floor(hi).long()
+    ir = nside + 1 + jp - jm
+    kshift = 1 - (ir & 1)
+    ip = ((jp + jm - nside + kshift + 1) // 2) % (4 * nside)
+    pix_eq = ncap + (ir - 1) * 4 * nside + ip
+
+    # polar caps
+    tp = tt - torch.floor(tt)
+    x3 = 3.0 * (1.0 - za)
+    tmp = nside * torch.sqrt(x3)
+    # |d sqrt(3 x)| <= min(1.5 |dx| / sqrt(3 x), sqrt(3 |dx|))
+    dtmp = nside * torch.minimum(
+        1.5 * _ANG_EPS / torch.sqrt(x3).clamp_min(1e-300),
+        torch.full_like(x3, (3.0 * _ANG_EPS) ** 0.5))
+    a, b = tp * tmp, (1.0 - tp) * tmp
+    mab = tmp * _ANG_EPS + dtmp + _ROUND_EPS
+    # a and b are >= 0, so only a positive integer is a boundary of theirs
+    near_ab = _near_pos_int(a, mab) | _near_pos_int(b, mab)
+    jp, jm = torch.floor(a).long(), torch.floor(b).long()
+    ir = jp + jm + 1
+    e = tt * ir.double()
+    near |= ~eq & (_near_int(tt, _ANG_EPS) | near_ab
+                   | _near_int(e, ir * _ANG_EPS + _ROUND_EPS))
+    ir = ir.clamp(1, nside)
+    ip = torch.floor(e).long() % (4 * ir)
+    pix_pol = torch.where(z > 0, 2 * ir * (ir - 1) + ip,
+                          npix - 2 * ir * (ir + 1) + ip)
+    pix = torch.where(eq, pix_eq, pix_pol).clamp(0, npix - 1)
+    return _ring2nest(nside, pix), near
+
+
+def _isqrt(v):
+    r = torch.sqrt(v.double()).long()
+    r = torch.where(r * r > v, r - 1, r)
+    return torch.where((r + 1) * (r + 1) <= v, r + 1, r)
+
+
+def _spread_bits(v):
+    """healpix._spread_bits in torch int64 (v < 2^29)."""
+    for sh, mask in ((16, 0x0000FFFF0000FFFF), (8, 0x00FF00FF00FF00FF),
+                     (4, 0x0F0F0F0F0F0F0F0F), (2, 0x3333333333333333),
+                     (1, 0x5555555555555555)):
+        v = (v | (v << sh)) & mask
+    return v
+
+
+def _ring2nest(nside, ipix):
+    """healpix.ring2nest in torch int64 (ipix in [0, 12 nside^2)): the
+    host's integer steps, each case of the ring taken by torch.where."""
+    npix = 12 * nside * nside
+    ncap = 2 * nside * (nside - 1)
+    north = ipix < ncap
+    south = ipix >= npix - ncap
+
+    p = ipix
+    ir_n = (1 + _isqrt(1 + 2 * p)) >> 1
+    iphi_n = (p + 1) - 2 * ir_n * (ir_n - 1)
+    face_n = (iphi_n - 1) // ir_n
+
+    p = (ipix - ncap).clamp_min(0)
+    ir_e = p // (4 * nside) + nside
+    iphi_e = p % (4 * nside) + 1
+    ire = ir_e - nside + 1
+    irm = 2 * nside + 2 - ire
+    ifm = (iphi_e - ire // 2 + nside - 1) // nside
+    ifp = (iphi_e - irm // 2 + nside - 1) // nside
+    face_e = torch.where(ifp == ifm, ifp | 4,
+                         torch.where(ifp < ifm, ifp, ifm + 8))
+
+    p = (npix - ipix).clamp_min(1)
+    ir_s = (1 + _isqrt(2 * p - 1)) >> 1
+    iphi_s = 4 * ir_s + 1 - (p - 2 * ir_s * (ir_s - 1))
+    face_s = 8 + (iphi_s - 1) // ir_s
+
+    def pick(n, e, s):
+        return torch.where(north, n, torch.where(south, s, e))
+
+    iring = pick(ir_n, ir_e, 4 * nside - ir_s)
+    iphi = pick(iphi_n, iphi_e, iphi_s)
+    nr = pick(ir_n, torch.full_like(ipix, nside), ir_s)
+    kshift = torch.where(north | south, 0, (ir_e + nside) & 1)
+    face = pick(face_n, face_e, face_s).clamp(0, 11)
+    jrll = torch.as_tensor(hp._JRLL, device=ipix.device)[face]
+    jpll = torch.as_tensor(hp._JPLL, device=ipix.device)[face]
+    irt = iring - jrll * nside + 1
+    ipt = 2 * iphi - jpll * nr - kshift - 1
+    ipt = torch.where(ipt >= 2 * nside, ipt - 8 * nside, ipt)
+    x, y = (ipt - irt) >> 1, (-ipt - irt) >> 1
+    return face * nside * nside + (_spread_bits(x) | (_spread_bits(y) << 1))
 
 
 def reorder_sources(sky, perm):
-    """SkySources with every per-source tensor taken along axis 0."""
-    idx = torch.as_tensor(np.asarray(perm, np.int64),
+    """SkySources with every per-source tensor taken along axis 0; `perm`
+    a host array or an int64 tensor."""
+    idx = torch.as_tensor(perm if torch.is_tensor(perm)
+                          else np.asarray(perm, np.int64),
                           device=sky.s_eq_hi.device)
     return replace(sky, s_eq_hi=sky.s_eq_hi[idx], s_eq_lo=sky.s_eq_lo[idx],
                    flux=sky.flux[idx])
@@ -643,6 +806,32 @@ def make_coeff_fn_truth(freqs, rank, beam_df_fn):
     return coeffs_df
 
 
+def powerlaw_node_fluxes(spec_parms, nu_nodes):
+    """The node fluxes of a power-law sky as a function of an order:
+    fluxes(perm) -> (len(perm), r) float64 on perm's device, row i
+    SkyModel.generate_spectrum(nu_nodes)[perm[i]], computed there in
+    powerlaw_spectrum's order of operations (off + scale * (nu / ref) **
+    index). Only the per-source parameters cross to the device, in
+    float64, and they are gathered before the power law."""
+    nodes = np.asarray(nu_nodes, np.float64)
+    p = spec_parms
+
+    def fluxes(perm):
+        dev = perm.device
+
+        def par(v):
+            v = np.asarray(v, np.float64)
+            return (torch.as_tensor(v, device=dev)[perm][:, None] if v.ndim
+                    else float(v))
+
+        out = torch.as_tensor(nodes, device=dev)[None, :] / par(p["freq-ref"])
+        out.pow_(par(p["power-law-index"]))
+        out.mul_(par(p["flux-scale"]))
+        return out.add_(par(p.get("flux-offset", 0.0)))
+
+    return fluxes
+
+
 def _truth_payload(beam_df_fn, nu_nodes, node2coef64, sh, sl, flux_nodes):
     """The truth-amps payload (S, r) float64: beam_df_fn(sh, sl, nu_nodes)
     times flux_nodes, through node2coef64 (r, r)."""
@@ -662,17 +851,21 @@ def make_banded_snapshot_fns(instrument, sky, beam_fn, plan, pinvQ, Q,
                              node_model=True, truth=None):
     """Snapshot functions of the banded engine for one sky and plan.
 
-    The sources are reordered once by HEALPix NEST index (spatial_
-    permutation), so that a tile is a compact sky patch and K2 skips most
-    tiles for most row blocks: spatial_sort=False raises ValueError, and
-    `interpret` is checked as in observe.check_kernel_knobs. Sources are
-    chunked as in the reference: the two-float u streams take
-    2 x D x S_chunk floats, bounded at ~0.75 GiB. ``truth`` =
-    {"beam_df": fn(sh, sl, nu_nodes) -> (S, r) float64, "flux_nodes":
-    (S, r) host float64 in the ORIGINAL source order, and optionally
+    The sources are reordered once by HEALPix NEST index, the order made
+    on the sky's device (spatial_order, spatial_permutation's order), so
+    that a tile is a compact sky patch and K2 skips most tiles for most
+    row blocks: spatial_sort=False raises ValueError, and `interpret` is
+    checked as in observe.check_kernel_knobs. Sources are chunked as in
+    the reference: the two-float u streams take 2 x D x S_chunk floats,
+    bounded at ~0.75 GiB. ``truth`` = {"beam_df": fn(sh, sl, nu_nodes) ->
+    (S, r) float64, "flux_nodes": (S, r) host float64 in the ORIGINAL
+    source order, or a function of the order that makes them in that
+    order on its device (powerlaw_node_fluxes), and optionally
     "airy_diameter": D where fn is airy_beam_df's power pattern of a D m
     dish (the driver marks its truth form so)} selects the truth-amps
-    path.
+    path. Counts plan.src, the sources ordered, and plan.src_card, those
+    whose order (and node fluxes, on the truth path) a CUDA device made
+    with no host pass.
 
     A chunk's prep (rotation, u streams, payload) is one launch of kernel
     banded_prep for CUDA tensors and its plain version banded_prep_plain
@@ -701,8 +894,11 @@ def make_banded_snapshot_fns(instrument, sky, beam_fn, plan, pinvQ, Q,
     if not spatial_sort:
         raise ValueError("spatial_sort=False: the banded engine always "
                          "sorts its sources")
-    perm = spatial_permutation(tf.join_f64(sky.s_eq_hi, sky.s_eq_lo))
-    sky = reorder_sources(sky, perm)
+    S = int(sky.s_eq_hi.shape[0])
+    with tracing.span("plan.sort"):
+        perm, n_host = spatial_order(sky.s_eq_hi, sky.s_eq_lo)
+        sky = reorder_sources(sky, perm)
+    on_card = dev.type == "cuda"
     freqs_f32 = torch.as_tensor(instrument.freqs, dtype=torch.float32,
                                 device=dev)
     coeffs = make_coeff_fn(instrument.freqs, plan.rank, pinvQ, beam_fn,
@@ -712,14 +908,12 @@ def make_banded_snapshot_fns(instrument, sky, beam_fn, plan, pinvQ, Q,
     if truth is not None:
         coeffs_df = make_coeff_fn_truth(instrument.freqs, plan.rank,
                                         truth["beam_df"])
-        fluxn64 = np.asarray(truth["flux_nodes"], np.float64)[perm]
         dia = truth.get("airy_diameter")
         if dia is not None and plan.rank <= MAX_RANK:
             nmt = coeffs_df.node_model
             airy = AiryPayload(dia, nmt.nu_nodes, None, torch.as_tensor(
                 np.ascontiguousarray(nmt.node2coef64), device=dev))
 
-    S = int(sky.s_eq_hi.shape[0])
     if src_chunk is None:
         per_src = max(1, plan.ndir) * 8
         cap = int((768 << 20) / per_src / plan.T_s) * plan.T_s
@@ -737,8 +931,19 @@ def make_banded_snapshot_fns(instrument, sky, beam_fn, plan, pinvQ, Q,
         flux = torch.cat([flux, flux.new_zeros((S_pad - S, flux.shape[1]))])
     fn64 = None
     if truth is not None:
-        fn64 = torch.as_tensor(np.concatenate(
-            [fluxn64, np.zeros((S_pad - S, fluxn64.shape[1]))]), device=dev)
+        with tracing.span("plan.nodes"):
+            fl = truth["flux_nodes"]
+            if callable(fl):
+                fn64 = fl(perm)
+            else:
+                on_card = False
+                fn64 = torch.as_tensor(np.asarray(fl, np.float64),
+                                       device=dev)[perm]
+            if S_pad != S:
+                fn64 = torch.cat([fn64, fn64.new_zeros(
+                    (S_pad - S, fn64.shape[1]))])
+    tracing.count("plan.src", S)
+    tracing.count("plan.src_card", S - n_host if on_card else 0)
     Qc = torch.as_tensor(nm.Q64 if nm is not None else Q,
                          dtype=torch.float64, device=dev)
 

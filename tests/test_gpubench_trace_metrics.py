@@ -2,7 +2,8 @@
 (gpubench/spans.py, gpubench/metrics/{plan_s, prep_ms, k2_tiles,
 snap_idle_share, live_src_share, noise_s, phasing_s, amps_kernel_share,
 amps_roofline, spread_roofline, nufft_snap_ms, sort_ms, prep_kernel_share,
-prep_roofline, finalize_kernel_share, write_s, write_gbps}.py) on hand-built
+prep_roofline, finalize_kernel_share, write_s, write_gbps,
+plan_card_share}.py) on hand-built
 records and a synthetic device trace, on a checkout without the recorder,
 and in a traced tiny cell on the CPU, where the recorder keeps the
 profiled simulation alone."""
@@ -169,7 +170,7 @@ def test_nothing_where_nothing_was_recorded(monkeypatch, records):
         monkeypatch.setattr(tracing, "take", lambda: records)
     info = SimpleNamespace(trace=_device([(0, 1)]))
     for name in NEW + AMPS[:1] + PREP[:1] + ("finalize_kernel_share",
-                                             "write_gbps"):
+                                             "write_gbps", "plan_card_share"):
         assert _read(name, info) is None, name
 
 
@@ -510,6 +511,8 @@ def test_traced_and_untraced_tiny_cells_on_the_cpu(tmp_path):
     m = got["metrics"]
     for name in ("plan_s", "live_src_share", "noise_s", "phasing_s"):
         assert m[name]["value"] >= 0, name
+    # the CPU made the plan's order: no source of it on a card
+    assert m["plan_card_share"]["value"] == 0.0
     # the card's readers: stream times, K2's worklist, the device trace
     for name in ("prep_ms", "k2_tiles", "snap_idle_share",
                  "prep_kernel_share", "prep_roofline"):
@@ -623,8 +626,8 @@ def test_write_s():
 
 
 def test_benchmark_lists_the_write_metrics():
-    """The two readers of the product write, last in per_layer, in its
-    layer, moving vis_rate, in the product cell alone."""
+    """The two readers of the product write, together in per_layer, in
+    its layer, moving vis_rate, in the product cell alone."""
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
     entries = {m["name"]: m for m in bench["per_layer"]}
     for name in WRITE:
@@ -635,9 +638,51 @@ def test_benchmark_lists_the_write_metrics():
         assert e["layer"] == "driver._save_products: product write"
         assert e["moves"] == "vis_rate"
         assert e["workloads"] == ["hera331.product"]
-    assert [m["name"] for m in bench["per_layer"][-2:]] == list(WRITE)
+    names = [m["name"] for m in bench["per_layer"]]
+    start = names.index(WRITE[0])
+    assert names[start:start + len(WRITE)] == list(WRITE)
     configs = {c["name"] for c in bench["configs"]}
     cells = {w["name"]: w for w in bench["workloads"]}
     assert "hera331-nside256-fits" in configs
     assert cells["hera331.product"]["config"] == "hera331-nside256-fits"
     assert cells["hera331.product"]["chips"] == 1
+
+
+def _planned(counts):
+    """_banded's records with a plan.fns span under the plan counting
+    `counts` (the sort's and the node fluxes' counters)."""
+    recs = _banded()
+    recs.append(_rec(100, 4, "plan.fns", 200, 350, dict(counts)))
+    return recs
+
+
+@pytest.mark.parametrize("counts,want", [
+    ({"plan.src": 786432, "plan.src_card": 786432}, 100.0),
+    ({"plan.src": 1000, "plan.src_card": 999}, 99.9),
+    ({"plan.src": 1000, "plan.src_card": 0}, 0.0),
+    ({"plan.src": 1000}, 0.0),
+    ({}, None)])
+def test_plan_card_share(monkeypatch, counts, want):
+    """plan.src_card over plan.src, summed below the plan spans, in %: 100
+    where the card made the order and node fluxes of every source; nothing
+    without a plan.src counter (the parent) or without a plan span (the
+    direct engine)."""
+    info = _info(monkeypatch, _planned(counts))
+    got = _read("plan_card_share", info)
+    assert got == (None if want is None else pytest.approx(want))
+    info = _info(monkeypatch, _direct())
+    assert _read("plan_card_share", info) is None
+
+
+def test_benchmark_lists_plan_card_share():
+    """The reader in per_layer, last, in the plan's layer (plan_s's),
+    moving vis_rate, in the banded cell alone."""
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    entries = {m["name"]: m for m in bench["per_layer"]}
+    e = entries["plan_card_share"]
+    mod = H.load_metric("plan_card_share")
+    assert (mod.UNIT, mod.SOURCE, mod.MOVES, mod.LAYER) == (
+        e["unit"], e["source"], e["moves"], e["layer"])
+    assert e["layer"] == entries["plan_s"]["layer"]
+    assert e["moves"] == "vis_rate" and e["workloads"] == ["hera331.banded"]
+    assert bench["per_layer"][-1]["name"] == "plan_card_share"

@@ -167,6 +167,117 @@ def test_spatial_permutation_matches_jax():
                                   nb_jax.spatial_permutation(s))
 
 
+def _unit(theta, phi):
+    theta, phi = np.broadcast_arrays(theta, phi)
+    return np.stack([np.sin(theta) * np.cos(phi), np.sin(theta)
+                     * np.sin(phi), np.cos(theta)], axis=-1)
+
+
+def _order_case(name):
+    """Unit directions (S, 3) float64 of a spatial-order case."""
+    from prisim_tpu_torch import ephemeris as eph
+    from prisim_tpu_torch import healpix as hp_t
+    if name == "random":
+        (sh, sl), _ = _sources(2000, seed=5)
+        return tf_jax.join_f64(sh, sl) + np.asarray([0.0, 0.0, 1.0])
+    if name == "precessed_nside64":
+        theta, phi = hp_t.pix2ang(64, np.arange(12 * 64 * 64))
+        ra, dec = eph.precess_radec(np.degrees(phi), 90.0 - np.degrees(theta),
+                                    eph.JD_J2000, eph.jyear_to_jd(2015.9))
+        return _unit(np.radians(90.0 - dec), np.radians(ra))
+    # on boundaries of the nside-512 pixels: the centres of a coarser grid
+    # (their corners), the rings z = +-2/3, the base faces' edges in the
+    # belt (0.5 + tt - 0.75 z an integer, tt = 2 phi / pi) and in the caps
+    # (phi = k pi / 2), the poles and phi = 0 and 2 pi
+    z = np.linspace(-2.0 / 3.0, 2.0 / 3.0, 41)
+    tt = (np.arange(5)[:, None] - 0.5 + 0.75 * z[None, :]).ravel()
+    zc = np.linspace(0.67, 0.999, 13)
+    caps = np.concatenate([zc, -zc])
+    phis = np.arange(5)[:, None] * 0.5 * np.pi + 0.0 * caps[None, :]
+    ring = np.linspace(0.0, 2.0 * np.pi, 17)
+    v = np.concatenate([
+        hp_t.pix2vec(16, np.arange(12 * 16 * 16)),
+        _unit(np.arccos(np.repeat(z, 5)), tt * 0.5 * np.pi),
+        _unit(np.arccos(np.tile(caps, 5)), phis.ravel()),
+        _unit(np.arccos(2.0 / 3.0), ring), _unit(np.arccos(-2.0 / 3.0), ring),
+        _unit(np.asarray([0.0, np.pi, 1e-9, np.pi - 1e-9, 0.5 * np.pi,
+                          0.5 * np.pi, 0.5 * np.pi]),
+              np.asarray([0.0, 0.0, 0.3, 4.0, 0.0, 2.0 * np.pi,
+                          2.0 * np.pi - 1e-15])),
+        [[0.0, 0.0, 1.0], [0.0, 0.0, -1.0], [1.0, 0.0, 0.0],
+         [1.0, -1e-20, 0.0], [-1.0, 0.0, 0.0], [0.0, -1.0, 0.0]]])
+    return v
+
+
+@pytest.mark.parametrize("case", ["random", "precessed_nside64",
+                                  "boundaries"])
+def test_spatial_order_is_the_host_permutation(case):
+    """spatial_order, made from the two-float directions by torch, is the
+    numpy spatial_permutation and JAX's, position for position: random
+    directions, a HEALPix nside-64 sky precessed from J2000 (no direction
+    near a boundary: no row takes the host), and directions on the
+    boundaries of the nside-512 pixels, where torch's acos, cos or atan2
+    may round across them and the host's pixel is taken for those rows."""
+    s = _order_case(case)
+    sh, sl = tf_jax.split_f64(s)
+    s = tf_jax.join_f64(sh, sl)
+    perm, n_host = nb_t.spatial_order(torch.as_tensor(sh),
+                                      torch.as_tensor(sl))
+    assert perm.dtype == torch.int64
+    want = nb_t.spatial_permutation(s)
+    np.testing.assert_array_equal(perm.numpy(), want)
+    np.testing.assert_array_equal(want, nb_jax.spatial_permutation(s))
+    if case == "boundaries":
+        assert 0 < n_host < s.shape[0]
+    else:
+        assert n_host == 0
+
+
+def test_spatial_order_pixels_outside_the_margin_are_the_hosts():
+    """The torch pixels equal the host's at every nside wherever no row is
+    flagged near a boundary, on the boundary case, whose flagged rows are
+    the only ones that may differ."""
+    s = _order_case("boundaries")
+    t = torch.as_tensor(s)
+    x, y, z = t.unbind(1)
+    r = torch.sqrt(x * x + y * y + z * z)
+    zz = torch.cos(torch.acos(torch.clamp(z / r, -1.0, 1.0)))
+    phi = torch.remainder(torch.atan2(y, x), 2.0 * np.pi)
+    for nside in (1, 16, 512, 1024):
+        pix, near = nb_t._ang2pix_nest(nside, zz, phi)
+        host = nb_t._nest_pixels(s, nside)
+        ok = ~near.numpy()
+        np.testing.assert_array_equal(pix.numpy()[ok], host[ok])
+
+
+@pytest.mark.parametrize("offset", ["array", "scalar"])
+def test_powerlaw_node_fluxes_match_generate_spectrum(offset):
+    """The node fluxes of a power-law sky made by torch in a given order
+    equal SkyModel.generate_spectrum at the nodes in that order within 2
+    float64 ulps (the two pow functions may round apart), ulps of the
+    power-law term where an offset cancels part of it."""
+    from prisim_tpu_torch.skymodel import SkyModel as SkyModelT
+    rng = np.random.default_rng(11)
+    S = 5000
+    parms = {"flux-scale": rng.uniform(0.1, 50.0, S),
+             "freq-ref": rng.uniform(100e6, 200e6, S),
+             "power-law-index": rng.uniform(-3.0, 1.0, S),
+             "flux-offset": (rng.uniform(-1.0, 1.0, S) if offset == "array"
+                             else 0.25)}
+    model = SkyModelT(location=np.zeros((S, 2)), spec_kind="power-law",
+                      spec_parms=parms)
+    nodes = nd_t.chebyshev_node_model(NU0 + DNU * np.arange(1024),
+                                      32).nu_nodes
+    perm = rng.permutation(S)
+    got = nb_t.powerlaw_node_fluxes(parms, nodes)(torch.as_tensor(perm))
+    want = model.generate_spectrum(nodes)[perm]
+    assert got.dtype == torch.float64 and got.shape == (S, 32)
+    term = np.abs(want - np.asarray(parms["flux-offset"])[perm][:, None]
+                  if offset == "array" else want - 0.25)
+    ulp = np.spacing(np.maximum(np.abs(want), term))
+    assert np.all(np.abs(got.numpy() - want) <= 2 * ulp)
+
+
 def _prep_both(case, seed=7, scale=1.0):
     pj, pt = _plans(case)
     S, r = SPREAD_CASES[case][4], pt.rank
@@ -421,6 +532,106 @@ def test_snapshot_fns_and_gate_match_jax(snapshot_inputs, mode):
         assert gt[3] == 0.0 == gj[3]
 
 
+
+
+def test_snapshot_fns_take_the_device_node_fluxes(snapshot_inputs):
+    """The truth path with the node fluxes made in the spatial order by
+    powerlaw_node_fluxes gives run() and the gate's readings of the host
+    flux_nodes: bit for bit where the two node fluxes are bit-equal, else
+    run() and the gate's banded side within 1e-15 of max|V|, and its
+    direct side, two float32 sums over the model's hi/lo split, within
+    1e-14 (a 1-ulp change of the lo part rounds anew in float32)."""
+    d = snapshot_inputs
+    pinvQ, Q = d["proj"]
+    it = d["inst_t"]
+    plan = nb_t.make_banded_plan(_hera7_pairs(), it.nu0, it.dnu, C_SNAP,
+                                 rank=RANK_SNAP, T_s=128)
+    sky = SkyT.from_skymodel(d["model"], d["freqs"], "cpu")
+    args = tuple(torch.as_tensor(a) for a in d["sched"])
+    nodes = nd_t.chebyshev_node_model(d["freqs"], RANK_SNAP).nu_nodes
+    device_form = nb_t.powerlaw_node_fluxes(d["model"].spec_parms, nodes)
+    outs = []
+    for fl in (d["flux_nodes"], device_form):
+        run = nb_t.make_banded_snapshot_fns(
+            it, sky, lambda s, f: ab_t.airy_beam(s, f, 14.0), plan, pinvQ,
+            Q, truth={"beam_df": lambda h, l, f: ab_t.airy_beam_df(
+                h, l, f, 14.0), "flux_nodes": fl})
+        assert run.truth
+        outs.append((run(*args)[0].numpy(), run.gate_fn(*args)))
+    (v0, g0), (v1, g1) = outs
+    perm = torch.arange(sky.flux.shape[0])
+    same = np.array_equal(device_form(perm).numpy(), d["flux_nodes"])
+    scale = np.abs(v0).max()
+    for a, b, bound in [(v0, v1, 1e-15), (g0[0], g1[0], 1e-14),
+                        (g0[1], g1[1], 1e-15)]:
+        if same:
+            np.testing.assert_array_equal(a, b)
+        else:
+            assert np.abs(a - b).max() <= bound * scale
+    assert g0[2] and g1[2]
+    if same:
+        assert (g0[3], g0[4]) == (g1[3], g1[4])
+    else:
+        assert abs(g1[3] - g0[3]) <= 1e-15
+        assert g1[4] == pytest.approx(g0[4], rel=1e-15)
+
+
+@pytest.mark.parametrize("kind", ["power-law", "tanh", "spectrum"])
+def test_driver_node_fluxes_follow_the_spectrum_kind(kind):
+    """The driver's truth dict holds the device form of the node fluxes
+    for a power-law sky, and the host generate_spectrum at the nodes for a
+    tanh or a tabulated sky; each runs the banded engine, whose counters
+    say that the CPU ordered every source and the card none."""
+    from prisim_tpu_torch import config, driver, tracing
+    from prisim_tpu_torch.engine.observe import schedule_tensors
+    from prisim_tpu_torch.skymodel import SkyModel as SkyModelT
+    parms = config.load_parms({
+        "telescope": {"id": "hera", "latitude": -30.7},
+        "array": {"layout": "HERA-7"},
+        "bandpass": {"nchan": 32, "freq": 150e6, "freq_resolution": 1e6},
+        "obsparm": {"n_acc": 1, "t_acc": 60.0},
+        "processing": {"engine": "nufft"},
+        "save_formats": {"fmt": "none", "npz": False}})
+    rng = np.random.default_rng(4)
+    S = 200
+    loc = np.stack([rng.uniform(0, 360, S), rng.uniform(-75, 15, S)], -1)
+    if kind == "power-law":
+        sky = SkyModelT(location=loc, spec_kind=kind, spec_parms={
+            "flux-scale": rng.uniform(1, 5, S), "freq-ref": np.full(S, 150e6),
+            "power-law-index": rng.uniform(-1, 0, S)})
+    elif kind == "tanh":
+        sky = SkyModelT(location=loc, spec_kind=kind, spec_parms={
+            "flux-scale": rng.uniform(1, 5, S), "freq-ref": np.full(S, 150e6),
+            "z-width": np.full(S, 1.0), "flux-offset": np.zeros(S)})
+    else:
+        fm = np.linspace(140e6, 190e6, 6)
+        sky = SkyModelT(location=loc, spec_kind=kind,
+                        spectrum=rng.uniform(1, 5, (S, fm.size)),
+                        freqs_model=fm)
+    sim = driver.prepare_simulation(parms, torch.device("cpu"), sky=sky)
+    rank, _, truth, _ = driver._banded_settings(parms, sim)
+    nodes = nd_t.chebyshev_node_model(sim.freqs, rank).nu_nodes
+    fl = truth["flux_nodes"]
+    if kind == "power-law":
+        assert callable(fl)
+        got = fl(torch.arange(S)).numpy()
+        want = sky.generate_spectrum(nodes)
+        assert np.all(np.abs(got - want) <= 2 * np.spacing(np.abs(want)))
+    else:
+        assert isinstance(fl, np.ndarray)
+        np.testing.assert_array_equal(fl, sky.generate_spectrum(nodes))
+    with tracing.on():
+        with tracing.span("simulation"):
+            plan, snap = driver.banded_engine(parms, sim)
+            v, ok = snap(*(a[0] for a in schedule_tensors(
+                sim.obs, sim.inst.latitude, sim.inst.device)))
+    recs = tracing.take()
+    assert snap.truth and bool(ok) and bool(torch.isfinite(v).all())
+    counts = {}
+    for r in recs:
+        for k, n in r["counts"].items():
+            counts[k] = counts.get(k, 0) + n
+    assert counts["plan.src"] == S and counts["plan.src_card"] == 0
 
 
 @pytest.mark.parametrize("mode", ["f32", "truth"])

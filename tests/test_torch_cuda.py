@@ -1436,3 +1436,72 @@ def test_noise_faults_reach_the_card_finalize(cuda, fault):
     assert np.array_equal(bad.skyvis, clean.skyvis)
     assert np.array_equal(bad.vis_noise, clean.vis_noise) == (
         fault == "noise_not_added")
+
+
+def _boundary_directions():
+    """Unit directions on the boundaries of the nside-512 pixels: the
+    centres of the nside-16 pixels (their corners), the rings z = +-2/3,
+    the base faces' edges in the belt and in the caps, the poles and
+    phi = 0 and 2 pi; with 4,000 random directions."""
+    from prisim_tpu_torch import healpix as hp
+
+    def unit(theta, phi):
+        theta, phi = np.broadcast_arrays(theta, phi)
+        return np.stack([np.sin(theta) * np.cos(phi), np.sin(theta)
+                         * np.sin(phi), np.cos(theta)], axis=-1)
+
+    z = np.linspace(-2.0 / 3.0, 2.0 / 3.0, 41)
+    tt = (np.arange(5)[:, None] - 0.5 + 0.75 * z[None, :]).ravel()
+    caps = np.concatenate([np.linspace(0.67, 0.999, 13),
+                           -np.linspace(0.67, 0.999, 13)])
+    ring = np.linspace(0.0, 2.0 * np.pi, 17)
+    rng = np.random.RandomState(8)
+    rand = rng.randn(4000, 3)
+    return np.concatenate([
+        hp.pix2vec(16, np.arange(12 * 16 * 16)),
+        unit(np.arccos(np.repeat(z, 5)), tt * 0.5 * np.pi),
+        unit(np.arccos(np.tile(caps, 5)),
+             np.repeat(np.arange(5) * 0.5 * np.pi, caps.size)),
+        unit(np.arccos(2.0 / 3.0), ring), unit(np.arccos(-2.0 / 3.0), ring),
+        unit(np.asarray([0.0, np.pi, 0.5 * np.pi, 0.5 * np.pi]),
+             np.asarray([0.0, 0.0, 2.0 * np.pi, 2.0 * np.pi - 1e-15])),
+        [[0.0, 0.0, 1.0], [0.0, 0.0, -1.0], [1.0, -1e-20, 0.0]],
+        rand / np.linalg.norm(rand, axis=1, keepdims=True)])
+
+
+@pytest.mark.gpu
+def test_spatial_order_on_the_card_is_the_hosts(cuda):
+    """The card's spatial order of directions on pixel boundaries, where
+    its acos, cos and atan2 may round across them, is numpy's permutation:
+    the rows near a boundary take the host's pixel, and only those."""
+    s = _boundary_directions()
+    sh, sl = tf.split_f64(s)
+    perm, n_host = nb.spatial_order(torch.as_tensor(sh, device=cuda),
+                                    torch.as_tensor(sl, device=cuda))
+    assert perm.device.type == "cuda" and perm.dtype == torch.int64
+    want = nb.spatial_permutation(tf.join_f64(sh, sl))
+    differ = int((perm.cpu().numpy() != want).sum())
+    print("boundary directions: %d, rows from the host: %d, positions that "
+          "differ: %d" % (s.shape[0], n_host, differ))
+    assert differ == 0
+    assert 0 < n_host < s.shape[0] - 4000
+
+
+@pytest.mark.gpu
+def test_north_star_plan_on_the_card(cuda):
+    """Phase t of chip_smoke.py at the north star: the card's permutation
+    of the 786,432 sources is the host's at every position, with no row
+    from the host; the node fluxes lie within 4 float64 ulps of
+    generate_spectrum's; the card path's banded_engine is faster than the
+    host path's, and its snapshot agrees (the phase fails otherwise)."""
+    import sys
+    from pathlib import Path
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+    got = chip_smoke.plan_phase(cuda, repeats=2)
+    assert got["S"] == 786432
+    assert got["differ"] == 0 and got["n_host"] == 0
+    assert got["ulps"] <= 4.0
+    assert got["wall"]["card"] < got["wall"]["host"]

@@ -305,3 +305,30 @@ def test_finalize_phase_on_cpu(monkeypatch):
     fake.off = True
     with pytest.raises(SystemExit, match="differs"):
         cs.finalize_phase(torch.device("cpu"), shapes=shapes[:1])
+
+
+def test_plan_phase_on_cpu(monkeypatch):
+    """Phase t on the CPU at a small size (HERA-19, 256 channels, nside 16:
+    3,072 sources of a precessed sky, rank 16, truth amps): the torch
+    order is numpy's with no row from the host, the node fluxes within 2
+    ulps, the host path's snapshot the card path's bit for bit; an order
+    that swaps two sources fails the phase."""
+    cs = _chip_smoke()
+    from prisim_tpu_torch.engine import nufft_banded as nb
+    cpu = torch.device("cpu")
+    parms = cs.northstar_parms(array={"layout": "HERA-19"},
+                               bandpass={"nchan": 256},
+                               skyparm={"nside": 16})
+    got = cs.plan_phase(cpu, parms, repeats=1)
+    assert got["S"] == 3072 and got["differ"] == 0 and got["n_host"] == 0
+    assert got["ulps"] <= 2.0 and got["snap_err"] == 0.0
+    assert set(got["wall"]) == {"card", "host"}
+    order = nb.spatial_order
+
+    def swapped(*a, **k):
+        perm, n = order(*a, **k)
+        return perm[torch.tensor([1, 0] + list(range(2, perm.numel())))], n
+
+    monkeypatch.setattr(nb, "spatial_order", swapped)
+    with pytest.raises(SystemExit, match="differs"):
+        cs.plan_phase(cpu, parms, repeats=1)

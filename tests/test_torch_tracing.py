@@ -308,6 +308,29 @@ def test_jax_profile_writes_the_spans(tmp_path):
     assert any(e.get("name") == "prisim/snapshot" for e in events)
 
 
+def test_plan_spans_and_counters_in_the_spans_file(tmp_path):
+    """A truth-amps banded run (HERA dish, power-law sky) writes the plan's
+    four spans and its two counters to its spans file: plan.grid and
+    plan.fns under plan, plan.sort and plan.nodes under plan.fns; every
+    source ordered, none of them by a card."""
+    parms = _parms("nufft", tmp_path)
+    parms["telescope"]["id"] = "hera"
+    prof = tmp_path / "prof"
+    parms["diagnosis"]["jax_profile"] = str(prof)
+    drv.run_simulation(parms, verbose=False, save=False, device="cpu")
+    name = next(n for n in os.listdir(prof) if n.startswith("spans"))
+    with open(prof / name) as f:
+        spans = json.load(f)["spans"]
+    plan = next(r for r in spans if r["name"] == "plan")
+    assert [r["name"] for r in _kids(spans, plan)] == ["plan.grid",
+                                                       "plan.fns"]
+    fns = next(r for r in spans if r["name"] == "plan.fns")
+    assert [r["name"] for r in _kids(spans, fns)] == ["plan.sort",
+                                                      "plan.nodes"]
+    assert _subtree_count(spans, plan, "plan.src") == 128
+    assert fns["counts"] == {"plan.src": 128, "plan.src_card": 0}
+
+
 def _kineto(events):
     """A finished profiler holding these kineto events."""
     from torch.autograd import DeviceType
