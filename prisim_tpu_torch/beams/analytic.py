@@ -86,11 +86,21 @@ def bessel_j1(x):
     return torch.where(ax < 8.0, small, big)
 
 
+def _to(t, device):
+    """Tensor `t` on `device` (None: where it is). A copy from host memory
+    does not wait for the work queued on the device: a host-to-device
+    copy from pageable memory is staged when it is called, so the host
+    array may change or go at once."""
+    if device is None:
+        return t
+    return t.to(device, non_blocking=t.device.type == "cpu")
+
+
 def _as_f32(x, device):
     """A tensor on `device` from an array, a sequence or a tensor, in the
     dtypes the JAX package computes in: float64 becomes float32 and
     complex128 complex64."""
-    t = torch.as_tensor(x, device=device)
+    t = _to(torch.as_tensor(x), device)
     if t.dtype == torch.float64:
         return t.float()
     if t.dtype == torch.complex128:
@@ -102,9 +112,8 @@ def _vec3(p, like):
     """A direction (3-sequence, array or tensor) as a float32 (3,) tensor
     on the device of `like`."""
     if not torch.is_tensor(p):
-        p = np.asarray(p, dtype=np.float32)
-    return torch.as_tensor(p, dtype=torch.float32,
-                           device=like.device).reshape(3)
+        p = torch.as_tensor(np.asarray(p, dtype=np.float32))
+    return _to(p, like.device).to(torch.float32).reshape(3)
 
 
 def _unit_axis(pointing_dircos, like):

@@ -761,26 +761,33 @@ def make_coeff_fn(freqs, rank, pinvQ, beam_fn, node_model=True):
     steers a beam_fn that needs it. Carries the NodeModel (or None) as
     ``coeffs.node_model``."""
     freqs64 = np.asarray(freqs, np.float64)
+    nm = chebyshev_node_model(freqs64, rank) if node_model else None
+    host = ([pinvQ, freqs64.astype(np.float32)] if nm is None else
+            [pinvQ, nm.V, nm.nu_nodes.astype(np.float32), nm.node2coef])
+    tables = {}
+
+    def on(dev):
+        """The tables on `dev`, copied there at the first call: a copy
+        from the host waits for the work queued on the device, and would
+        do so in every chunk."""
+        if dev not in tables:
+            tables[dev] = [torch.as_tensor(x, device=dev) for x in host]
+        return tables[dev]
+
     if not node_model:
         def coeffs(sh, fx, pch=None):
-            f = torch.as_tensor(freqs64, dtype=torch.float32,
-                                device=sh.device)
-            amps = _beam_and_flux(sh, fx, f, beam_fn, pc=pch)
-            return spectral_project(amps, torch.as_tensor(pinvQ,
-                                                          device=sh.device))
+            W, f = on(sh.device)
+            return spectral_project(_beam_and_flux(sh, fx, f, beam_fn,
+                                                   pc=pch), W)
 
         coeffs.node_model = None
         return coeffs
 
-    nm = chebyshev_node_model(freqs64, rank)
-
     def coeffs(sh, fx, pch=None):
-        dev = sh.device
-        fluxC = spectral_project(fx, torch.as_tensor(pinvQ, device=dev))
-        fluxn = fluxC @ torch.as_tensor(nm.V, device=dev).t()
-        nodes = torch.as_tensor(nm.nu_nodes, dtype=torch.float32, device=dev)
+        W, V, nodes, node2coef = on(sh.device)
+        fluxn = spectral_project(fx, W) @ V.t()
         ampsn = _beam_and_flux(sh, fluxn, nodes, beam_fn, pc=pch)
-        return ampsn @ torch.as_tensor(nm.node2coef, device=dev)
+        return ampsn @ node2coef
 
     coeffs.node_model = nm
     return coeffs
@@ -969,9 +976,10 @@ def make_banded_snapshot_fns(instrument, sky, beam_fn, plan, pinvQ, Q,
         P = None
         if P_r is None:
             sh, slo = vecs[:2]
-            P = (coeffs_df(sh, slo, fn64[sl]) if truth is not None
-                 else coeffs(sh, flux[sl], pch))
-            P_r = _payload_rows(P, chunk_pad)
+            with tracing.span("prep.payload"):
+                P = (coeffs_df(sh, slo, fn64[sl]) if truth is not None
+                     else coeffs(sh, flux[sl], pch))
+                P_r = _payload_rows(P, chunk_pad)
         prep = (u_h, u_l, P_r, ok)
         if not vectors:
             return prep, None
@@ -1010,8 +1018,9 @@ def make_banded_snapshot_fns(instrument, sky, beam_fn, plan, pinvQ, Q,
                 part = _spread(plan, u_h, u_l, P_r)
                 rows = part if rows is None else rows.add_(part)
                 ok = ok and bool(okc)
-                amps = _beam_and_flux(sh, flux[sl], freqs_f32, beam_fn,
-                                      pc=pch).contiguous()
+                with tracing.span("gate.amps"):
+                    amps = _beam_and_flux(sh, flux[sl], freqs_f32, beam_fn,
+                                          pc=pch).contiguous()
                 if truth is None:
                     vd += direct_visibilities(seh, sel, instrument, amps,
                                               gate_src_block)

@@ -194,11 +194,13 @@ def _beam_and_flux(s_enu_hi, flux, freqs_f32, beam_fn, pc=None):
     receives it as a third argument. A beam_fn that carries `airy =
     (diameter, axis)` (a plain chromatic Airy dish, driver._make_beam_fn)
     weights CUDA tensors in one launch of the airy_amps kernel, which
-    computes what the torch chain below computes."""
+    computes what the torch chain below computes; the chain counts the
+    sources x frequencies it evaluates as beam.evals."""
     airy = getattr(beam_fn, "airy", None)
     if airy is not None and flux.is_cuda:
         return airy_amps_cuda(s_enu_hi.contiguous(), flux.contiguous(),
                               airy[0], freqs_f32.contiguous(), axis=airy[1])
+    tracing.count("beam.evals", s_enu_hi.shape[0] * freqs_f32.shape[0])
     if pc is not None and getattr(beam_fn, "needs_pointing", False):
         pb = beam_fn(s_enu_hi, freqs_f32, pc)
     else:

@@ -3,7 +3,7 @@
 snap_idle_share, live_src_share, noise_s, phasing_s, amps_kernel_share,
 amps_roofline, spread_roofline, nufft_snap_ms, sort_ms, prep_kernel_share,
 prep_roofline, finalize_kernel_share, write_s, write_gbps,
-plan_card_share}.py) on hand-built
+plan_card_share, payload_ms, gate_amps_s, beam_gevals}.py) on hand-built
 records and a synthetic device trace, on a checkout without the recorder,
 and in a traced tiny cell on the CPU, where the recorder keeps the
 profiled simulation alone."""
@@ -169,8 +169,8 @@ def test_nothing_where_nothing_was_recorded(monkeypatch, records):
     else:
         monkeypatch.setattr(tracing, "take", lambda: records)
     info = SimpleNamespace(trace=_device([(0, 1)]))
-    for name in NEW + AMPS[:1] + PREP[:1] + ("finalize_kernel_share",
-                                             "write_gbps", "plan_card_share"):
+    for name in NEW + AMPS[:1] + PREP[:1] + PAYLOAD + (
+            "finalize_kernel_share", "write_gbps", "plan_card_share"):
         assert _read(name, info) is None, name
 
 
@@ -675,8 +675,8 @@ def test_plan_card_share(monkeypatch, counts, want):
 
 
 def test_benchmark_lists_plan_card_share():
-    """The reader in per_layer, last, in the plan's layer (plan_s's),
-    moving vis_rate, in the banded cell alone."""
+    """The reader in per_layer, after the write's, in the plan's layer
+    (plan_s's), moving vis_rate, in the banded cell alone."""
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
     entries = {m["name"]: m for m in bench["per_layer"]}
     e = entries["plan_card_share"]
@@ -685,4 +685,90 @@ def test_benchmark_lists_plan_card_share():
         e["unit"], e["source"], e["moves"], e["layer"])
     assert e["layer"] == entries["plan_s"]["layer"]
     assert e["moves"] == "vis_rate" and e["workloads"] == ["hera331.banded"]
-    assert bench["per_layer"][-1]["name"] == "plan_card_share"
+    names = [m["name"] for m in bench["per_layer"]]
+    assert names.index("plan_card_share") == names.index("write_gbps") + 1
+
+
+PAYLOAD = ("payload_ms", "gate_amps_s", "beam_gevals")
+
+
+def _payloads(device=True):
+    """_banded's records as the f32 node model's banded run leaves them:
+    a prep.payload span in each prep (the gate's and the snapshots'), each
+    counting beam.evals at the rank's 16 nodes of 100 sources, and a
+    gate.amps span in the gate's chunk counting the full 256 channels;
+    with `device`, stream milliseconds on both."""
+    recs = _banded()
+    rid = 200
+    for r in [r for r in recs if r["name"] == "prep"]:
+        ms = 3.0 if r["parent"] == 6 else 1.5 + (r["device_ms"] - 10.0)
+        recs.append(_rec(rid, r["id"], "prep.payload", 0, 1,
+                         {"beam.evals": 1600},
+                         device_ms=ms if device else None))
+        rid += 1
+    recs.append(_rec(rid, 6, "gate.amps", 450, 480, {"beam.evals": 25600},
+                     device_ms=4.0 if device else None))
+    return recs
+
+
+def test_payload_readers(monkeypatch):
+    """payload_ms: the prep.payload spans' stream ms summed over each
+    snapshot's chunks, the mean over the snapshots (the gate's is none of
+    them); gate_amps_s: the gate.amps spans' stream ms in s; beam_gevals:
+    beam.evals of both over their stream seconds, in 1e9 a second."""
+    info = _info(monkeypatch, _payloads())
+    # snapshots: 2 x 1.5 and 2 x 2.5 ms
+    assert _read("payload_ms", info) == pytest.approx(4.0)
+    assert _read("gate_amps_s", info) == pytest.approx(0.004)
+    evals = 5 * 1600 + 25600
+    ms = 3.0 + 2 * 1.5 + 2 * 2.5 + 4.0
+    assert _read("beam_gevals", info) == pytest.approx(evals / ms * 1e3
+                                                       / 1e9)
+
+
+@pytest.mark.parametrize("records", ["airy", "cpu", "direct"])
+def test_payload_readers_read_nothing_without_their_spans(monkeypatch,
+                                                          records):
+    """The Airy cells (no prep.payload span; a gate.amps span without
+    beam.evals, as the airy_amps launch counts none), a run on the CPU
+    (no stream times) and the direct engine: nothing where there is
+    nothing to read, and no reader raises; the Airy gate's launch is read
+    as the gate's beam all the same."""
+    if records == "airy":
+        recs = _banded() + [_rec(300, 6, "gate.amps", 450, 480,
+                                 device_ms=0.5)]
+    elif records == "cpu":
+        recs = _payloads(device=False)
+    else:
+        recs = _direct()
+    info = _info(monkeypatch, recs)
+    assert _read("payload_ms", info) is None
+    assert _read("beam_gevals", info) is None
+    want = 0.0005 if records == "airy" else None
+    got = _read("gate_amps_s", info)
+    assert got == (None if want is None else pytest.approx(want))
+
+
+def test_benchmark_lists_the_payload_metrics():
+    """The three readers of the torch payload, together at the end of
+    per_layer: payload_ms and beam_gevals in the snapshots' layer,
+    gate_amps_s in the gate's, each moving vis_rate in the MWA cell
+    alone."""
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    entries = {m["name"]: m for m in bench["per_layer"]}
+    layers = dict(payload_ms="prep_ms", gate_amps_s="gate_s",
+                  beam_gevals="prep_ms")
+    for name in PAYLOAD:
+        mod = H.load_metric(name)
+        e = entries[name]
+        assert (mod.UNIT, mod.SOURCE, mod.MOVES, mod.LAYER) == (
+            e["unit"], e["source"], e["moves"], e["layer"])
+        assert e["layer"] == entries[layers[name]]["layer"]
+        assert e["moves"] == "vis_rate" and e["workloads"] == [
+            "mwa128.catalog"]
+    names = [m["name"] for m in bench["per_layer"]]
+    start = names.index(PAYLOAD[0])
+    assert names[start:start + len(PAYLOAD)] == list(PAYLOAD)
+    cells = {w["name"]: w for w in bench["workloads"]}
+    assert cells["mwa128.catalog"]["config"] == "mwa128-catalog"
+    assert cells["mwa128.catalog"]["chips"] == 1

@@ -1505,3 +1505,54 @@ def test_north_star_plan_on_the_card(cuda):
     assert got["differ"] == 0 and got["n_host"] == 0
     assert got["ulps"] <= 4.0
     assert got["wall"]["card"] < got["wall"]["host"]
+
+
+@pytest.mark.gpu
+def test_tile_payload_queues_without_waiting_for_the_card(cuda):
+    """The banded engine's torch payload of the MWA tile (the node model
+    of the beam times the flux, make_coeff_fn) and the gate's
+    full-channel beam times flux queue their work with no synchronizing
+    call once the payload's tables are on the card (a wait there holds
+    the host's launches behind the card's queue in every source chunk),
+    and give the CPU's numbers."""
+    from prisim_tpu_torch import driver as drv
+    from prisim_tpu_torch.config import load_parms
+    from prisim_tpu_torch.engine.observe import _beam_and_flux
+    parms = load_parms({
+        "telescope": {"id": "mwa", "latitude": -26.7033},
+        "antenna": {"shape": "dipole", "size": 0.74, "phased_array": True,
+                    "ground_plane": 0.3, "orientation": [0.0, 90.0],
+                    "ocoords": "altaz"},
+        "bandpass": {"freq": 150e6, "freq_resolution": 160e3,
+                     "nchan": 256},
+        "pointing": {"drift_init": {"alt": 90.0, "az": 0.0}}})
+    freqs = drv.build_frequencies(parms)
+    tel = drv._telescope(parms)
+    obs = drv.build_schedule(parms, -26.7033)
+    beam_fn = drv._make_beam_fn(parms, tel, freqs,
+                                drv._pointing_info(parms, tel, obs))
+    assert beam_fn.needs_pointing and not hasattr(beam_fn, "airy")
+    pinvQ, _ = drv.chebyshev_projection(freqs, 16)
+    coeffs = nb.make_coeff_fn(freqs, 16, pinvQ, beam_fn)
+    rng = np.random.RandomState(11)
+    s = rng.randn(4096, 3)
+    s /= np.linalg.norm(s, axis=1, keepdims=True)
+    host = (torch.as_tensor(s, dtype=torch.float32),
+            torch.as_tensor(rng.rand(4096, 256).astype(np.float32)),
+            torch.tensor([0.0, 0.0, 1.0]))
+    f32 = torch.as_tensor(freqs, dtype=torch.float32)
+    want = (coeffs(*host), _beam_and_flux(host[0], host[1], f32, beam_fn,
+                                          pc=host[2]))
+    sh, fx, pc = (x.to(cuda) for x in host)
+    f32 = f32.to(cuda)
+    coeffs(sh, fx, pc)                 # copies the payload's tables once
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = (coeffs(sh, fx, pc), _beam_and_flux(sh, fx, f32, beam_fn,
+                                                  pc=pc))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for g, w in zip(got, want):
+        err = float((g.cpu() - w).abs().max() / w.abs().max())
+        assert err < 1e-5, err
