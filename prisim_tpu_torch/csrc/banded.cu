@@ -16,7 +16,8 @@
 // A source whose payload column is all zero adds exact zeros and is
 // skipped (below the horizon the beam, and with it the payload, is 0).
 // Everything after the two-float bin is float64, and the rows are summed
-// and returned in float64.
+// in float64 and added into the caller's float64 rows, so that a
+// snapshot's chunks accumulate in one array.
 //
 // What bounds it: float64 operations. The useful work is 2r (2K + 1)
 // of them per valid (baseline, source) pair (the K taps' products, an FMA
@@ -38,10 +39,15 @@
 //    item, 32 tiles per ballot); an exclusive scan (a torch op) gives the
 //    offsets; pass 3 fills each item's list in tile order. The spread walks
 //    only its list; items run in the order the wrapper gives (most work
-//    first). Where the live items cannot fill the card (the HERA-37 slice:
-//    156 of them), the wrapper splits each list among up to 8 blocks
-//    (grid z), each writing float64 partial rows that it adds in split
-//    order.
+//    first), and only the live items (those with a tile) get a block: the
+//    grid is n_live x column blocks x splits, not every item, so a chunk
+//    whose sources reach few rows (or, below the horizon, none: then the
+//    wrapper launches nothing) costs blocks only where it adds something.
+//    Where the live items cannot fill the card (the HERA-37 slice: 156 of
+//    them), the wrapper splits each list among up to 8 blocks (grid z),
+//    each writing float64 partial rows of its item into scratch sized to
+//    the live items; k2_split_sum_kernel then sums them in split order
+//    and adds the sum into the rows.
 // 2. Setup once per (item, source): a block (4 warps) owns 64 rows x 64
 //    columns, the taller tile, so a source's bin, carrier and taps are
 //    computed once for every row they reach in the item. The K taps of the
@@ -69,10 +75,14 @@
 //    other's results. The window's A fragment is read from the hits'
 //    taps, zero outside them; the payload's B fragment is P times the
 //    carrier.
-// 5. Determinism: every output value (or partial value, with splits) has
-//    one writer, summed in the order of its list and of the hits within a
-//    tile (data order), the two accumulator sets and then the splits added
-//    in a fixed order; no atomics.
+// 5. Accumulation and determinism: the epilogue is a read-modify-write,
+//    rows[v] = rows[v] + (acc0 + acc1), the float64 operations of a dense
+//    write followed by an add, in the same order; the items without a
+//    tile leave their rows as they were. Every output value (or partial
+//    value, with splits) has one writer, summed in the order of its list
+//    and of the hits within a tile (data order), the two accumulator sets
+//    and then the splits added in split order (by the second kernel) before
+//    the sum meets the rows; no atomics.
 //
 // With PRISIM_PHASE_CLOCKS defined, thread 0 of every block adds clock64()
 // deltas per phase into a device array (read by prisim_phase_clocks).
@@ -312,9 +322,10 @@ banded_k2_kernel(const float* __restrict__ u_h, const float* __restrict__ u_l,
                  const double* __restrict__ tap_w,
                  const int* __restrict__ order, const int* __restrict__ counts,
                  const int* __restrict__ offsets,
-                 const int* __restrict__ tiles, double* __restrict__ out,
-                 int S, int B, int n_rb, int R_max, int r, int K, int ncoef,
-                 int G_blk, float ivh, float ivl, float nmh, float nml) {
+                 const int* __restrict__ tiles, double* __restrict__ rows,
+                 double* __restrict__ partial, int S, int B, int n_rb,
+                 int R_max, int r, int K, int ncoef, int G_blk, float ivh,
+                 float ivl, float nmh, float nml) {
   extern __shared__ __align__(16) unsigned char smem[];
   const size_t sbytes = stage_bytes(r);
   unsigned char* stage0 = smem;
@@ -560,7 +571,14 @@ banded_k2_kernel(const float* __restrict__ u_h, const float* __restrict__ u_l,
     if (tid == 0 && li + kStages < n_list) issue(li + kStages);
   }
 
-  double* part = out + static_cast<size_t>(blockIdx.z) * B * R_max * two_r;
+  // one split: added into the caller's rows; with splits: this split's
+  // partial rows of the item (live slot blockIdx.x), which
+  // k2_split_sum_kernel adds in split order
+  const bool split = gridDim.z > 1;
+  double* dst = split ? partial : rows;
+  const size_t row0 =
+      split ? (static_cast<size_t>(blockIdx.z) * gridDim.x + blockIdx.x) * kRB
+            : static_cast<size_t>(b) * R_max + R0;
 #pragma unroll
   for (int rt = 0; rt < kRowTiles; ++rt) {
 #pragma unroll
@@ -571,13 +589,39 @@ banded_k2_kernel(const float* __restrict__ u_h, const float* __restrict__ u_l,
         const int row = R0 + 16 * rt + g + (e >= 2 ? 8 : 0);
         const int cc = col + (e & 1);
         if (row < R_max && cc < two_r) {
-          part[(static_cast<size_t>(b) * R_max + row) * two_r + cc] =
-              acc[0][rt][nt][e] + acc[1][rt][nt][e];
+          double* v = dst + (row0 + (row - R0)) * two_r + cc;
+          const double sum = acc[0][rt][nt][e] + acc[1][rt][nt][e];
+          *v = split ? sum : *v + sum;
         }
       }
     }
   }
   PHASE_MARK(5);
+}
+
+// The splits' partial rows (n_split, n_live, kRB, 2r) of the live items
+// (slot i holds item order[i]) summed in split order and added into rows
+// (B, R_max, 2r): one thread per (slot, row, column).
+__global__ void __launch_bounds__(256)
+k2_split_sum_kernel(const double* __restrict__ partial,
+                    const int* __restrict__ order, double* __restrict__ rows,
+                    int n_live, int n_split, int n_rb, int R_max, int two_r) {
+  const size_t per = static_cast<size_t>(kRB) * two_r;
+  const size_t n = static_cast<size_t>(n_live) * per;
+  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n; i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const int slot = static_cast<int>(i / per);
+    const int rem = static_cast<int>(i - slot * per);
+    const int item = order[slot];
+    const int b = item / n_rb;
+    const int row = (item - b * n_rb) * kRB + rem / two_r;
+    if (row >= R_max) continue;
+    double sum = partial[i];
+    for (int z = 1; z < n_split; ++z) sum = sum + partial[z * n + i];
+    double* v = rows + (static_cast<size_t>(b) * R_max + row) * two_r +
+                rem % two_r;
+    *v = *v + sum;
+  }
 }
 
 }  // namespace
@@ -662,28 +706,34 @@ int prisim_banded_k2_blocks_per_sm(int r, int K) {
   return n;
 }
 
-// The spread on `stream`: one block per item, in `order` (B * n_rb item
-// indices), per 64 columns of the 2r and per split: split z of n_split
-// takes the z-th share of the item's list. Device pointers: u_h/u_l
-// float32 (D, S) direction streams; P_t float64 (S / 128, r, pitch) the
-// payload tile by tile (prisim_banded_k2_pitch doubles a row, zeros past
-// the tile's 128); live uint8 (S,); blen_h/blen_l float32 (B,); d_of_b,
-// blk_lo, n_blk int32 (B,); tap_w float64 (K, ncoef); counts/offsets/
-// tiles the worklist; out float64 (n_split, B, R_max, 2r) partial rows,
-// every element written. Returns the cudaError_t.
+// The spread on `stream`, added into `rows`: one block per live item, in
+// `order` (B * n_rb item indices, the n_live items with a tile first), per
+// 64 columns of the 2r and per split: split z of n_split takes the z-th
+// share of the item's list. Device pointers: u_h/u_l float32 (D, S)
+// direction streams; P_t float64 (S / 128, r, pitch) the payload tile by
+// tile (prisim_banded_k2_pitch doubles a row, zeros past the tile's 128);
+// live uint8 (S,); blen_h/blen_l float32 (B,); d_of_b, blk_lo, n_blk int32
+// (B,); tap_w float64 (K, ncoef); counts/offsets/tiles the worklist; rows
+// float64 (B, R_max, 2r), to which each live item's rows are added (the
+// rows of items without a tile are not touched); with n_split > 1,
+// partial float64 (n_split, n_live, 64, 2r) scratch for the splits'
+// partial rows, summed in split order by a second launch before they are
+// added (null with one split). Returns the cudaError_t.
 int prisim_banded_k2(const void* u_h, const void* u_l, const void* P_t,
                      const void* live, const void* blen_h, const void* blen_l,
                      const void* d_of_b, const void* blk_lo,
                      const void* n_blk, const void* tap_w, const void* order,
                      const void* counts, const void* offsets,
-                     const void* tiles, void* out, int S, int B, int R_max,
-                     int r, int K, int ncoef, int G_blk, float ivh, float ivl,
-                     float nmh, float nml, int n_split, void* stream) {
+                     const void* tiles, void* rows, void* partial, int S,
+                     int B, int R_max, int r, int K, int ncoef, int G_blk,
+                     float ivh, float ivl, float nmh, float nml, int n_live,
+                     int n_split, void* stream) {
   const int n_rb = (R_max + kRB - 1) / kRB;
   if (S < kST || S % kST || B < 1 || R_max < 1 || r < 1 || K < 1 ||
       K > kMaxK || (K & 1) == 0 || ncoef < 1 || ncoef > kMaxCoef ||
       G_blk < 1 || (2 * r + kCols - 1) / kCols > 65535 || n_split < 1 ||
-      n_split > 65535) {
+      n_split > 65535 || n_live < 1 || n_live > B * n_rb ||
+      (n_split > 1 && partial == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t smem = k2_smem(r, K);
@@ -691,8 +741,9 @@ int prisim_banded_k2(const void* u_h, const void* u_l, const void* P_t,
       banded_k2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(B * n_rb, (2 * r + kCols - 1) / kCols, n_split);
-  banded_k2_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(n_live, (2 * r + kCols - 1) / kCols, n_split);
+  banded_k2_kernel<<<grid, kThreads, smem, st>>>(
       static_cast<const float*>(u_h), static_cast<const float*>(u_l),
       static_cast<const double*>(P_t), static_cast<const uint8_t*>(live),
       static_cast<const float*>(blen_h), static_cast<const float*>(blen_l),
@@ -700,8 +751,16 @@ int prisim_banded_k2(const void* u_h, const void* u_l, const void* P_t,
       static_cast<const int*>(n_blk), static_cast<const double*>(tap_w),
       static_cast<const int*>(order), static_cast<const int*>(counts),
       static_cast<const int*>(offsets), static_cast<const int*>(tiles),
-      static_cast<double*>(out), S, B, n_rb, R_max, r, K, ncoef, G_blk, ivh,
-      ivl, nmh, nml);
+      static_cast<double*>(rows), static_cast<double*>(partial), S, B, n_rb,
+      R_max, r, K, ncoef, G_blk, ivh, ivl, nmh, nml);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || n_split == 1) return static_cast<int>(e);
+  const size_t n = static_cast<size_t>(n_live) * kRB * 2 * r;
+  const unsigned blocks =
+      static_cast<unsigned>(n / 256 + 1 < 65535 ? n / 256 + 1 : 65535);
+  k2_split_sum_kernel<<<blocks, 256, 0, st>>>(
+      static_cast<const double*>(partial), static_cast<const int*>(order),
+      static_cast<double*>(rows), n_live, n_split, n_rb, R_max, 2 * r);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -6,15 +6,18 @@ delay rows), the tiles of 128 sources that can reach it; one block per
 item walks its list, staging each tile's u streams and payload slab in
 shared memory by bulk asynchronous copies, and sums the taps' products on
 the FP64 tensor cores (mma.sync m16n8k8) in float64, one writer per output
-value (see the note at the top of csrc/banded.cu). Sources whose payload
-is all zero (below the horizon) add nothing and are skipped.
+value (see the note at the top of csrc/banded.cu), and adds its sums into
+the caller's rows. Only the items with a tile get a block. Sources whose
+payload is all zero (below the horizon) add nothing and are skipped.
 
 `banded_spread_cuda` takes the arguments of
-nufft_banded.banded_spread_plain. A CUDA tensor launches the kernel (or
-raises); a CPU tensor runs the plain version, and only because it lies on
-the CPU. `banded_spread_cuda.launches` counts spread launches and nothing
-else; `banded_spread_cuda.last_counts` keeps the per-item tile counts of
-the last launch. `banded_worklist_cuda` is the worklist alone, held
+nufft_banded.banded_spread_plain and, optionally, the rows to add into. A
+CUDA tensor launches the kernel (or raises); a CPU tensor runs the plain
+version, and only because it lies on the CPU.
+`banded_spread_cuda.launches` counts spread launches and nothing else (a
+call whose sources reach no row launches none);
+`banded_spread_cuda.last_counts` keeps the per-item tile counts of the
+last call. `banded_worklist_cuda` is the worklist alone, held
 against nufft_banded.banded_worklist_plain.
 """
 
@@ -47,8 +50,8 @@ def _library():
     lib.prisim_banded_k2_count.argtypes = ([_P] * 9 + [_I] * 6
                                            + [_D, _P])
     lib.prisim_banded_k2_fill.argtypes = [_P] * 8 + [_I] * 5 + [_D, _P]
-    lib.prisim_banded_k2.argtypes = ([_P] * 15 + [_I] * 7 + [_F] * 4
-                                     + [_I, _P])
+    lib.prisim_banded_k2.argtypes = ([_P] * 16 + [_I] * 7 + [_F] * 4
+                                     + [_I, _I, _P])
     lib.prisim_banded_k2_blocks_per_sm.argtypes = [_I, _I]
     lib.prisim_banded_k2_blocks_per_sm.restype = ctypes.c_int
     for fn in (lib.prisim_banded_k2_count, lib.prisim_banded_k2_fill,
@@ -86,6 +89,19 @@ def _check_inputs(plan, u_h, u_l, P_r):
         if t.device != P_r.device:
             raise ValueError("%s is on %s, P_r on %s"
                              % (name, t.device, P_r.device))
+
+
+def _check_rows(plan, rows, dev):
+    """rows, checked as the (B, R_max, 2r) contiguous float64 array on
+    `dev` that the spread adds into."""
+    want = (plan.nbl, plan.R_max, 2 * plan.rank)
+    if not isinstance(rows, torch.Tensor) or rows.dtype != torch.float64:
+        raise TypeError("rows must be a float64 torch.Tensor")
+    if tuple(rows.shape) != want or not rows.is_contiguous():
+        raise ValueError("rows must be contiguous with shape %s, got %s"
+                         % (want, tuple(rows.shape)))
+    if rows.device != dev:
+        raise ValueError("rows is on %s, P_r on %s" % (rows.device, dev))
 
 
 def _tiled(plan, u_h, u_l, P_r):
@@ -145,8 +161,8 @@ def spread_splits(n_live, longest, slots, max_split=_MAX_SPLIT):
 def _worklist(lib, plan, uh, live, S_t, stream):
     """Passes 1-3 on the card: (urange, counts, offsets, tiles) and the
     host ints (live items, longest list), read back in the span
-    k2.worklist, which counts k2.tiles (the listed tiles) and
-    k2.items_live (the items with a tile)."""
+    k2.worklist, which counts k2.tiles (the listed tiles), k2.items (every
+    item, B * n_rb) and k2.items_live (the items with a tile)."""
     dev = uh.device
     B, D, K = plan.nbl, plan.ndir, plan.K
     n_rb = -(-plan.R_max // _nb.K2_ROWS)
@@ -166,6 +182,7 @@ def _worklist(lib, plan, uh, live, S_t, stream):
         total, n_live, longest = torch.stack(
             [counts.sum(), (counts > 0).sum(), counts.max()]).tolist()
         tracing.count("k2.tiles", total)
+        tracing.count("k2.items", B * n_rb)
         tracing.count("k2.items_live", n_live)
     tiles = torch.empty((max(total, 1),), dtype=torch.int32, device=dev)
     err = lib.prisim_banded_k2_fill(
@@ -189,23 +206,32 @@ def banded_worklist_cuda(plan, u_h, u_l, P_r):
         return _worklist(_library(), plan, uh, live, S_t, stream)[:4]
 
 
-def banded_spread_cuda(plan, u_h, u_l, P_r):
-    """K2 banded spread: float64 rows (B, R_max, 2r) of `plan`.
+def banded_spread_cuda(plan, u_h, u_l, P_r, rows=None):
+    """K2 banded spread: float64 rows (B, R_max, 2r) of `plan`, added into
+    `rows` and returned.
 
     u_h/u_l: float32 two-float u streams, D*S_pad values (_prep's
     (1, D*S_pad)); P_r (r, S_pad) float32 or float64 payload, on one
-    device. Counts the sources whose payload is not all zero as
-    src.live."""
+    device. rows: a contiguous (B, R_max, 2r) float64 tensor on that
+    device, to which this call's rows are added (the same float64 sum as
+    rows + banded_spread_plain(...)); None: zeros, so that the result is
+    this call's rows alone. Counts the sources whose payload is not all
+    zero as src.live."""
     _check_inputs(plan, u_h, u_l, P_r)
+    if rows is not None:
+        _check_rows(plan, rows, P_r.device)
     if P_r.device.type == "cpu":
         if tracing.recording():
             tracing.count_device("src.live", (P_r != 0).any(dim=0).sum())
-        return _nb.banded_spread_plain(plan, u_h, u_l, P_r)
+        out = _nb.banded_spread_plain(plan, u_h, u_l, P_r)
+        return out if rows is None else rows.add_(out)
     if P_r.device.type != "cuda":
         raise ValueError("banded_spread_cuda runs on CUDA or CPU tensors, "
                          "got %s" % P_r.device)
     dev = P_r.device
     B, r, R = plan.nbl, plan.rank, plan.R_max
+    if rows is None:
+        rows = torch.zeros((B, R, 2 * r), dtype=torch.float64, device=dev)
     uh, ul, P64, live, S_t = _tiled(plan, u_h, u_l, P_r)
     if tracing.recording():
         tracing.count_device("src.live", live.sum())
@@ -216,17 +242,23 @@ def banded_spread_cuda(plan, u_h, u_l, P_r):
         stream = torch.cuda.current_stream().cuda_stream
         _, counts, offsets, tiles, (n_live, longest) = _worklist(
             lib, plan, uh, live, S_t, stream)
+        banded_spread_cuda.last_counts = counts
+        banded_spread_cuda.last_splits = 0
+        if n_live == 0:            # no source of this call reaches a row
+            return rows
         per_sm = lib.prisim_banded_k2_blocks_per_sm(r, plan.K)
         if per_sm < 1:
             raise RuntimeError("K2 does not fit on an SM (r=%d, K=%d)"
                                % (r, plan.K))
         n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
         n_cols = -(-2 * r // 64)
-        n_split = spread_splits(max(n_live, 1) * n_cols, max(longest, 1),
-                                n_sm * per_sm)
-        part = torch.empty((n_split, B, R, 2 * r), dtype=torch.float64,
-                           device=dev)
-        # the items with the longest lists first, so that the tail is short
+        n_split = spread_splits(n_live * n_cols, longest, n_sm * per_sm)
+        # the splits' partial rows, sized to the live items
+        partial = None if n_split == 1 else torch.empty(
+            (n_split, n_live, _nb.K2_ROWS, 2 * r), dtype=torch.float64,
+            device=dev)
+        # the items with the longest lists first, so that the tail is
+        # short; the n_live items with a tile lead
         order = torch.argsort(counts, descending=True, stable=True).to(
             torch.int32)
         tabs = [t.data_ptr() for t in _tables(plan, dev)]
@@ -235,17 +267,15 @@ def banded_spread_cuda(plan, u_h, u_l, P_r):
         err = lib.prisim_banded_k2(
             uh.data_ptr(), ul.data_ptr(), P_t.data_ptr(), live.data_ptr(),
             *tabs, tap_w.data_ptr(), order.data_ptr(), counts.data_ptr(),
-            offsets.data_ptr(), tiles.data_ptr(), part.data_ptr(), S_t, B, R,
-            r, plan.K, tap_w.shape[1], plan.G_blk,
-            float(ivh), float(ivl), float(nmh), float(nml), n_split, stream)
+            offsets.data_ptr(), tiles.data_ptr(), rows.data_ptr(),
+            None if partial is None else partial.data_ptr(), S_t, B, R, r,
+            plan.K, tap_w.shape[1], plan.G_blk, float(ivh), float(ivl),
+            float(nmh), float(nml), n_live, n_split, stream)
         if err != 0:
             raise RuntimeError("K2 launch failed with cudaError_t %d" % err)
-        # the splits' partial rows, added in split order
-        out = part[0] if n_split == 1 else part.sum(dim=0)
     banded_spread_cuda.launches += 1
-    banded_spread_cuda.last_counts = counts
     banded_spread_cuda.last_splits = n_split
-    return out
+    return rows
 
 
 banded_spread_cuda.launches = 0

@@ -22,7 +22,9 @@ d share one source stream u.
 * The spread is kernel K2 (csrc/banded.cu, wrapper cuda_banded.py) on a
   CUDA card and `banded_spread_plain` on the CPU. Both return the rows
   (B, R_max, 2r) in float64: the TPU kernel's f32 dot, Kahan carries,
-  dot_split and cross-chunk Kahan sum have no role with f64 sums.
+  dot_split and cross-chunk Kahan sum have no role with f64 sums. The
+  snapshot functions zero one such array a snapshot, and every chunk's
+  spread adds into it.
 * `_post` wraps the rows mod n, FFTs them with torch.fft in complex128,
   keeps the C channels, deconvolves, combines the ranks, applies the exact
   per-baseline roll-theorem ramp and expands the redundancy.
@@ -678,10 +680,11 @@ def banded_pair_count(plan, u_h, u_l, P_r):
     return n
 
 
-def _spread(plan, u_h, u_l, P_r):
-    """Kernel K2 for CUDA tensors, the plain version for CPU tensors."""
+def _spread(plan, u_h, u_l, P_r, rows=None):
+    """Kernel K2 for CUDA tensors, the plain version for CPU tensors: the
+    rows added into `rows` (None: fresh zeros) and returned."""
     from .cuda_banded import banded_spread_cuda
-    return banded_spread_cuda(plan, u_h, u_l, P_r)
+    return banded_spread_cuda(plan, u_h, u_l, P_r, rows=rows)
 
 
 def _post(plan, out, Qc):
@@ -990,15 +993,20 @@ def make_banded_snapshot_fns(instrument, sky, beam_fn, plan, pinvQ, Q,
     def prep_chunk(c, Mh, Ml, pch, pcl):
         return _chunk(c, Mh, Ml, pch, pcl)[0]
 
+    def new_rows():
+        """The snapshot's float64 rows, zeroed, which every chunk's spread
+        adds into."""
+        return torch.zeros((plan.nbl, plan.R_max, 2 * plan.rank),
+                           dtype=torch.float64, device=dev)
+
     def run(Mh, Ml, pch, pcl):
-        rows = None
+        rows = new_rows()
         ok = torch.ones((), dtype=torch.bool, device=dev)
         for c in range(n_chunks):
             with tracing.span("prep", chunk=c):
                 u_h, u_l, P_r, okc = prep_chunk(c, Mh, Ml, pch, pcl)
             with tracing.span("k2", chunk=c):
-                part = _spread(plan, u_h, u_l, P_r)
-                rows = part if rows is None else rows.add_(part)
+                _spread(plan, u_h, u_l, P_r, rows=rows)
             ok = ok & okc
         with tracing.span("post"):
             return _post(plan, rows, Qc).to(torch.complex64), ok
@@ -1008,15 +1016,14 @@ def make_banded_snapshot_fns(instrument, sky, beam_fn, plan, pinvQ, Q,
         vd = torch.zeros((plan.nbl_full, C), dtype=torch.complex128,
                          device=dev)
         csum = torch.zeros((C,), dtype=torch.float64, device=dev)
-        rows = None
+        rows = new_rows()
         ok = True
         rmax = amax = 0.0
         for c in range(n_chunks):
             with tracing.span("gate.chunk", chunk=c):
                 (u_h, u_l, P_r, okc), (sl, sh, seh, sel, P) = _chunk(
                     c, Mh, Ml, pch, pcl, vectors=True)
-                part = _spread(plan, u_h, u_l, P_r)
-                rows = part if rows is None else rows.add_(part)
+                _spread(plan, u_h, u_l, P_r, rows=rows)
                 ok = ok and bool(okc)
                 with tracing.span("gate.amps"):
                     amps = _beam_and_flux(sh, flux[sl], freqs_f32, beam_fn,

@@ -3,7 +3,8 @@
 snap_idle_share, live_src_share, noise_s, phasing_s, amps_kernel_share,
 amps_roofline, spread_roofline, nufft_snap_ms, sort_ms, prep_kernel_share,
 prep_roofline, finalize_kernel_share, write_s, write_gbps,
-plan_card_share, payload_ms, gate_amps_s, beam_gevals}.py) on hand-built
+plan_card_share, payload_ms, gate_amps_s, beam_gevals, k2_item_share}.py)
+on hand-built
 records and a synthetic device trace, on a checkout without the recorder,
 and in a traced tiny cell on the CPU, where the recorder keeps the
 profiled simulation alone."""
@@ -515,7 +516,7 @@ def test_traced_and_untraced_tiny_cells_on_the_cpu(tmp_path):
     assert m["plan_card_share"]["value"] == 0.0
     # the card's readers: stream times, K2's worklist, the device trace
     for name in ("prep_ms", "k2_tiles", "snap_idle_share",
-                 "prep_kernel_share", "prep_roofline"):
+                 "prep_kernel_share", "prep_roofline", "k2_item_share"):
         assert name not in m
     assert got["roots"] == 1 and got["snaps"] == got["n_acc"]
     assert m["noise_s"]["value"] + m["phasing_s"]["value"] == \
@@ -772,3 +773,47 @@ def test_benchmark_lists_the_payload_metrics():
     cells = {w["name"]: w for w in bench["workloads"]}
     assert cells["mwa128.catalog"]["config"] == "mwa128-catalog"
     assert cells["mwa128.catalog"]["chips"] == 1
+
+
+def _items(items, gate_items=None):
+    """_banded's records with each snapshot worklist counting `items`
+    (k2.items, beside its 3 live items), and the gate's `gate_items`."""
+    recs = _banded()
+    for r in recs:
+        if r["name"] == "k2.worklist":
+            if r["parent"] == 8:
+                if gate_items is not None:
+                    r["counts"].update({"k2.items": gate_items,
+                                        "k2.items_live": gate_items})
+            elif items is not None:
+                r["counts"]["k2.items"] = items
+    return recs
+
+
+@pytest.mark.parametrize("items,gate_items,want", [
+    (12, None, 25.0), (3, None, 100.0), (12, 40, 25.0), (None, 40, None)])
+def test_k2_item_share(monkeypatch, items, gate_items, want):
+    """k2.items_live over k2.items below the snapshots' k2.worklist spans,
+    in %: (4 x 3) / (4 x items); the gate's worklist is no snapshot's;
+    nothing without a k2.items counter (the parent) or without K2 (the
+    direct engine)."""
+    info = _info(monkeypatch, _items(items, gate_items))
+    got = _read("k2_item_share", info)
+    assert got == (None if want is None else pytest.approx(want))
+    info = _info(monkeypatch, _direct())
+    assert _read("k2_item_share", info) is None
+
+
+def test_benchmark_lists_k2_item_share():
+    """The reader at the end of per_layer, in K2's layer (k2_tiles's),
+    moving vis_rate, in the banded north-star and MWA cells."""
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    entries = {m["name"]: m for m in bench["per_layer"]}
+    e = entries["k2_item_share"]
+    mod = H.load_metric("k2_item_share")
+    assert (mod.UNIT, mod.SOURCE, mod.MOVES, mod.LAYER) == (
+        e["unit"], e["source"], e["moves"], e["layer"])
+    assert e["layer"] == entries["k2_tiles"]["layer"]
+    assert (e["better"], e["moves"]) == ("lower", "vis_rate")
+    assert e["workloads"] == ["hera331.banded", "mwa128.catalog"]
+    assert [m["name"] for m in bench["per_layer"]][-1] == "k2_item_share"

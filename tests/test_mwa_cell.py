@@ -199,7 +199,8 @@ def test_config_and_cell_load_through_the_harness():
                              cell["why"])
     e2e, per_layer = H.benchmark_entries(CELL)
     assert e2e == ["vis_rate", "peak_gb", "setup_s"]
-    assert per_layer == ["payload_ms", "gate_amps_s", "beam_gevals"]
+    assert per_layer == ["payload_ms", "gate_amps_s", "beam_gevals",
+                         "k2_item_share"]
 
 
 def _tree(records):

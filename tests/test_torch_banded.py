@@ -448,6 +448,30 @@ def test_banded_matches_f64_nufft_reference():
 C_SNAP, RANK_SNAP = 32, 8
 
 
+def test_wrapper_adds_into_rows_on_cpu(rows):
+    """banded_spread_cuda(..., rows=R) on CPU tensors adds the plain rows
+    into R and returns R itself: R plus banded_spread_plain bit for bit;
+    rows=None is banded_spread_plain. Rows of another shape, dtype or
+    layout are refused before anything is added."""
+    pt, (u_h, u_l, P_r, _) = rows["pt"], rows["out_t"]
+    R = torch.as_tensor(np.random.RandomState(5).standard_normal(
+        tuple(rows["rt"].shape)))
+    want = R + rows["rt"]
+    got = banded_spread_cuda(pt, u_h, u_l, P_r, rows=R)
+    assert got is R and torch.equal(got, want)
+    assert torch.equal(banded_spread_cuda(pt, u_h, u_l, P_r, rows=None),
+                       nb_t.banded_spread_plain(pt, u_h, u_l, P_r))
+    before = R.clone()
+    with pytest.raises(TypeError):
+        banded_spread_cuda(pt, u_h, u_l, P_r, rows=R.float())
+    with pytest.raises(ValueError):
+        banded_spread_cuda(pt, u_h, u_l, P_r, rows=R[:-1])
+    with pytest.raises(ValueError):
+        banded_spread_cuda(pt, u_h, u_l, P_r,
+                           rows=R.transpose(0, 1).contiguous().transpose(0, 1))
+    assert torch.equal(R, before)
+
+
 @pytest.fixture(scope="module")
 def snapshot_inputs():
     freqs = NU0 + 1e6 * np.arange(C_SNAP)
@@ -664,3 +688,37 @@ def test_snapshot_fns_invariant_to_source_order(snapshot_inputs, mode):
     for a, b in zip(g0[:2], g1[:2]):
         assert np.abs(b - a).max() / coherent <= 1e-12
     assert g0[2] and g1[2] and abs(g1[3] - g0[3]) <= 1e-12
+
+
+@pytest.mark.parametrize("mode", ["f32", "truth"])
+def test_snapshot_fns_accumulate_the_chunks_rows(snapshot_inputs, mode):
+    """run() and the gate's banded side add every chunk's spread into one
+    rows array: their visibilities equal, bit for bit, the _post of the
+    chunks' banded_spread_plain rows summed in chunk order (the first
+    chunk's rows, then each next added), on 3 source chunks of 128."""
+    d = snapshot_inputs
+    pinvQ, Q = d["proj"]
+    it = d["inst_t"]
+    plan = nb_t.make_banded_plan(_hera7_pairs(), it.nu0, it.dnu, C_SNAP,
+                                 rank=RANK_SNAP, T_s=128)
+    kw = {}
+    if mode == "truth":
+        kw["truth"] = {"beam_df": lambda h, l, f: ab_t.airy_beam_df(
+            h, l, f, 14.0), "flux_nodes": d["flux_nodes"]}
+    run = nb_t.make_banded_snapshot_fns(
+        it, SkyT.from_skymodel(d["model"], d["freqs"], "cpu"),
+        lambda s, f: ab_t.airy_beam(s, f, 14.0), plan, pinvQ, Q,
+        src_chunk=128, **kw)
+    args = tuple(torch.as_tensor(a) for a in d["sched"])
+    assert run.n_chunks == 3
+    total = None
+    for c in range(run.n_chunks):
+        part = nb_t.banded_spread_plain(plan, *run.prep_chunk(c, *args)[:3])
+        total = part if total is None else total.add_(part)
+    nm = run.node_model
+    Qc = torch.as_tensor(nm.Q64 if nm is not None else Q,
+                         dtype=torch.float64)
+    want = nb_t._post(plan, total, Qc)
+    assert float(total.abs().max()) > 0
+    assert torch.equal(run(*args)[0], want.to(torch.complex64))
+    np.testing.assert_array_equal(run.gate_fn(*args)[1], want.numpy())

@@ -391,6 +391,7 @@ def test_k2_worklist_matches_plain(cuda, case):
 def test_span_counters_match_the_kernels_own_counts(cuda, case):
     """With the recorder on, a K2 launch counts k2.tiles and k2.items_live
     equal to the sum and the live count of banded_worklist_cuda's counts,
+    k2.items equal to B x n_rb (every item of the worklist),
     and src.live equal to the sources with a payload; a K1a launch counts
     src.live equal to live_order's n_live; the spans record the launches
     and their stream milliseconds."""
@@ -424,12 +425,123 @@ def test_span_counters_match_the_kernels_own_counts(cuda, case):
                            freq_grid_scalars(150e6, 97656.25), 256)
     _, k2, worklist, k1a = tracing.take()
     assert worklist["name"] == "k2.worklist"
+    n_rb = -(-plan.R_max // nb.K2_ROWS)
     assert worklist["counts"] == {"k2.tiles": int(counts.sum()),
+                                  "k2.items": plan.nbl * n_rb,
                                   "k2.items_live": int((counts > 0).sum())}
     assert k2["counts"] == {"src.live": int((P_r != 0).any(dim=0).sum())}
     assert k1a["counts"] == {"src.live": int(live_order(amps)[1])}
     assert k2["launches"] == {"k2": 1} and k1a["launches"] == {"k1a": 1}
     assert k2["device_ms"] > 0 and k1a["device_ms"] > 0
+
+
+def _hera37_slice(cuda, seed=4):
+    """The HERA-37 slice's K2 problem: all 666 pairs (63 unique rows),
+    1024 channels, rank 32, 12,288 sources: too few live items to fill the
+    card, so K2 splits their lists."""
+    from prisim_tpu_torch import baselines, layouts
+    bl = baselines.build_baselines(layouts.preset_layout("HERA-37"),
+                                   redundant=False).vectors
+    return _banded_problem(bl, 1024, 32, 12288, 2048, seed=seed, cuda=cuda)
+
+
+def _random_rows(plan, scale, cuda, seed=6):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return scale * torch.randn((plan.nbl, plan.R_max, 2 * plan.rank),
+                               dtype=torch.float64, device=cuda, generator=g)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["north_star_like", "hera37_slice"])
+def test_k2_adds_into_rows(cuda, case):
+    """K2 with rows=R adds into R and returns it: R + banded_spread_plain to
+    1e-12 of max|rows| (test_k2_matches_plain's bar), as K2 alone (rows
+    None) plus R."""
+    if case == "hera37_slice":
+        plan, (u_h, u_l, P_r, _) = _hera37_slice(cuda)
+    else:
+        rng = np.random.RandomState(1)
+        bl = np.concatenate([rng.uniform(-300, 300, (30, 3))
+                             * [1, 1, 0.01], [[14.6, 0.0, 0.0]]])
+        plan, (u_h, u_l, P_r, _) = _banded_problem(bl, 1024, 32, 20000,
+                                                   2048, seed=2, cuda=cuda)
+    plain = nb.banded_spread_plain(plan, u_h, u_l, P_r)
+    scale = float(plain.abs().max())
+    R = _random_rows(plan, scale, cuda)
+    want = R + plain
+    got = banded_spread_cuda(plan, u_h, u_l, P_r, rows=R)
+    torch.cuda.synchronize()
+    assert got is R
+    assert float((got - want).abs().max()) / scale < 1e-12
+
+
+@pytest.mark.gpu
+def test_k2_one_split_adds_the_dense_rows_bit_for_bit(cuda, monkeypatch):
+    """With one split the accumulating epilogue does the float64
+    operations of a dense write and an add, in that order: rows=R gives
+    R + (K2 into zeros), bit for bit; and no launch of the north-star-like
+    problem splits."""
+    from prisim_tpu_torch.engine import cuda_banded
+    rng = np.random.RandomState(1)
+    bl = np.concatenate([rng.uniform(-300, 300, (30, 3)) * [1, 1, 0.01],
+                         [[14.6, 0.0, 0.0]]])
+    plan, (u_h, u_l, P_r, _) = _banded_problem(bl, 1024, 32, 20000, 2048,
+                                               seed=2, cuda=cuda)
+    monkeypatch.setattr(cuda_banded, "spread_splits", lambda *a, **k: 1)
+    dense = banded_spread_cuda(plan, u_h, u_l, P_r)
+    assert banded_spread_cuda.last_splits == 1
+    R = _random_rows(plan, float(dense.abs().max()), cuda)
+    want = R + dense
+    got = banded_spread_cuda(plan, u_h, u_l, P_r, rows=R)
+    assert banded_spread_cuda.last_splits == 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_split", [None, 3, 8])
+def test_k2_splits_match_plain(cuda, monkeypatch, n_split):
+    """The HERA-37 slice's lists split among blocks (as chosen, and forced
+    to 3 and 8): the splits' partial rows summed in split order and added
+    into R equal R + banded_spread_plain to 1e-12 of max|rows|, and two
+    launches agree bit for bit."""
+    from prisim_tpu_torch.engine import cuda_banded
+    plan, (u_h, u_l, P_r, _) = _hera37_slice(cuda)
+    if n_split is not None:
+        monkeypatch.setattr(cuda_banded, "spread_splits",
+                            lambda *a, **k: n_split)
+    plain = nb.banded_spread_plain(plan, u_h, u_l, P_r)
+    scale = float(plain.abs().max())
+    R = _random_rows(plan, scale, cuda)
+    want = R + plain
+    again = R.clone()
+    got = banded_spread_cuda(plan, u_h, u_l, P_r, rows=R)
+    banded_spread_cuda(plan, u_h, u_l, P_r, rows=again)
+    torch.cuda.synchronize()
+    if n_split is not None:
+        assert banded_spread_cuda.last_splits == n_split
+    assert banded_spread_cuda.last_splits > 1
+    assert torch.equal(got, again)
+    assert float((got - want).abs().max()) / scale < 1e-12
+
+
+@pytest.mark.gpu
+def test_k2_without_live_sources_launches_nothing(cuda):
+    """A chunk whose payload is all zero (below the horizon) has no live
+    item: the worklist runs, no spread is launched, and rows are left as
+    they were."""
+    plan, (u_h, u_l, P_r, _) = _hera37_slice(cuda)
+    P_r = torch.zeros_like(P_r)
+    R = _random_rows(plan, 1.0, cuda)
+    before = R.clone()
+    n0 = banded_spread_cuda.launches
+    got = banded_spread_cuda(plan, u_h, u_l, P_r, rows=R)
+    torch.cuda.synchronize()
+    assert got is R and torch.equal(R, before)
+    assert banded_spread_cuda.launches == n0
+    assert banded_spread_cuda.last_splits == 0
+    assert int(banded_spread_cuda.last_counts.sum()) == 0
+    zero = banded_spread_cuda(plan, u_h, u_l, P_r)
+    assert zero.shape == R.shape and not bool(zero.any())
 
 
 @pytest.mark.gpu
@@ -442,6 +554,14 @@ def test_k2_rejects_bad_inputs(cuda):
         banded_spread_cuda(plan, u_h, u_l.cpu(), P_r)
     with pytest.raises(ValueError):
         banded_spread_cuda(plan, u_h, u_l, P_r[:2])
+    rows = torch.zeros((plan.nbl, plan.R_max, 2 * plan.rank),
+                       dtype=torch.float64, device=cuda)
+    with pytest.raises(TypeError):
+        banded_spread_cuda(plan, u_h, u_l, P_r, rows=rows.float())
+    with pytest.raises(ValueError):
+        banded_spread_cuda(plan, u_h, u_l, P_r, rows=rows.cpu())
+    with pytest.raises(ValueError):
+        banded_spread_cuda(plan, u_h, u_l, P_r, rows=rows[:, :-1])
 
 
 @pytest.mark.gpu
